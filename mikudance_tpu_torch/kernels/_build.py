@@ -1,0 +1,114 @@
+"""Build and load the port's CUDA kernel library.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``. The build
+happens at first use, into ``build/kernels/`` at the repository root, under
+a file name keyed by a hash of the sources and flags, so it is reused while
+the sources are unchanged. Nothing here runs at import time: the CPU tests
+import every module on a machine with no ``nvcc`` and no card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+
+P, I = ctypes.c_void_p, ctypes.c_int
+# C entry point -> argument types; every entry point returns cudaGetLastError().
+SIGNATURES = {
+    # q, k, v, o, batch, seq, heads, head_dim, stream
+    "md_flash_fullc": (P, P, P, P, I, I, I, I, P),
+    # q, k, v, o, batch, q_len, kv_len, heads, head_dim, stream
+    "md_flash_cross": (P, P, P, P, I, I, I, I, I, P),
+    # q, k, v, o, batch, seq, heads, head_dim, stream
+    "md_flash_wide": (P, P, P, P, I, I, I, I, P),
+    # q, k, v, o, batch, frames, positions, channels, heads, stream
+    "md_temporal_attention": (P, P, P, P, I, I, I, I, I, P),
+    # error code -> message
+    "md_error_string": (I,),
+}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libmd_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with "
+                           "the CUDA toolkit (set CUDA_HOME)")
+    return path
+
+
+def build() -> Path:
+    """Compile the library if no build of the current sources exists.
+    Returns its path. The compile writes to a temporary name and renames,
+    so a concurrent or interrupted build never leaves a partial library.
+    ptxas's report (registers, shared memory, spills per kernel) is kept
+    beside the library as ``<name>.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *cu],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    out.with_suffix(".log").write_text(res.stdout + res.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+@functools.cache
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use and loaded once per process."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_char_p if name == "md_error_string" else ctypes.c_int
+    return lib
+
+
+class CudaKernel:
+    """One C entry point of the library, with a plain count of its launches.
+
+    ``source`` and ``replaces`` name the CUDA file and the TPU kernel it
+    ports; ``chip_smoke.py`` reports them beside the measurements."""
+
+    def __init__(self, name: str, symbol: str, source: str, replaces: str):
+        self.name, self.symbol, self.source, self.replaces = name, symbol, source, replaces
+        self.launches = 0
+
+    def launch(self, *args) -> None:
+        lib = load()
+        err = getattr(lib, self.symbol)(*args)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.symbol}: CUDA error {err} ({lib.md_error_string(err).decode()})")
+        self.launches += 1

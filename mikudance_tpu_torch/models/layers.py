@@ -1,0 +1,233 @@
+"""Shared layers: time embeddings, norms, attention, transformer blocks.
+
+Port of ``mikudance_tpu/models/layers.py``. Parameter names follow the
+reference checkpoint's key grammar (diffusers ``Attention``,
+``FeedForward``, ``BasicTransformerBlock``, ``Transformer2DModel``), so a
+module's ``state_dict`` is what ``core.convert`` reads.
+
+The reference-attention "bank" mechanism is functional: write-mode blocks
+*return* their normed hidden states; read-mode blocks take the banks already
+projected through their own attn1 K/V weights (``ref_kv``) and add them to
+the self-attention K/V projections — by linearity the additive injection
+``W(norm_h + ref)`` of the reference (`mutual_mix_attention.py:169-180`).
+The CFG-uncond half gets zero bank K/V, which is plain self-attention.
+
+All token tensors are (B, S, C); all image tensors are NHWC.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels.flash_attention import attention as run_attention
+
+KV = Tuple[torch.Tensor, torch.Tensor]
+
+
+def get_timestep_embedding(
+    timesteps: torch.Tensor,
+    dim: int,
+    flip_sin_to_cos: bool = True,
+    freq_shift: float = 0.0,
+    max_period: float = 10000.0,
+) -> torch.Tensor:
+    """Sinusoidal timestep embedding, matching diffusers ``Timesteps``.
+
+    timesteps: (B,) float or int; returns (B, dim) float32.
+    """
+    half = dim // 2
+    exponent = -math.log(max_period) * torch.arange(
+        half, dtype=torch.float32, device=timesteps.device)
+    exponent = exponent / (half - freq_shift)
+    emb = torch.exp(exponent)[None, :] * timesteps.float()[:, None]
+    sin, cos = torch.sin(emb), torch.cos(emb)
+    if flip_sin_to_cos:
+        return torch.cat([cos, sin], dim=-1)
+    return torch.cat([sin, cos], dim=-1)
+
+
+class TimestepEmbed(nn.Module):
+    """linear -> silu -> linear (diffusers ``TimestepEmbedding``)."""
+
+    def __init__(self, in_dim: int, embed_dim: int):
+        super().__init__()
+        self.linear_1 = nn.Linear(in_dim, embed_dim)
+        self.linear_2 = nn.Linear(embed_dim, embed_dim)
+
+    def forward(self, t_emb: torch.Tensor) -> torch.Tensor:
+        return self.linear_2(F.silu(self.linear_1(t_emb)))
+
+
+def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               groups: int, eps: float, silu: bool = False) -> torch.Tensor:
+    """GroupNorm(+SiLU) over channels-last x with fp32 statistics (two-pass
+    variance), cast back to x's dtype — ``group_norm_ref`` of the JAX package."""
+    N, C = x.shape[0], x.shape[-1]
+    xf = x.float().reshape(N, -1, groups, C // groups)
+    mu = xf.mean(dim=(1, 3), keepdim=True)
+    var = (xf - mu).square().mean(dim=(1, 3), keepdim=True)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(x.shape)
+    y = y * weight.float() + bias.float()
+    if silu:
+        y = F.silu(y)
+    return y.to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over the last (channel) axis; ``weight``/``bias`` as torch's."""
+
+    def __init__(self, groups: int, channels: int, eps: float = 1e-5,
+                 silu: bool = False):
+        super().__init__()
+        self.groups, self.eps, self.silu = groups, eps, silu
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm(x, self.weight, self.bias, self.groups, self.eps, self.silu)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with the JAX package's one-pass variance E[x^2] - E[x]^2
+    in fp32 (``layers.py:154-160``), cast back to x's dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(dim))
+        self.bias = nn.Parameter(torch.zeros(dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mu = xf.mean(dim=-1, keepdim=True)
+        var = xf.square().mean(dim=-1, keepdim=True) - mu.square()
+        y = (xf - mu) * torch.rsqrt(var + self.eps) * self.weight.float() + self.bias.float()
+        return y.to(x.dtype)
+
+
+class Attention(nn.Module):
+    """diffusers-style Attention: to_q/to_k/to_v (no bias), to_out.0 (bias).
+
+    ``kv_dim`` differs from ``dim`` for cross-attention (CLIP context: 768).
+    Two hooks take step-invariant work out of the denoise loop:
+
+    - ``extra_kv=(k_add, v_add)``: reference-bank K/V, already projected,
+      added to the self-attention K/V projections.
+    - ``kv=(k, v)``: precomputed K/V replacing the projections entirely
+      (the hoisted cross-attention context K/V).
+    """
+
+    def __init__(self, dim: int, heads: int, kv_dim: Optional[int] = None):
+        super().__init__()
+        self.heads = heads
+        self.to_q = nn.Linear(dim, dim, bias=False)
+        self.to_k = nn.Linear(kv_dim or dim, dim, bias=False)
+        self.to_v = nn.Linear(kv_dim or dim, dim, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(dim, dim)])
+
+    def project_kv(self, ctx: torch.Tensor) -> KV:
+        """The K/V projections alone — what ``precompute_*_kv`` hoist."""
+        return self.to_k(ctx), self.to_v(ctx)
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None,
+                extra_kv: Optional[KV] = None, kv: Optional[KV] = None) -> torch.Tensor:
+        q = self.to_q(x)
+        if kv is not None:
+            k, v = kv[0].to(q.dtype), kv[1].to(q.dtype)
+        else:
+            k, v = self.project_kv(x if context is None else context)
+            if extra_kv is not None:
+                k = k + extra_kv[0].to(k.dtype)
+                v = v + extra_kv[1].to(v.dtype)
+        return self.to_out[0](run_attention(q, k, v, self.heads))
+
+
+class GEGLU(nn.Module):
+    def __init__(self, dim: int, inner: int):
+        super().__init__()
+        self.proj = nn.Linear(dim, inner * 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        hidden, gate = self.proj(x).chunk(2, dim=-1)
+        return hidden * F.gelu(gate)  # exact erf GELU (layers.py:413)
+
+
+class GEGLUFeedForward(nn.Module):
+    """dim -> 4*dim GEGLU -> dim (diffusers ``FeedForward``: net.0 = GEGLU,
+    net.1 = dropout (identity at inference), net.2 = Linear)."""
+
+    def __init__(self, dim: int, mult: int = 4):
+        super().__init__()
+        inner = dim * mult
+        self.net = nn.ModuleList([GEGLU(dim, inner), nn.Identity(), nn.Linear(inner, dim)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for m in self.net:
+            x = m(x)
+        return x
+
+
+class TransformerBlock(nn.Module):
+    """Basic transformer block: self-attn (+ bank K/V) / cross / FF.
+
+    - ``write=True`` (guidance UNet): also returns norm_h, the bank entry
+      (`mutual_mix_attention.py:140`).
+    - ``ref_kv`` given (denoising UNet): the bank K/V are added to the
+      self-attention K/V projections (zeros for the uncond half).
+    """
+
+    def __init__(self, dim: int, heads: int, cross_dim: int = 768):
+        super().__init__()
+        self.norm1 = LayerNorm(dim)
+        self.attn1 = Attention(dim, heads)
+        self.norm2 = LayerNorm(dim)
+        self.attn2 = Attention(dim, heads, kv_dim=cross_dim)
+        self.norm3 = LayerNorm(dim)
+        self.ff = GEGLUFeedForward(dim)
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor],
+                write: bool = False, ref_kv: Optional[KV] = None,
+                ctx_kv: Optional[KV] = None):
+        norm_h = self.norm1(x)
+        x = x + self.attn1(norm_h, extra_kv=ref_kv)
+        x = x + self.attn2(self.norm2(x), context, kv=ctx_kv)
+        x = x + self.ff(self.norm3(x))
+        return x, (norm_h if write else None)
+
+
+def linear_1x1(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """A 1x1 conv applied as a Dense over the channel axis of channels-last x
+    (the reference's Transformer2DModel projections; weights stay (O, I, 1, 1))."""
+    return F.linear(x, conv.weight[:, :, 0, 0], conv.bias)
+
+
+class SpatialTransformer(nn.Module):
+    """GroupNorm -> 1x1 proj_in -> TransformerBlock -> 1x1 proj_out (+res).
+
+    ``Transformer2DModel`` with the SD1.5 config (1x1-conv projections, one
+    block, ``transformer_blocks.0``)."""
+
+    def __init__(self, dim: int, heads: int, cross_dim: int = 768, norm_groups: int = 32):
+        super().__init__()
+        self.norm = GroupNorm(norm_groups, dim, 1e-6)
+        self.proj_in = nn.Conv2d(dim, dim, 1)
+        self.transformer_blocks = nn.ModuleList([TransformerBlock(dim, heads, cross_dim)])
+        self.proj_out = nn.Conv2d(dim, dim, 1)
+
+    @property
+    def block(self) -> TransformerBlock:
+        return self.transformer_blocks[0]
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor],
+                write: bool = False, ref_kv: Optional[KV] = None,
+                ctx_kv: Optional[KV] = None):
+        B, H, W, C = x.shape
+        h = linear_1x1(self.norm(x), self.proj_in).reshape(B, H * W, C)
+        h, bank = self.block(h, context, write=write, ref_kv=ref_kv, ctx_kv=ctx_kv)
+        h = linear_1x1(h, self.proj_out).reshape(B, H, W, C)
+        return h + x, bank
