@@ -1,20 +1,23 @@
 """Reference ``state_dict`` <-> JAX parameter tree, both directions.
 
 The forward converters (``convert_unet``, ``convert_vae_encoder``,
-``convert_vae_decoder`` and their sub-tree helpers) are copied from the JAX
-package (``mikudance_tpu/core/convert.py:29-276``); they are numpy only. The
+``convert_vae_decoder``, ``convert_clip_vision``, ``convert_temporal_decoder``
+and their sub-tree helpers) are copied from the JAX package
+(``mikudance_tpu/core/convert.py:29-390``); they are numpy only. The
 port names its parameters in the reference checkpoint's key grammar
 (diffusers UNet / VAE names), so a port ``state_dict`` goes through them to
 the JAX tree, and a released ``.pth`` loads into the port with no converter.
 
-The inverses (``unet_state_dict_from_jax``, ``vae_encoder_state_dict_from_jax``
-and ``vae_decoder_state_dict_from_jax``) turn a JAX tree of numpy arrays back
+The inverses (``unet_state_dict_from_jax``, ``vae_encoder_state_dict_from_jax``,
+``vae_decoder_state_dict_from_jax``, ``temporal_decoder_state_dict_from_jax``
+and ``clip_vision_state_dict_from_jax``) turn a JAX tree of numpy arrays back
 into a ``state_dict`` that loads into the port's modules with ``strict=True``.
 
 Transform rules (forward; the inverses undo them):
 - Conv2d weight (O, I, kh, kw) -> HWIO kernel (kh, kw, I, O)
 - 1x1-conv projections that became Dense (spatial transformer
   proj_in/proj_out) -> squeeze spatial dims, transpose to (I, O)
+- Conv3d (3,1,1) weight (O, I, 3, 1, 1) -> kernel (3, 1, I, O)
 - Linear weight (O, I) -> kernel (I, O)
 - Norm weight -> scale
 """
@@ -276,6 +279,98 @@ def convert_vae_decoder(src: Mapping, num_blocks: int = 4, layers_per_block: int
     return out
 
 
+def convert_clip_vision(src: Mapping, num_layers: int = 24) -> Dict:
+    """Hugging Face ``CLIPVisionModelWithProjection`` keys -> CLIPVisionTower params."""
+    out: Dict[str, Any] = {}
+    _set(out, ("class_embedding",), _t(src["vision_model.embeddings.class_embedding"]))
+    _set(out, ("patch_embedding", "kernel"),
+         conv_kernel(src["vision_model.embeddings.patch_embedding.weight"]))
+    _set(out, ("position_embedding",), _t(src["vision_model.embeddings.position_embedding.weight"]))
+    for n in ("pre_layrnorm", "post_layernorm"):
+        _set(out, (n, "scale"), _t(src[f"vision_model.{n}.weight"]))
+        _set(out, (n, "bias"), _t(src[f"vision_model.{n}.bias"]))
+    for i in range(num_layers):
+        p = f"vision_model.encoder.layers.{i}"
+        d = f"layers_{i}"
+        for n in ("layer_norm1", "layer_norm2"):
+            _set(out, (d, n, "scale"), _t(src[f"{p}.{n}.weight"]))
+            _set(out, (d, n, "bias"), _t(src[f"{p}.{n}.bias"]))
+        for n in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _set(out, (d, n, "kernel"), dense_kernel(src[f"{p}.self_attn.{n}.weight"]))
+            _set(out, (d, n, "bias"), _t(src[f"{p}.self_attn.{n}.bias"]))
+        for n in ("fc1", "fc2"):
+            _set(out, (d, n, "kernel"), dense_kernel(src[f"{p}.mlp.{n}.weight"]))
+            _set(out, (d, n, "bias"), _t(src[f"{p}.mlp.{n}.bias"]))
+    _set(out, ("visual_projection", "kernel"), dense_kernel(src["visual_projection.weight"]))
+    return out
+
+
+def conv_temporal_kernel(x) -> np.ndarray:
+    """torch Conv3d (O, I, 3, 1, 1) -> (3, 1, I, O)."""
+    a = _t(x)[:, :, :, 0, :]  # (O, I, 3, 1)
+    return a.transpose(2, 3, 1, 0)
+
+
+def _convert_st_resblock(src: Mapping, prefix: str, out: Dict, dst: Tuple[str, ...]):
+    """SpatioTemporalResBlock -> spatial_* + temporal_res_block + mix_factor."""
+    sp = f"{prefix}.spatial_res_block"
+    m = {
+        "norm1.weight": ("spatial_norm1", "scale", _t),
+        "norm1.bias": ("spatial_norm1", "bias", _t),
+        "conv1.weight": ("spatial_conv1", "kernel", conv_kernel),
+        "conv1.bias": ("spatial_conv1", "bias", _t),
+        "norm2.weight": ("spatial_norm2", "scale", _t),
+        "norm2.bias": ("spatial_norm2", "bias", _t),
+        "conv2.weight": ("spatial_conv2", "kernel", conv_kernel),
+        "conv2.bias": ("spatial_conv2", "bias", _t),
+        "conv_shortcut.weight": ("spatial_conv_shortcut", "kernel", conv_kernel),
+        "conv_shortcut.bias": ("spatial_conv_shortcut", "bias", _t),
+    }
+    for k, (sub, leaf, fn) in m.items():
+        key = f"{sp}.{k}"
+        if key in src:
+            _set(out, dst + (sub, leaf), fn(src[key]))
+    tp = f"{prefix}.temporal_res_block"
+    for n in ("norm1", "norm2"):
+        _set(out, dst + ("temporal_res_block", n, "scale"), _t(src[f"{tp}.{n}.weight"]))
+        _set(out, dst + ("temporal_res_block", n, "bias"), _t(src[f"{tp}.{n}.bias"]))
+    for n in ("conv1", "conv2"):
+        _set(out, dst + ("temporal_res_block", n, "conv", "kernel"),
+             conv_temporal_kernel(src[f"{tp}.{n}.weight"]))
+        _set(out, dst + ("temporal_res_block", n, "conv", "bias"), _t(src[f"{tp}.{n}.bias"]))
+    _set(out, dst + ("mix_factor",), _t(src[f"{prefix}.time_mixer.mix_factor"]).reshape(1))
+
+
+def convert_temporal_decoder(src: Mapping, num_blocks: int = 4, layers_per_block: int = 2) -> Dict:
+    """AutoencoderKLTemporalDecoder ``decoder.*`` keys -> TemporalDecoder params."""
+    out: Dict[str, Any] = {}
+    _set(out, ("conv_in", "kernel"), conv_kernel(src["decoder.conv_in.weight"]))
+    _set(out, ("conv_in", "bias"), _t(src["decoder.conv_in.bias"]))
+    _convert_st_resblock(src, "decoder.mid_block.resnets.0", out, ("mid_res_0",))
+    _convert_vae_attention(src, "decoder.mid_block.attentions.0", out, ("mid_attn",))
+    _convert_st_resblock(src, "decoder.mid_block.resnets.1", out, ("mid_res_1",))
+    for i in range(num_blocks):
+        for j in range(layers_per_block + 1):
+            _convert_st_resblock(src, f"decoder.up_blocks.{i}.resnets.{j}", out,
+                                 (f"up_{i}_res_{j}",))
+        if i < num_blocks - 1:
+            _set(out, (f"up_{i}_up", "conv", "kernel"),
+                 conv_kernel(src[f"decoder.up_blocks.{i}.upsamplers.0.conv.weight"]))
+            _set(out, (f"up_{i}_up", "conv", "bias"),
+                 _t(src[f"decoder.up_blocks.{i}.upsamplers.0.conv.bias"]))
+    _set(out, ("conv_norm_out", "scale"), _t(src["decoder.conv_norm_out.weight"]))
+    _set(out, ("conv_norm_out", "bias"), _t(src["decoder.conv_norm_out.bias"]))
+    _set(out, ("conv_out", "kernel"), conv_kernel(src["decoder.conv_out.weight"]))
+    _set(out, ("conv_out", "bias"), _t(src["decoder.conv_out.bias"]))
+    # time_conv_out lives inside the decoder module in diffusers'
+    # AutoencoderKLTemporalDecoder; accept a pre-stripped dict too.
+    tk = "decoder.time_conv_out" if "decoder.time_conv_out.weight" in src else "time_conv_out"
+    _set(out, ("time_conv_out", "conv", "kernel"),
+         conv_temporal_kernel(src[f"{tk}.weight"]))
+    _set(out, ("time_conv_out", "conv", "bias"), _t(src[f"{tk}.bias"]))
+    return out
+
+
 # --------------------------------------------------------------------------
 # inverses: JAX param tree -> reference-grammar state_dict
 # --------------------------------------------------------------------------
@@ -482,4 +577,73 @@ def vae_decoder_state_dict_from_jax(
         _emit(tree, conv, f"decoder.up_blocks.{i}.upsamplers.0", (f"up_{i}_up",), out)
     _emit(tree, _norm_rules("conv_norm_out", "conv_norm_out")
           + _dense_rules("conv_out", ("conv_out",), fn=_oihw), "decoder", (), out)
+    return out
+
+
+def _oi311(x) -> np.ndarray:
+    """(3, 1, I, O) temporal kernel -> torch Conv3d (O, I, 3, 1, 1)."""
+    return _np(np.asarray(x).transpose(3, 2, 0, 1))[..., None]
+
+
+_ST_RESBLOCK_RULES = (
+    tuple((f"spatial_res_block.{n}.{leaf}",
+           (f"spatial_{n}", "scale" if n.startswith("norm") and leaf == "weight" else
+            "kernel" if leaf == "weight" else "bias"),
+           _np if leaf == "bias" or n.startswith("norm") else _oihw)
+          for n in ("norm1", "conv1", "norm2", "conv2", "conv_shortcut")
+          for leaf in ("weight", "bias"))
+    + _prefixed(_norm_rules("norm1", "norm1") + _norm_rules("norm2", "norm2")
+                + _dense_rules("conv1", ("conv1", "conv"), fn=_oi311)
+                + _dense_rules("conv2", ("conv2", "conv"), fn=_oi311),
+                "temporal_res_block", ("temporal_res_block",))
+    + (("time_mixer.mix_factor", ("mix_factor",), _np),)
+)
+
+
+def temporal_decoder_state_dict_from_jax(
+    tree: Mapping, num_blocks: int = 4, layers_per_block: int = 2
+) -> Dict[str, np.ndarray]:
+    """TemporalDecoder param tree -> ``decoder.*`` keys (inverse of
+    ``convert_temporal_decoder``)."""
+    tree = tree.get("params", tree)
+    out: Dict[str, np.ndarray] = {}
+    _emit(tree, _dense_rules("conv_in", ("conv_in",), fn=_oihw), "decoder", (), out)
+    _emit(tree, _ST_RESBLOCK_RULES, "decoder.mid_block.resnets.0", ("mid_res_0",), out)
+    _emit(tree, _VAE_ATTENTION_RULES, "decoder.mid_block.attentions.0", ("mid_attn",), out)
+    _emit(tree, _ST_RESBLOCK_RULES, "decoder.mid_block.resnets.1", ("mid_res_1",), out)
+    for i in range(num_blocks):
+        for j in range(layers_per_block + 1):
+            _emit(tree, _ST_RESBLOCK_RULES, f"decoder.up_blocks.{i}.resnets.{j}",
+                  (f"up_{i}_res_{j}",), out)
+        _emit(tree, _dense_rules("conv", ("conv",), fn=_oihw),
+              f"decoder.up_blocks.{i}.upsamplers.0", (f"up_{i}_up",), out)
+    _emit(tree, _norm_rules("conv_norm_out", "conv_norm_out")
+          + _dense_rules("conv_out", ("conv_out",), fn=_oihw)
+          + _dense_rules("time_conv_out", ("time_conv_out", "conv"), fn=_oi311),
+          "decoder", (), out)
+    return out
+
+
+def clip_vision_state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
+    """CLIPVisionTower param tree -> Hugging Face keys (inverse of
+    ``convert_clip_vision``); layers are emitted while the tree has them."""
+    tree = tree.get("params", tree)
+    out: Dict[str, np.ndarray] = {}
+    emb = "vision_model.embeddings"
+    out[f"{emb}.class_embedding"] = _np(tree["class_embedding"])
+    out[f"{emb}.patch_embedding.weight"] = _oihw(tree["patch_embedding"]["kernel"])
+    out[f"{emb}.position_embedding.weight"] = _np(tree["position_embedding"])
+    _emit(tree, _norm_rules("pre_layrnorm", "pre_layrnorm")
+          + _norm_rules("post_layernorm", "post_layernorm"), "vision_model", (), out)
+    layer_rules = (
+        _norm_rules("layer_norm1", "layer_norm1") + _norm_rules("layer_norm2", "layer_norm2")
+        + sum((_dense_rules(f"self_attn.{n}", (n,))
+               for n in ("q_proj", "k_proj", "v_proj", "out_proj")), ())
+        + _dense_rules("mlp.fc1", ("fc1",)) + _dense_rules("mlp.fc2", ("fc2",))
+    )
+    i = 0
+    while f"layers_{i}" in tree:
+        _emit(tree, layer_rules, f"vision_model.encoder.layers.{i}", (f"layers_{i}",), out)
+        i += 1
+    _emit(tree, _dense_rules("visual_projection", ("visual_projection",), bias=False), "", (), out)
     return out

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernel library.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process for
+``sm_90a``, all started together, and the objects are linked into one shared
+library with a plain C interface, loaded with ``ctypes``. The build
 happens at first use, into ``build/kernels/`` at the repository root, under
 a file name keyed by a hash of the sources and flags, so it is reused while
 the sources are unchanged. Nothing here runs at import time: the CPU tests
@@ -22,9 +23,9 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo")
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry point -> argument types; every entry point returns cudaGetLastError().
 SIGNATURES = {
     # q, k, v, o, batch, seq, heads, head_dim, stream
@@ -35,6 +36,11 @@ SIGNATURES = {
     "md_flash_wide": (P, P, P, P, I, I, I, I, P),
     # q, k, v, o, batch, frames, positions, channels, heads, stream
     "md_temporal_attention": (P, P, P, P, I, I, I, I, I, P),
+    # x, weight, bias, y, scratch, images, rows, channels, groups, eps, silu, x_fp32,
+    # w_fp32, rows_per_block, splits, chunk_w, lanes, stream
+    "md_group_norm": (P, P, P, P, P, I, L, I, I, F, I, I, I, I, I, I, I, P),
+    # x, weight, bias, y, rows, channels, eps, x_fp32, w_fp32, stream
+    "md_layer_norm": (P, P, P, P, L, I, F, I, I, P),
     # error code -> message
     "md_error_string": (I,),
 }
@@ -63,24 +69,33 @@ def _nvcc() -> str:
 
 def build() -> Path:
     """Compile the library if no build of the current sources exists.
-    Returns its path. The compile writes to a temporary name and renames,
-    so a concurrent or interrupted build never leaves a partial library.
+    Returns its path. One nvcc per source runs in parallel; the link writes
+    to a temporary directory and renames, so a concurrent or interrupted
+    build never leaves a partial library.
     ptxas's report (registers, shared memory, spills per kernel) is kept
     beside the library as ``<name>.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *cu],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    cu = [s for s in _sources() if s.suffix == ".cu"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, s.stem + ".o") for s in cu]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", obj, str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(cu, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        failed = [f"{src.name} ({p.returncode}):\n{log}"
+                  for src, p, log in zip(cu, procs, logs) if p.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        res = subprocess.run([nvcc, "-shared", "-o", lib, *objs], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+        out.with_suffix(".log").write_text("".join(logs) + res.stdout + res.stderr)
+        os.replace(lib, out)
     return out
 
 

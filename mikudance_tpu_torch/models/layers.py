@@ -25,6 +25,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.flash_attention import attention as run_attention
+from ..kernels.group_norm import fused_group_norm
+from ..kernels.layer_norm import fused_layer_norm
 
 KV = Tuple[torch.Tensor, torch.Tensor]
 
@@ -63,23 +65,10 @@ class TimestepEmbed(nn.Module):
         return self.linear_2(F.silu(self.linear_1(t_emb)))
 
 
-def group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-               groups: int, eps: float, silu: bool = False) -> torch.Tensor:
-    """GroupNorm(+SiLU) over channels-last x with fp32 statistics (two-pass
-    variance), cast back to x's dtype — ``group_norm_ref`` of the JAX package."""
-    N, C = x.shape[0], x.shape[-1]
-    xf = x.float().reshape(N, -1, groups, C // groups)
-    mu = xf.mean(dim=(1, 3), keepdim=True)
-    var = (xf - mu).square().mean(dim=(1, 3), keepdim=True)
-    y = ((xf - mu) * torch.rsqrt(var + eps)).reshape(x.shape)
-    y = y * weight.float() + bias.float()
-    if silu:
-        y = F.silu(y)
-    return y.to(x.dtype)
-
-
 class GroupNorm(nn.Module):
-    """GroupNorm over the last (channel) axis; ``weight``/``bias`` as torch's."""
+    """GroupNorm(+SiLU) over the last (channel) axis with statistics pooled
+    over everything between the first and the last axis; ``weight``/``bias``
+    as torch's. Kernel K5 on a CUDA tensor (``kernels/group_norm.py``)."""
 
     def __init__(self, groups: int, channels: int, eps: float = 1e-5,
                  silu: bool = False):
@@ -89,12 +78,13 @@ class GroupNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return group_norm(x, self.weight, self.bias, self.groups, self.eps, self.silu)
+        return fused_group_norm(x, self.weight, self.bias, self.groups, self.eps, self.silu)
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm with the JAX package's one-pass variance E[x^2] - E[x]^2
-    in fp32 (``layers.py:154-160``), cast back to x's dtype."""
+    """LayerNorm over the last axis with fp32 statistics, cast back to x's
+    dtype: kernel K6 on a CUDA tensor, on the CPU the JAX package's one-pass
+    variance E[x^2] - E[x]^2 (``kernels/layer_norm.py``)."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -103,11 +93,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
-        mu = xf.mean(dim=-1, keepdim=True)
-        var = xf.square().mean(dim=-1, keepdim=True) - mu.square()
-        y = (xf - mu) * torch.rsqrt(var + self.eps) * self.weight.float() + self.bias.float()
-        return y.to(x.dtype)
+        return fused_layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class Attention(nn.Module):

@@ -19,8 +19,11 @@ from .layers import GroupNorm
 
 
 def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """Apply a torch ``Conv2d`` (OIHW weights) to an NHWC tensor."""
-    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+    """Apply a torch ``Conv2d`` (OIHW weights) to an NHWC tensor. The result
+    is contiguous NHWC (what the norm kernels take): a channels-last input
+    gives a channels-last output, so ``contiguous`` copies only if a backend
+    answered in NCHW."""
+    return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
 
 
 def conv3x3(cin: int, cout: int, stride: int = 1) -> nn.Conv2d:

@@ -21,37 +21,59 @@ for the guidance UNet (`:646`), so window position k gets the uncond embed
 when (f + k) is even; ``guidance_clip_mode="reference_inference"`` does the
 same, ``"cond"`` gives every frame the cond embed.
 
-Only the cached path is ported. Per-step banks, int8 banks, window-grouped
-denoising and latent interpolation raise ``NotImplementedError`` (ROADMAP
-Queue 1, items 8 and 9).
+After the loop, ``PipelineConfig.interpolation_factor`` upsamples the frame
+rate of the latents (``pipelines/interpolation.py``); the decoder is the SD
+VAE's or the temporal one (``models/vae_temporal.py``), whichever the bundle
+holds.
+
+The pipeline runs on the CUDA card unless the caller names another device:
+``device=None`` raises where there is no card, ``device="cpu"`` runs on the
+CPU. The bundle's modules are moved to that device.
+
+Only the cached path is ported. Per-step banks, int8 banks and
+window-grouped denoising raise ``NotImplementedError`` (ROADMAP Queue 1,
+item 8).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from ..core.configs import PipelineConfig
+from ..core.params import resolve_device
 from ..diffusion.ddim import DDIMSchedule, inference_step_pairs
 from ..models.unet import (DenoisingUNet, GuidanceUNet, bank_keys,
                            precompute_context_kv, precompute_reference_kv)
+from ..models.clip_vision import CLIPVisionTower, clip_image_tokens
 from ..models.vae import Decoder, Encoder, latent_mean
+from ..models.vae_temporal import TemporalDecoder
 from . import context as ctx_sched
+from .interpolation import interpolate_latents
 
 SD_LATENT_SCALE = 0.18215
 
 
 @dataclasses.dataclass
 class ModelBundle:
-    """The four networks of the sampler (weights live in the modules)."""
+    """The networks of the sampler (weights live in the modules): the two
+    UNets, the VAE encoder, either decoder and, optionally, the CLIP tower
+    that turns the reference picture into the image prompt."""
 
     guide: GuidanceUNet
     den: DenoisingUNet
     vae_enc: Encoder
-    vae_dec: Decoder
+    vae_dec: Union[Decoder, TemporalDecoder]
+    clip: Optional[CLIPVisionTower] = None
+
+    def to(self, device: torch.device) -> "ModelBundle":
+        for m in (self.guide, self.den, self.vae_enc, self.vae_dec, self.clip):
+            if m is not None:
+                m.to(device)
+        return self
 
 
 def _dtype(module: torch.nn.Module) -> torch.dtype:
@@ -66,10 +88,12 @@ def encode_frames(vae_enc: Encoder, frames: torch.Tensor, chunk: int = 8) -> tor
     return torch.cat(lats, dim=0) * SD_LATENT_SCALE
 
 
-def decode_frames(vae_dec: Decoder, latents: torch.Tensor) -> torch.Tensor:
+def decode_frames(vae_dec, latents: torch.Tensor) -> torch.Tensor:
     """Scaled latents (N, h, w, 4) -> images in about [-1, 1], decoded
-    ``vae_dec.decode_chunk`` frames at a time; the remainder is its own
-    smaller chunk."""
+    ``vae_dec.decode_chunk`` frames at a time (16 for the temporal decoder,
+    whose convolutions couple a chunk's frames; 4 for the SD decoder, a
+    memory knob). The remainder is its own smaller chunk, never zero-padded:
+    pad frames would bleed into real ones through the temporal convolutions."""
     c = vae_dec.decode_chunk
     return torch.cat([vae_dec(latents[i:i + c] / SD_LATENT_SCALE)
                       for i in range(0, latents.shape[0], c)], dim=0)
@@ -79,7 +103,7 @@ def to_unit_float(x, signed: bool, device: torch.device) -> torch.Tensor:
     """Images to the device as float32. uint8 travels as bytes and is scaled
     on the device: signed=True -> [-1, 1] (VAE image range), else [0, 1] (the
     condition streams, the reference's do_normalize=False processor)."""
-    t = torch.as_tensor(np.asarray(x)).to(device)
+    t = torch.as_tensor(x, device=device)  # an array, or a tensor on any device
     if t.dtype == torch.uint8:
         t = t.float()
         return t / 127.5 - 1.0 if signed else t / 255.0
@@ -114,10 +138,12 @@ class VideoPipeline:
     """Host-side orchestrator of the sampler on one device."""
 
     def __init__(self, bundle: ModelBundle, config: PipelineConfig = PipelineConfig(),
-                 schedule: Optional[DDIMSchedule] = None):
-        self.bundle = bundle
+                 schedule: Optional[DDIMSchedule] = None, device=None):
+        """``device=None`` means the CUDA card and raises where there is none;
+        the bundle is moved to the device."""
+        self.device = resolve_device(device)
+        self.bundle = bundle.to(self.device)
         self.config = config
-        self.device = next(bundle.den.parameters()).device
         sc = config.scheduler
         self.schedule = schedule or DDIMSchedule.create(
             beta_schedule=sc.beta_schedule,
@@ -127,6 +153,13 @@ class VideoPipeline:
             beta_start=sc.beta_start,
             beta_end=sc.beta_end,
         )
+
+    def clip_context(self, ref_image) -> np.ndarray:
+        """Reference picture -> the (1, 257, 768) CLIP tokens ``__call__``
+        takes, through the bundle's CLIP tower."""
+        if self.bundle.clip is None:
+            raise ValueError("the bundle holds no CLIP tower")
+        return clip_image_tokens(self.bundle.clip, ref_image, self.device)
 
     # ------------------------------------------------------------------ banks
     def _compute_banks(self, window_cond: torch.Tensor, window_motion: torch.Tensor,
@@ -207,7 +240,7 @@ class VideoPipeline:
         pose_frames: np.ndarray,  # (T, H, W, 3) in [0, 1] float, or raw uint8
         face_frames: Optional[np.ndarray],  # as pose_frames, or None if absent
         hand_frames: Optional[np.ndarray],  # as pose_frames, or None if absent
-        scene_motion: np.ndarray,  # (T, h, w, 2) latent-res flow
+        scene_motion,  # (T, h, w, 2) latent-res flow, array or tensor on any device
         clip_context: np.ndarray,  # (1, S, 768) CLIP image tokens of ref image
         noise: np.ndarray,  # (T, h, w, 4) initial gaussian latents
         num_inference_steps: Optional[int] = None,
@@ -216,8 +249,9 @@ class VideoPipeline:
         to_host: bool = False,
         timer=None,  # utils.profiling.Timer: per-phase wall times (syncs between phases)
     ):
-        """Returns the fp32 latents (decode=False), uint8 frames (T, H, W, 3) on
-        the device, or, with to_host=True, the uint8 frames as numpy."""
+        """Returns the fp32 latents (decode=False), uint8 frames (T', H, W, 3)
+        on the device, or, with to_host=True, the uint8 frames as numpy;
+        T' = (T - 1) * 2^(interpolation_factor - 1) + 1."""
         mark = timer.mark if timer is not None else (lambda name: None)
         if timer is not None:
             timer.start()
@@ -274,21 +308,25 @@ class VideoPipeline:
         counts = torch.as_tensor(ctx_sched.frame_counts(windows, T), dtype=torch.float32,
                                  device=dev)
         flat = torch.as_tensor(windows.reshape(-1), dtype=torch.long, device=dev)
-        ctx_cond = torch.as_tensor(np.asarray(clip_context), device=dev).float()
+        ctx_cond = torch.as_tensor(clip_context, device=dev).float()
         gdt = _dtype(self.bundle.guide)
         g_ctx = guidance_context_for_windows(
             windows, ctx_cond, torch.zeros_like(ctx_cond), cfgc.guidance_clip_mode).to(gdt)
-        motion = torch.as_tensor(np.asarray(scene_motion), device=dev)
+        motion = torch.as_tensor(scene_motion, device=dev)
         banks = self._compute_banks(cond20[flat].to(gdt), motion[flat].to(gdt), g_ctx)
         mark("guidance_banks")
 
         # 3. the loop over DDIM steps
         ts, prev_ts = inference_step_pairs(self.schedule, steps,
                                            spacing=cfgc.scheduler.timestep_spacing)
-        latents = self._denoise(torch.as_tensor(np.asarray(noise), device=dev), banks,
+        latents = self._denoise(torch.as_tensor(noise, device=dev), banks,
                                 ctx_cond, windows, counts, ts, prev_ts, float(scale))
         del banks
         mark("denoise")
+        # 4. optional latent frame-rate upsampling (`pipeline_mikudance.py:688`)
+        if cfgc.interpolation_factor > 1:
+            latents = interpolate_latents(latents, cfgc.interpolation_factor,
+                                          cfgc.interpolation_mode)
 
         if not decode:
             return latents
@@ -316,6 +354,3 @@ class VideoPipeline:
                 f"{nw} windows of {wf} frames exceed max_denoise_frame_batch="
                 f"{cfgc.max_denoise_frame_batch}: window-grouped denoising is "
                 "ROADMAP Queue 1, item 8")
-        if cfgc.interpolation_factor > 1:
-            raise NotImplementedError(
-                "latent frame interpolation is ROADMAP Queue 1, item 9")

@@ -14,25 +14,32 @@ import pytest
 import torch
 
 from mikudance_tpu.core import convert as jconvert
-from mikudance_tpu.core.configs import (DenoisingUNetConfig, GuidanceUNetConfig,
-                                        MotionModuleConfig, UNetConfig, VAEConfig)
+from mikudance_tpu.core.configs import (CLIPVisionConfig, DenoisingUNetConfig,
+                                        GuidanceUNetConfig, MotionModuleConfig, UNetConfig,
+                                        VAEConfig)
 from mikudance_tpu.diffusion import ddim as jddim
+from mikudance_tpu.models import clip_vision as jclip
 from mikudance_tpu.models import layers as jlayers
 from mikudance_tpu.models import man as jman
 from mikudance_tpu.models import motion_module as jmotion
 from mikudance_tpu.models import resnet as jresnet
 from mikudance_tpu.models import unet as junet
 from mikudance_tpu.models import vae as jvae
+from mikudance_tpu.models import vae_temporal as jvae_temporal
+from mikudance_tpu.utils import media as jmedia
 from mikudance_tpu.pipelines import context as jcontext
 from mikudance_tpu_torch.core import convert
 from mikudance_tpu_torch.diffusion import ddim
-from mikudance_tpu_torch.models import layers, man, motion_module, resnet, unet, vae
+from mikudance_tpu_torch.models import (clip_vision, layers, man, motion_module, resnet, unet,
+                                        vae, vae_temporal)
 from mikudance_tpu_torch.pipelines import context
 
 TINY = UNetConfig(block_out_channels=(32, 64, 96, 96), attention_heads=4)
 TINY_VAE = VAEConfig(block_out_channels=(16, 32, 32, 32), norm_num_groups=8)
 TINY_DEN = DenoisingUNetConfig(unet=TINY, motion=MotionModuleConfig(num_attention_heads=4))
 TINY_GUIDE = GuidanceUNetConfig(unet=TINY, use_man=True)
+TINY_CLIP = CLIPVisionConfig(image_size=28, patch_size=14, hidden_size=64, intermediate_size=128,
+                             num_layers=2, num_heads=4, projection_dim=32)
 
 
 def seeded(module: torch.nn.Module, seed: int) -> torch.nn.Module:
@@ -72,7 +79,8 @@ def sub_sd(module, prefix):
 
 # ------------------------------------------------------------------ bridge
 
-@pytest.mark.parametrize("which", ["guidance", "denoising", "vae_encoder", "vae_decoder"])
+@pytest.mark.parametrize("which", ["guidance", "denoising", "vae_encoder", "vae_decoder",
+                                   "temporal_decoder", "clip_vision"])
 def test_weight_bridge_round_trips(which):
     """port state_dict -> JAX tree -> inverse -> strict load: the inverse's
     convert equals the JAX tree exactly, and the reloaded module's
@@ -89,10 +97,19 @@ def test_weight_bridge_round_trips(which):
         mod = build(vae.Encoder, TINY_VAE)
         fwd, inv, fresh = (jconvert.convert_vae_encoder, convert.vae_encoder_state_dict_from_jax,
                            vae.Encoder(TINY_VAE))
-    else:
+    elif which == "vae_decoder":
         mod = build(vae.Decoder, TINY_VAE)
         fwd, inv, fresh = (jconvert.convert_vae_decoder, convert.vae_decoder_state_dict_from_jax,
                            vae.Decoder(TINY_VAE))
+    elif which == "temporal_decoder":
+        mod = build(vae_temporal.TemporalDecoder, TINY_VAE)
+        fwd, inv, fresh = (jconvert.convert_temporal_decoder,
+                           convert.temporal_decoder_state_dict_from_jax,
+                           vae_temporal.TemporalDecoder(TINY_VAE))
+    else:
+        mod = build(clip_vision.CLIPVisionTower, TINY_CLIP)
+        fwd = lambda sd: jconvert.convert_clip_vision(sd, num_layers=2)  # noqa: E731
+        inv, fresh = convert.clip_vision_state_dict_from_jax, clip_vision.CLIPVisionTower(TINY_CLIP)
     sd = mod.state_dict()
     tree = fwd(sd)
     back = inv(tree)
@@ -106,7 +123,9 @@ def test_weight_bridge_round_trips(which):
                                                                        with_conv_out=False),
                             "denoising": lambda s: convert.convert_unet(s, with_motion=True),
                             "vae_encoder": convert.convert_vae_encoder,
-                            "vae_decoder": convert.convert_vae_decoder}[which](sd))
+                            "vae_decoder": convert.convert_vae_decoder,
+                            "temporal_decoder": convert.convert_temporal_decoder,
+                            "clip_vision": lambda s: convert.convert_clip_vision(s, 2)}[which](sd))
 
 
 # ----------------------------------------------------------------- modules
@@ -262,6 +281,124 @@ def test_vae_encoder_and_decoder():
     want = jvae.Decoder(TINY_VAE).apply(
         {"params": jconvert.convert_vae_decoder(dec.state_dict())}, jnp.asarray(z))
     close(dec(t(z)), want, 2e-4, "vae decoder")
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("batch", [1, 2])
+def test_clip_vision_tower(batch):
+    """Hugging Face key grammar (``pre_layrnorm`` as spelt there), quick GELU,
+    16-heads-style attention on the plain route, full token sequence out."""
+    rng = np.random.default_rng(12)
+    tm = build(clip_vision.CLIPVisionTower, TINY_CLIP)
+    assert "vision_model.pre_layrnorm.weight" in tm.state_dict()
+    assert "vision_model.encoder.layers.1.self_attn.out_proj.bias" in tm.state_dict()
+    params = jconvert.convert_clip_vision(tm.state_dict(), num_layers=2)
+    x = randn(rng, batch, 28, 28, 3)
+    want = jclip.CLIPVisionTower(TINY_CLIP).apply({"params": params}, jnp.asarray(x))
+    got = tm(t(x))
+    assert got.shape == (batch, 5, 32)
+    close(got, want, 2e-4, "clip tower")
+    close(clip_vision.quick_gelu(t(x)), jclip.quick_gelu(jnp.asarray(x)), 1e-6, "quick gelu")
+
+
+@pytest.mark.parametrize("kind", ["pil", "array"])
+def test_clip_preprocessing(kind):
+    """A PIL picture goes through PIL's bicubic resize exactly as the JAX
+    package's ``to_clip_input``; an array through torch's antialiased bicubic,
+    within one uint8 level of it (the two round at different places)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(13)
+    ramp = np.add.outer(np.arange(90), np.arange(120))[..., None] + rng.integers(0, 40, (90, 120, 3))
+    img = ramp.astype(np.uint8)
+    want = jmedia.to_clip_input(Image.fromarray(img))
+    np.testing.assert_array_equal(clip_vision.CLIP_IMAGE_MEAN, jclip.CLIP_IMAGE_MEAN)
+    np.testing.assert_array_equal(clip_vision.CLIP_IMAGE_STD, jclip.CLIP_IMAGE_STD)
+    if kind == "pil":
+        np.testing.assert_allclose(clip_vision.to_clip_input(Image.fromarray(img)), want, atol=1e-6)
+    else:
+        got = clip_vision.to_clip_input(img)
+        assert got.shape == (1, 224, 224, 3) and got.dtype == np.float32
+        levels = np.abs(got - want) * 255.0 * clip_vision.CLIP_IMAGE_STD
+        assert levels.max() <= 1.0 + 1e-3
+
+
+@torch.no_grad()
+def test_clip_image_tokens_helper():
+    """Picture -> tokens on the host, as ``scripts/inference_video.py`` does it."""
+    from PIL import Image
+
+    rng = np.random.default_rng(14)
+    tm = build(clip_vision.CLIPVisionTower, TINY_CLIP)
+    img = Image.fromarray(rng.integers(0, 256, (40, 50, 3), dtype=np.uint8))
+    params = jconvert.convert_clip_vision(tm.state_dict(), num_layers=2)
+    pixels = np.asarray(Image.fromarray(np.asarray(img)).resize((28, 28), Image.BICUBIC),
+                        np.float32) / 255.0
+    pixels = ((pixels - jclip.CLIP_IMAGE_MEAN) / jclip.CLIP_IMAGE_STD)[None]
+    want = jclip.CLIPVisionTower(TINY_CLIP).apply({"params": params}, jnp.asarray(pixels))
+    got = clip_vision.clip_image_tokens(tm, img, device="cpu")
+    assert isinstance(got, np.ndarray) and got.dtype == np.float32 and got.shape == (1, 5, 32)
+    close(got, want, 2e-4, "clip tokens")
+
+
+def temporal_decoder(seed):
+    """A tiny temporal decoder with every mix factor away from 0.5 and a
+    non-zero ``time_conv_out`` (PyTorch's init leaves it so)."""
+    tm = build(vae_temporal.TemporalDecoder, TINY_VAE, seed=seed)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, p in tm.named_parameters():
+            if name.endswith("mix_factor"):
+                p.copy_(t(rng.uniform(-2, 2, p.shape).astype(np.float32)))
+    assert tm.decoder.time_conv_out.weight.abs().min() > 0
+    return tm, {"params": jconvert.convert_temporal_decoder(tm.state_dict())}
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("frames", [1, 4, 5])
+def test_temporal_decoder(frames):
+    """One chunk: the joint GroupNorms over frames, the (3,1,1) temporal
+    convolutions, the learned blend and ``time_conv_out``."""
+    tm, params = temporal_decoder(15)
+    z = randn(np.random.default_rng(frames), frames, 4, 4, 4)
+    want = jvae_temporal.TemporalDecoder(TINY_VAE).apply(params, jnp.asarray(z))
+    got = tm(t(z))
+    assert got.shape == (frames, 32, 32, 3)
+    close(got, want, 2e-4, "temporal decoder")
+
+
+@torch.no_grad()
+def test_temporal_decoder_parts():
+    rng = np.random.default_rng(16)
+    conv = build(vae_temporal.TemporalConv, 8, 12)
+    x = randn(rng, 5, 3, 4, 8)
+    p = {"conv": {"kernel": jconvert.conv_temporal_kernel(conv.weight),
+                  "bias": jconvert._t(conv.bias)}}
+    close(conv(t(x)), jvae_temporal.TemporalConv(12).apply({"params": p}, jnp.asarray(x)),
+          2e-4, "temporal conv")
+    # the temporal block pools its norms over frames: frames are not independent
+    blk = build(vae_temporal.TemporalResnetBlock, 16, 4)
+    x = randn(rng, 3, 4, 4, 16) + np.arange(3, dtype=np.float32)[:, None, None, None]
+    assert (blk(t(x))[:1] - blk(t(x[:1]))).abs().max() > 1e-3
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("frames,chunk", [(8, 4), (6, 4), (3, 4)])
+def test_temporal_decoder_chunks_and_remainder(frames, chunk):
+    """``decode_frames`` with the 16-frame chunk cut to 4: whole chunks, then
+    the remainder decoded as it is, never zero-padded."""
+    from mikudance_tpu.pipelines import video as jvideo
+    from mikudance_tpu_torch.pipelines import video
+
+    tm, params = temporal_decoder(17)
+    tm.decode_chunk = chunk
+    assert vae_temporal.TemporalDecoder.decode_chunk == 16 and tm.frames_coupled
+    z = randn(np.random.default_rng(frames), frames, 4, 4, 4)
+    want = jvideo.decode_frames(jvae_temporal.TemporalDecoder(TINY_VAE, decode_chunk=chunk),
+                                params, jnp.asarray(z))
+    got = video.decode_frames(tm, t(z))
+    assert got.shape == (frames, 32, 32, 3)
+    close(got, want, 2e-4, "chunked temporal decode")
 
 
 # ------------------------------------------------------ schedule, windows
