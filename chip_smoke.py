@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py             # the smoke, below
     python3 chip_smoke.py --profile   # device-time breakdown of requests A and B
+    python3 chip_smoke.py --kernels K9,K13   # phases 1-3 for the named kernels, with ptxas's report
+    python3 chip_smoke.py --budgets   # peak memory, phase by phase, as the clip grows
 
 Phases, in order, one line each; any failure exits non-zero:
 
 1. card: the device and its power limit (nvidia-smi), TF32 switches;
 2. build: nvcc builds the kernel library from ``mikudance_tpu_torch/csrc``;
-3. kernels: K1-K6 against their plain PyTorch versions at the paths' shapes,
-   atol = rtol = 2e-2 and a relative-L2 limit, each with a control that the
-   limit must reject (K1-K4: softmax scale off by 9% on bf16 N(0, 1) inputs;
+3. kernels: K1-K6, K9 and K13 against their plain PyTorch versions at the
+   paths' shapes, atol = rtol = 2e-2 and a relative-L2 limit, each with a
+   control that the limit must reject (attention: softmax scale off by 9% on
+   bf16 N(0, 1) inputs;
    K5: the wrong group size, K6: a row width miscounted by 20%, both on
    inputs with a per-channel offset and spread, K6's with a per-row offset
    too), median times of the
@@ -31,14 +34,25 @@ Phases, in order, one line each; any failure exits non-zero:
 8. interpolation: a small request with ``interpolation_factor = 2``;
 9. check: a small request (256^2, 4 frames, one step) through the kernels
    and through the plain versions, same weights and inputs, its latents
-   decoded by each decoder both ways.
+   decoded by each decoder both ways;
+10. request C, long clips at 768^2 with context 30/8 and 2 steps, explicit
+    budgets: 48 frames with ``bank_mode="auto"`` past 64 cached positions
+    (three windows, per-step banks), the same clip with ``"cached_q8"``, and
+    40 frames with ``max_denoise_frame_batch=32`` (two windows,
+    cached-grouped). The tiers are held to one another on the same clip:
+    q8 against per-step under a limit that a control (the int8 banks read
+    back with scales off by 2x) must exceed, cached-grouped against per-step;
+11. request D, the CLI's steps for ``-W 256 -H 256 -L 40`` (depth resize,
+    scene motion, CLIP tower, seeded noise, sampler, temporal decode) with
+    both windows in one UNet batch of 120 frames: the VAE goes through K9
+    and the UNet mid-block through K13, and K4 must not launch.
 
-The kernel counts are set to 0 just before each of A, B and the image
-request and read just after. It prints the kernel record (one JSON object;
-``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` at each kernel's first,
-largest shape; ``launches`` from request B), the nvidia-smi line, and last
-the result line. Uses one card, the first visible one; imports nothing of
-JAX.
+The kernel counts are set to 0 just before each request and read just after.
+It prints the kernel record (one JSON object; ``ms``, ``plain_ms``,
+``library_ms`` and ``bound_ms`` at each kernel's first shape; ``launches``
+from request B, for K9 and K13 from request D), the nvidia-smi line, and
+last the result line. Uses one card, the first visible one; imports nothing
+of JAX.
 
 ``--profile`` runs phases 1-2, then torch.profiler over a 2-step and a
 20-step request A and a 20-step request B (after a 1-step warm-up) and
@@ -84,6 +98,13 @@ SMALL_DECODED_REL_L2 = 3e-2
 CONTROL_GROUPS = 16
 CONTROL_WIDTH = 48 / 40
 WARM_STEPS = 4  # the second, warm request A
+LONG_STEPS = 2  # request C, the long clips
+# cached_q8 against per-step banks on the same clip, relative L2 of the
+# latents: the int8 rounding of the banks (under half a percent of each
+# position's largest value) on top of bf16 rounding; the control reads the
+# same cache back with its scales doubled and must land above the limit.
+Q8_REL_L2 = 1e-1
+D_FRAMES, D_SIZE, D_STEPS = 40, 256, 4  # request D, the CLI-shaped long clip
 # The card's published peaks (H100 SXM): device memory, dense bf16 tensor
 # cores, fp32 outside the tensor cores.
 PEAK_BYTES, PEAK_BF16, PEAK_FP32 = 3.35e12, 989e12, 67e12
@@ -205,7 +226,7 @@ def make_camera(seed: int, frames: int, height: int, width: int):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route all six kernels to their plain versions (reference run)."""
+    """Route every kernel to its plain version (reference run)."""
     from mikudance_tpu_torch.kernels import flash_attention as fa
     from mikudance_tpu_torch.kernels import group_norm as gn
     from mikudance_tpu_torch.kernels import layer_norm as ln
@@ -213,8 +234,10 @@ def plain_kernels():
     from mikudance_tpu_torch.models import layers
 
     patches = [(fa, n, fa.dot_product_attention)
-               for n in ("flash_attention_fullc", "cross_attention", "flash_attention_wide")]
+               for n in ("flash_attention_fullc", "cross_attention", "flash_attention_wide",
+                         "flash_attention_resident")]
     patches += [(fa, "temporal_attention", ta.temporal_attention_plain),
+                (fa, "small_sequence_attention", ta.small_sequence_attention_plain),
                 (layers, "fused_group_norm", gn.group_norm_plain),
                 (layers, "fused_layer_norm", ln.layer_norm_plain)]
     saved = [(mod, n, getattr(mod, n)) for mod, n, _ in patches]
@@ -277,9 +300,15 @@ def norm_input(shape, g, dev, row_offset: bool = False) -> torch.Tensor:
     return x
 
 
-def attention_cases(dev):
-    """K1-K4 at the sampler's shapes: (kernel, label, run, plain, control,
-    library, flops, bytes)."""
+def wanted(kern, only) -> bool:
+    """Whether ``only`` (kernel numbers such as "K9"; empty: all) names ``kern``."""
+    return not only or kern.name.split(" ")[0] in only
+
+
+def attention_cases(dev, only=()):
+    """K1-K4, K9 and K13 at the sampler's shapes: (kernel, label, run, plain,
+    control, library, flops, bytes, peak rate); ``only`` keeps the kernels
+    whose names it lists."""
     import torch.nn.functional as F
 
     from mikudance_tpu_torch.kernels import flash_attention as fa
@@ -304,9 +333,30 @@ def attention_cases(dev):
         (ta.K3, ta.temporal_attention, ta.temporal_attention_plain, [(2, 16, 2304, 640)] * 3, 8),
         (ta.K3, ta.temporal_attention, ta.temporal_attention_plain, [(2, 16, 576, 1280)] * 3, 8),
         (ta.K3, ta.temporal_attention, ta.temporal_attention_plain, [(2, 16, 144, 1280)] * 3, 8),
+        # the 30-frame windows of a long clip: one window, and four at 256^2
+        (ta.K3, ta.temporal_attention, ta.temporal_attention_plain, [(1, 30, 9216, 320)] * 3, 8),
+        (ta.K3, ta.temporal_attention, ta.temporal_attention_plain, [(4, 30, 1024, 320)] * 3, 8),
         (fa.K4, fa.flash_attention_wide, fa.dot_product_attention, [(8, 9216, 512)] * 3, 1),
+        # the VAE mid-block under 512^2: 256^2, 384^2, the largest S K9 takes,
+        # and a ragged S (a 33 x 35 latent map)
+        (fa.K9, fa.flash_attention_resident, fa.dot_product_attention, [(8, 1024, 512)] * 3, 1),
+        (fa.K9, fa.flash_attention_resident, fa.dot_product_attention, [(8, 2304, 512)] * 3, 1),
+        (fa.K9, fa.flash_attention_resident, fa.dot_product_attention, [(8, 3072, 512)] * 3, 1),
+        (fa.K9, fa.flash_attention_resident, fa.dot_product_attention, [(2, 1155, 512)] * 3, 1),
+        # the UNet mid-block on a 4 x 4 map (256^2, four 30-frame windows),
+        # then the other head widths, 32 tokens, and a T off the multiples of 8
+        (ta.K13, ta.small_sequence_attention, ta.small_sequence_attention_plain,
+         [(120, 16, 1280)] * 3, 8),
+        (ta.K13, ta.small_sequence_attention, ta.small_sequence_attention_plain,
+         [(64, 32, 320)] * 3, 8),
+        (ta.K13, ta.small_sequence_attention, ta.small_sequence_attention_plain,
+         [(256, 16, 640)] * 3, 8),
+        (ta.K13, ta.small_sequence_attention, ta.small_sequence_attention_plain,
+         [(64, 30, 1280)] * 3, 8),
     ]
     for kern, fn, plain, shapes, heads in cases:
+        if not wanted(kern, only):
+            continue
         q, k, v = (r(*s) for s in shapes)
         C = q.shape[-1]
         hd = C // heads
@@ -325,7 +375,7 @@ def attention_cases(dev):
                flops, 2 * (2 * q.numel() + k.numel() + v.numel()), PEAK_BF16)
 
 
-def norm_cases(dev):
+def norm_cases(dev, only=()):
     """K5 and K6 at the shapes the UNets, the VAEs (the temporal decoder's
     joint norm over 16 frames included) and the CLIP tower give them."""
     import torch.nn.functional as F
@@ -335,9 +385,10 @@ def norm_cases(dev):
 
     g = torch.Generator(device=dev).manual_seed(1)
     eps, groups = 1e-6, 32
-    for shape, silu in (((32, 96, 96, 320), True), ((32, 96, 96, 960), False),
-                        ((32, 12, 12, 2560), False), ((8, 768, 768, 128), True),
-                        ((1, 12288, 768, 128), True)):
+    group_norm_shapes = (((32, 96, 96, 320), True), ((32, 96, 96, 960), False),
+                         ((32, 12, 12, 2560), False), ((8, 768, 768, 128), True),
+                         ((1, 12288, 768, 128), True))
+    for shape, silu in group_norm_shapes if wanted(gn.K5, only) else ():
         x = norm_input(shape, g, dev)
         w, b = (torch.randn(shape[-1], generator=g, device=dev) for _ in range(2))
 
@@ -352,8 +403,9 @@ def norm_cases(dev):
                                                                      eps, silu),
                library, 8 * x.numel(), 2 * 2 * x.numel(), PEAK_FP32)
         del x
-    for shape in ((32, 9216, 320), (32, 2304, 640), (32, 576, 1280), (2, 16, 9216, 320),
-                  (1, 257, 1024)):
+    layer_norm_shapes = ((32, 9216, 320), (32, 2304, 640), (32, 576, 1280), (2, 16, 9216, 320),
+                         (1, 257, 1024))
+    for shape in layer_norm_shapes if wanted(ln.K6, only) else ():
         x = norm_input(shape, g, dev, row_offset=True)
         C = shape[-1]
         w, b = (torch.randn(C, generator=g, device=dev) for _ in range(2))
@@ -372,14 +424,14 @@ def norm_cases(dev):
         del x
 
 
-def phase_kernels(dev):
-    """K1-K6 against their plain versions at the paths' shapes. Returns the
-    kernel record: per kernel the times at its first (largest) shape."""
+def phase_kernels(dev, only=()):
+    """Every kernel against its plain version at the paths' shapes. Returns
+    the kernel record: per kernel the times at its first shape."""
     import itertools
 
     record = {}
     for kern, what, run, plain, control, library, flops, nbytes, peak in itertools.chain(
-            attention_cases(dev), norm_cases(dev)):
+            attention_cases(dev, only), norm_cases(dev, only)):
         got = run()
         torch.cuda.synchronize()
         want = plain()
@@ -496,10 +548,40 @@ def phase_profile(pipe, request_b) -> None:
         log(f"   {ms:10.1f} {n:6d}  {name[:110]}")
 
 
-def run_request(pipe, inputs, steps: int):
-    """One ``__call__`` (decode to the host); returns (frames, latents, timer)."""
+def peak_timer(device):
+    """A ``Timer`` that also keeps each phase's peak device memory in GiB
+    (``max_memory_allocated``, reset at every mark) in ``peaks``."""
     from mikudance_tpu_torch.utils.profiling import Timer
 
+    class PeakTimer(Timer):
+        peaks = None
+
+        def start(self):
+            super().start()
+            self.peaks = {}
+            torch.cuda.reset_peak_memory_stats(self.device)
+
+        def mark(self, name):
+            super().mark(name)
+            peak = torch.cuda.max_memory_allocated(self.device) / 2**30
+            self.peaks[name] = max(self.peaks.get(name, 0.0), peak)
+            torch.cuda.reset_peak_memory_stats(self.device)
+
+    return PeakTimer(device)
+
+
+def phase_text(timer) -> str:
+    peaks = getattr(timer, "peaks", None) or {}
+    return " ".join(f"{k} {v:.3f}s" + (f" ({peaks[k]:.2f} GiB)" if k in peaks else "")
+                    for k, v in timer.phases.items())
+
+
+def run_request(pipe, inputs, steps: int, decode: bool = True):
+    """One ``__call__`` (decode to the host, or the latents alone); returns
+    (frames or None, latents, timer)."""
+    timer = peak_timer(pipe.device)
+    if not decode:
+        return None, pipe(*inputs, num_inference_steps=steps, decode=False, timer=timer), timer
     seen = []
     decode_to_host = pipe.decode_to_host
 
@@ -508,7 +590,6 @@ def run_request(pipe, inputs, steps: int):
         return decode_to_host(latents)
 
     pipe.decode_to_host = spy
-    timer = Timer(pipe.device)
     try:
         frames = pipe(*inputs, num_inference_steps=steps, to_host=True, timer=timer)
     finally:
@@ -538,11 +619,107 @@ def run_request_b(pipe, seed: int, steps: int):
     return frames, latents, timer, flow, tokens
 
 
-def check_video(frames, latents, n_frames: int, what: str) -> None:
-    check(isinstance(frames, np.ndarray) and frames.shape == (n_frames, H, W, 3)
-          and frames.dtype == np.uint8,
+def run_request_d(pipe, seed: int, steps: int, frames: int, size: int):
+    """The CLI's steps for ``-W size -H size -L frames``: a full-resolution
+    depth map resized to the latent grid (bilinear, in torch: the CLI's PIL is
+    not needed here), camera matrices -> flow on the card, the reference
+    picture -> CLIP tokens, noise from torch's seeded CPU generator in the
+    reference's (1, 4, T, h, w) fp16 layout, then the sampler and the decode
+    to the host. Returns (frames, latents, timer, flow)."""
+    import torch.nn.functional as F
+
+    from mikudance_tpu_torch.pipelines.scene_motion import scene_motion_flow
+    from mikudance_tpu_torch.utils.media import torch_seed_noise
+    from mikudance_tpu_torch.utils.profiling import Timer
+
+    h = w = size // 8
+    w2c, c2w, _, picture = make_camera(seed, frames, size, size)
+    depth_full = np.random.default_rng(seed).uniform(0, 1, (1, 1, size, size)).astype(np.float32)
+    inputs = list(make_inputs(seed, frames, size, size))
+    before = Timer(pipe.device)
+    before.start()
+    depth = F.interpolate(torch.from_numpy(depth_full), size=(h, w), mode="bilinear",
+                          antialias=True)[0, 0].numpy()
+    flow = scene_motion_flow(w2c, c2w, depth, device=pipe.device)
+    before.mark("scene_motion")
+    tokens = pipe.clip_context(picture)
+    before.mark("clip")
+    noise = np.moveaxis(torch_seed_noise(seed, (1, 4, frames, h, w))[0], 0, -1)
+    inputs[0], inputs[5], inputs[6], inputs[7] = picture, flow, tokens, noise
+    out, latents, timer = run_request(pipe, inputs, steps)
+    timer.phases = {**before.phases, **timer.phases}
+    return out, latents, timer, flow
+
+
+def phase_budgets(bundle, dev) -> None:
+    """Peak device memory, phase by phase, of one-step 768^2 requests
+    (latents only) as the clip grows: what ``cached_bank_positions`` and
+    ``max_denoise_frame_batch`` are derived from. Positions = windows x 30
+    frames (16 and 30 frames are one window)."""
+    from mikudance_tpu_torch.core.configs import ContextConfig, PipelineConfig
+    from mikudance_tpu_torch.pipelines.video import VideoPipeline
+
+    log(f"budgets: weights on the card {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    big = 1 << 20
+    cases = [
+        ("cached, one UNet batch with CFG folded in", 16, dict(bank_mode="cached")),
+        ("cached, one UNet batch with CFG folded in", 30, dict(bank_mode="cached")),
+        ("cached, one UNet batch with CFG folded in", 40, dict(bank_mode="cached")),
+        ("cached-grouped, one window a group", 40, dict(bank_mode="cached",
+                                                        max_denoise_frame_batch=32)),
+        ("cached-grouped, one window a group", 48, dict(bank_mode="cached",
+                                                        max_denoise_frame_batch=32)),
+        ("per-step, one window a group", 48, dict(bank_mode="per_step",
+                                                  cached_bank_positions=32)),
+        ("per-step, three windows a group", 48, dict(bank_mode="per_step",
+                                                     cached_bank_positions=96)),
+        ("cached_q8, one window a group", 48, dict(bank_mode="cached_q8",
+                                                   cached_bank_positions=64,
+                                                   max_denoise_frame_batch=32)),
+        # the largest last: a case that does not fit is reported, not fatal
+        ("cached-grouped, two windows a group", 74, dict(bank_mode="cached",
+                                                         max_denoise_frame_batch=64)),
+        ("cached, one UNet batch with CFG folded in", 48, dict(bank_mode="cached")),
+        # PipelineConfig's own budgets: three windows in one batch; six windows
+        # cached and denoised in two groups; seven windows past the bank budget
+        ("the default budgets", 66, None),
+        ("the default budgets", 130, None),
+        ("the default budgets", 150, None),
+    ]
+    for what, frames, change in cases:
+        base = dict(width=W, height=H, num_inference_steps=1,
+                    context=ContextConfig(frames=30, overlap=8))
+        if change is None:
+            cfg = PipelineConfig(**base)
+            what += (f" ({cfg.bank_mode}, cached_bank_positions {cfg.cached_bank_positions}, "
+                     f"max_denoise_frame_batch {cfg.max_denoise_frame_batch})")
+        else:
+            cfg = PipelineConfig(**{**base, "cached_bank_positions": big,
+                                    "max_denoise_frame_batch": big, **change})
+        pipe = VideoPipeline(bundle, cfg)
+        from mikudance_tpu_torch.pipelines import context as ctx_sched
+        nw, wf = ctx_sched.window_matrix(frames, 30, 1, 8).shape
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            _, latents, timer = run_request(pipe, make_inputs(frames, frames, H, W), 1,
+                                            decode=False)
+        except torch.OutOfMemoryError:
+            log(f"budgets: {frames} frames = {nw * wf} positions, {what}: out of memory")
+            continue
+        check(bool(torch.isfinite(latents).all()), f"budgets: {what}, {frames} frames")
+        log(f"budgets: {frames} frames = {nw} x {wf} = {nw * wf} positions, {what}: "
+            f"{time.perf_counter() - t0:.2f} s | {phase_text(timer)} | whole-request peak "
+            f"{max(timer.peaks.values()):.2f} GiB")
+        del latents, pipe
+
+
+def check_video(frames, latents, n_frames: int, what: str, height: int = H,
+                width: int = W) -> None:
+    check(frames is None or (isinstance(frames, np.ndarray) and frames.dtype == np.uint8
+                             and frames.shape == (n_frames, height, width, 3)),
           f"{what}: frames {type(frames)} {getattr(frames, 'shape', '')}")
-    check(latents.shape == (n_frames, H // 8, W // 8, 4)
+    check(latents.shape == (n_frames, height // 8, width // 8, 4)
           and bool(torch.isfinite(latents).all()), f"{what}: latents {tuple(latents.shape)} finite")
 
 
@@ -550,6 +727,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="device-time breakdown of requests A and B instead of the smoke")
+    ap.add_argument("--budgets", action="store_true",
+                    help="peak memory of one-step 768^2 requests as the clip grows")
+    ap.add_argument("--kernels", metavar="K9,K13",
+                    help="build, hold the named kernels to their plain versions, and stop")
     args = ap.parse_args()
     # one card, the first visible one, fixed before CUDA initialises
     card = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0].strip()
@@ -567,7 +748,9 @@ def main() -> int:
     from mikudance_tpu_torch.pipelines.video import ModelBundle, VideoPipeline
 
     dev = torch.device("cuda", 0)
-    kernels = (fa.K1, fa.K2, ta.K3, fa.K4, gn.K5, ln.K6)
+    kernels = (fa.K1, fa.K2, ta.K3, fa.K4, gn.K5, ln.K6, fa.K9, ta.K13)
+    # K9 and K13 take only maps under 512^2: requests A, B and C run at 768^2
+    at_768 = [k for k in kernels if k not in (fa.K9, ta.K13)]
 
     def reset_counts() -> None:
         for k in kernels:
@@ -609,9 +792,17 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
         return bundle, VideoPipeline(bundle, cfg), bundle_b, VideoPipeline(bundle_b, cfg)
 
+    if args.budgets:
+        phase_budgets(build_bundle(0, dev), dev)
+        return 0
     if args.profile:
         _, pipe, _, pipe_b = headline_pipes()
         phase_profile(pipe, lambda steps: run_request_b(pipe_b, 5, steps))
+        return 0
+
+    if args.kernels:
+        log((lib.with_suffix(".log")).read_text())
+        phase_kernels(dev, tuple(args.kernels.split(",")))
         return 0
 
     # 3. kernels against plain versions
@@ -624,11 +815,11 @@ def main() -> int:
     t0 = time.perf_counter()
     frames, latents, timer = run_request(pipe, make_inputs(0, T, H, W), STEPS)
     wall = time.perf_counter() - t0
-    launches_a = read_counts("request A")
+    launches_a = read_counts("request A", at_768)
     check_video(frames, latents, T, "request A")
-    phases = " ".join(f"{k} {v:.3f}s" for k, v in timer.phases.items())
+    phases = phase_text(timer)
     log(f"request A: {T}x{H}x{W} {STEPS} steps in {wall:.3f} s | {phases} | peak "
-        f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB | launches {launches_a} | "
+        f"{max(timer.peaks.values()):.2f} GiB | launches {launches_a} | "
         f"latents std {latents.std().item():.4f} | frames mean {frames.mean():.2f}")
 
     # 5. request A again, warm, fewer steps
@@ -636,7 +827,7 @@ def main() -> int:
     frames, latents, timer = run_request(pipe, make_inputs(1, T, H, W), WARM_STEPS)
     wall = time.perf_counter() - t0
     check_video(frames, latents, T, "request A, warm")
-    phases = " ".join(f"{k} {v:.3f}s" for k, v in timer.phases.items())
+    phases = phase_text(timer)
     log(f"request A, warm, {WARM_STEPS} steps: {wall:.3f} s | {phases}")
 
     # 6. request B: scene motion, CLIP tower, sampler, temporal decoder
@@ -645,15 +836,15 @@ def main() -> int:
     t0 = time.perf_counter()
     frames, latents, timer, flow, tokens = run_request_b(pipe_b, 2, STEPS)
     wall = time.perf_counter() - t0
-    launches_b = read_counts("request B")
+    launches_b = read_counts("request B", at_768)
     check_video(frames, latents, T, "request B")
     check(flow.shape == (T, H // 8, W // 8, 2) and bool(torch.isfinite(flow).all())
           and bool(flow.any()), f"request B: flow {tuple(flow.shape)} finite and not all zero")
     check(tokens.shape == (1, 257, 768) and bool(np.isfinite(tokens).all()),
           f"request B: CLIP tokens {tokens.shape} finite")
-    phases = " ".join(f"{k} {v:.3f}s" for k, v in timer.phases.items())
+    phases = phase_text(timer)
     log(f"request B: {T}x{H}x{W} {STEPS} steps, temporal decoder, in {wall:.3f} s | {phases} | "
-        f"peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB | launches {launches_b} | "
+        f"peak {max(timer.peaks.values()):.2f} GiB | launches {launches_b} | "
         f"flow abs max {flow.abs().max().item():.3f} | tokens std {tokens.std():.4f} | "
         f"latents std {latents.std().item():.4f} | frames mean {frames.mean():.2f}")
     del frames, latents, flow
@@ -672,7 +863,7 @@ def main() -> int:
     image = image_pipe(*pictures, tokens, noise).cpu().numpy()
     wall = time.perf_counter() - t0
     # no motion modules at stage 1: K3 is not on this path
-    launches_i = read_counts("image request", [k for k in kernels if k is not ta.K3])
+    launches_i = read_counts("image request", [k for k in at_768 if k is not ta.K3])
     check(image.shape == (1, H, W, 3) and image.dtype == np.uint8, f"image {image.shape}")
     lat = image_pipe(*pictures, tokens, noise, num_inference_steps=2, decode=False)
     check(lat.shape == (1, H // 8, W // 8, 4) and bool(torch.isfinite(lat).all()),
@@ -711,12 +902,93 @@ def main() -> int:
         f"latents {rel:.3e}, of the same latents decoded by the SD decoder {rel_sd:.3e}, by "
         f"the temporal decoder {rel_temporal:.3e} (limits {SMALL_REL_L2} for the latents, "
         f"{SMALL_DECODED_REL_L2} for the decoded frames)")
+    # 256^2: the VAE takes K9, not K4; a UNet batch of 8 frames stays under K13's 64
+    small_kernels = [k.name for k in kernels if k not in (fa.K4, ta.K13)]
     check(rel < SMALL_REL_L2 and max(rel_sd, rel_temporal) < SMALL_DECODED_REL_L2
-          and len(used) == len(kernels),
+          and used == small_kernels,
           f"small request: rel {rel} {rel_sd} {rel_temporal}, kernels {used}")
 
+    # 10. request C: long clips at 768^2 through the three bank tiers
+    def tier_pipe(**change):
+        return VideoPipeline(bundle, PipelineConfig(
+            width=W, height=H, num_inference_steps=LONG_STEPS, guidance_scale=3.5,
+            context=ContextConfig(frames=30, overlap=8), **change))
+
+    def long_request(what, pipe, inputs, decode=True, expect=at_768):
+        reset_counts()
+        t0 = time.perf_counter()
+        frames, latents, timer = run_request(pipe, inputs, LONG_STEPS, decode=decode)
+        wall = time.perf_counter() - t0
+        counts = read_counts(what, expect)
+        n = inputs[2].shape[0]
+        check_video(frames, latents, n, what)
+        log(f"{what}: {n}x{H}x{W} {LONG_STEPS} steps in {wall:.3f} s | {phase_text(timer)} | "
+            f"peak {max(timer.peaks.values()):.2f} GiB | launches {counts} | latents std "
+            f"{latents.std().item():.4f}")
+        return latents, counts
+
+    from mikudance_tpu_torch.pipelines import video as video_mod
+
+    clip48, clip40 = make_inputs(6, 48, H, W), make_inputs(7, 40, H, W)
+    lat_step, launches_c = long_request(
+        "request C, 48 frames, auto past 64 cached positions (3 windows, per-step banks)",
+        tier_pipe(bank_mode="auto", cached_bank_positions=64), clip48)
+    q8_pipe = tier_pipe(bank_mode="cached_q8", cached_bank_positions=64,
+                        max_denoise_frame_batch=32)
+    lat_q8, launches_q8 = long_request("request C, 48 frames, cached_q8", q8_pipe, clip48)
+    dequantize = video_mod.dequantize_banks
+    video_mod.dequantize_banks = lambda qv, qs, dtype: dequantize(
+        qv, {k: 2 * v for k, v in qs.items()}, dtype)
+    try:  # the control: the int8 banks read back with scales off by 2x
+        lat_ctl, _ = long_request("request C, control (q8 scales off by 2x)", q8_pipe, clip48,
+                                  decode=False)
+    finally:
+        video_mod.dequantize_banks = dequantize
+    lat_grouped, launches_grouped = long_request(
+        "request C, 40 frames, max_denoise_frame_batch 32 (2 windows, cached-grouped)",
+        tier_pipe(bank_mode="auto", cached_bank_positions=64, max_denoise_frame_batch=32), clip40)
+    lat_step40, _ = long_request(
+        "request C, 40 frames, per-step banks", tier_pipe(bank_mode="per_step",
+                                                          cached_bank_positions=32), clip40,
+        decode=False)
+    rel_q8, rel_ctl = rel_l2(lat_q8, lat_step), rel_l2(lat_ctl, lat_step)
+    rel_grouped = rel_l2(lat_grouped, lat_step40)
+    log(f"request C, tiers against one another (relative L2 of the latents): cached_q8 vs "
+        f"per-step {rel_q8:.3e} (limit {Q8_REL_L2}; control {rel_ctl:.3e}), cached-grouped vs "
+        f"per-step {rel_grouped:.3e} (limit {SMALL_REL_L2})")
+    check(rel_q8 < Q8_REL_L2 < rel_ctl, f"cached_q8 {rel_q8:.3e} and its control {rel_ctl:.3e} "
+                                        f"on either side of {Q8_REL_L2}")
+    check(rel_grouped < SMALL_REL_L2, f"cached-grouped vs per-step {rel_grouped:.3e}")
+    del lat_step, lat_q8, lat_ctl, lat_grouped, lat_step40, clip48, clip40
+
+    # 11. request D: the CLI's steps at 256^2, 40 frames, both windows in one batch
+    d_pipe = VideoPipeline(bundle_b, PipelineConfig(
+        width=D_SIZE, height=D_SIZE, num_inference_steps=D_STEPS, guidance_scale=3.5,
+        context=ContextConfig(frames=30, overlap=8), max_denoise_frame_batch=64,
+        cached_bank_positions=64))
+    reset_counts()
+    t0 = time.perf_counter()
+    frames, latents, timer, flow = run_request_d(d_pipe, 8, D_STEPS, D_FRAMES, D_SIZE)
+    wall = time.perf_counter() - t0
+    launches_d = read_counts("request D", [k for k in kernels if k is not fa.K4])
+    check(launches_d[fa.K4.name] == 0, f"request D launched K4: {launches_d}")
+    check_video(frames, latents, D_FRAMES, "request D", D_SIZE, D_SIZE)
+    check(bool(flow.any()) and bool(torch.isfinite(flow).all()), "request D: flow")
+    log(f"request D: {D_FRAMES}x{D_SIZE}x{D_SIZE} {D_STEPS} steps, temporal decoder, in "
+        f"{wall:.3f} s | {phase_text(timer)} | peak {max(timer.peaks.values()):.2f} GiB | "
+        f"launches {launches_d} | latents std {latents.std().item():.4f} | frames mean "
+        f"{frames.mean():.2f}")
+
     for rec in record.values():
-        rec["launches"] = launches_b[rec["name"]]
+        # launches: from the main path that runs the kernel, request B at
+        # 768^2, request D for the two kernels of smaller maps
+        on_d = rec["name"] in (fa.K9.name, ta.K13.name)
+        rec["launches_request_b"] = launches_b[rec["name"]]
+        rec["launches_request_c_per_step"] = launches_c[rec["name"]]
+        rec["launches_request_c_q8"] = launches_q8[rec["name"]]
+        rec["launches_request_c_grouped"] = launches_grouped[rec["name"]]
+        rec["launches_request_d"] = launches_d[rec["name"]]
+        rec["launches"] = (launches_d if on_d else launches_b)[rec["name"]]
         rec["launches_request_a"] = launches_a[rec["name"]]
         rec["launches_image_request"] = launches_i[rec["name"]]
     kern_line = {"kernels": list(record.values())}

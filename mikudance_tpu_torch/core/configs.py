@@ -152,16 +152,33 @@ class PipelineConfig:
     # denoise loop. "per_step" recomputes banks inside the loop in window
     # groups (the reference's own memory behavior,
     # `pipeline_mikudance.py:647-653`). "auto" picks cached while
-    # nw*wf <= cached_bank_positions, else per_step. "cached_q8" caches every
-    # position's banks as int8 + per-position fp32 scales. The port runs the
-    # cached path; the others raise NotImplementedError (ROADMAP Queue 1, 8).
+    # nw*wf <= cached_bank_positions, else per_step. "cached_q8" caches one
+    # int8 bank (+ per-position fp32 scales) per unique (frame, CLIP-context
+    # variant) and denoises in window groups.
+    # Both budgets below are sized for one 80 GB card at 768^2 in bf16, from
+    # peak torch.cuda.max_memory_allocated of one-step requests of 16 to 74
+    # frames (`python3 chip_smoke.py --budgets` on an NVIDIA H100 80GB HBM3,
+    # 700.00 W; the fits are in PERF.md); shorter sides need less.
+    #
+    # How many (window, position) banks "auto" caches, the group budget of
+    # "per_step" and the guidance-UNet chunk of "cached_q8". What it bounds
+    # is the guidance UNet's batch: 4.4 GiB + 0.164 GiB a position (6.99 GiB
+    # at 16 positions, 23.99 GiB at 120), so 192 positions, six 30-frame
+    # windows, take about 36 GiB, under half the card; the cached raw banks
+    # themselves are 0.051 GiB a position.
     bank_mode: str = "auto"  # "auto" | "cached" | "per_step" | "cached_q8"
-    cached_bank_positions: int = 64
+    cached_bank_positions: int = 192
     # per-UNet-call frame cap: past this many (window, frame) positions the
-    # JAX package scans window groups (not yet ported, ROADMAP Queue 1, 8)
-    max_denoise_frame_batch: int = 32
-    # Cap on denoiser-UNet frame-passes per device program in the JAX
-    # package's grouped denoise; kept so configs stay interchangeable.
+    # denoiser runs over window groups (CFG as two passes) instead of one
+    # batch over every window with CFG folded in. One batch peaks at 4.4 GiB
+    # + 0.50 GiB a position (12.41 GiB at 16, 49.40 GiB at 90): 96 keeps
+    # three 30-frame windows in one batch at about 52 GiB, two thirds of the
+    # card. Grouping costs no time (48 frames, one step: 4.68 s in one batch,
+    # 4.71 s in three groups), so the headroom is kept rather than spent.
+    max_denoise_frame_batch: int = 96
+    # Cap on denoiser frame-passes per device program in the JAX package's
+    # grouped denoise. Unused by the port, whose loop is dispatched from the
+    # host every step; kept so configs stay interchangeable.
     max_exec_frame_passes: int = 640
 
 

@@ -305,6 +305,14 @@ def convert_clip_vision(src: Mapping, num_layers: int = 24) -> Dict:
     return out
 
 
+def merge_state_dicts(base: Mapping, extra: Mapping) -> Dict:
+    """strict=False-style merge: extra keys override base
+    (`unet_3d_mix.py:637-684` motion-module merge)."""
+    out = dict(base)
+    out.update(extra)
+    return out
+
+
 def conv_temporal_kernel(x) -> np.ndarray:
     """torch Conv3d (O, I, 3, 1, 1) -> (3, 1, I, O)."""
     a = _t(x)[:, :, :, 0, :]  # (O, I, 3, 1)

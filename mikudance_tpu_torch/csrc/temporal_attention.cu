@@ -120,7 +120,11 @@ int md_temporal_attention(const void* q, const void* k, const void* v, void* o, 
                           int frames, int positions, int channels, int heads, void* stream) {
   const int hd = channels / heads;
   if (frames > kMaxFrames || hd % 2 != 0 || channels % heads != 0) return cudaErrorInvalidValue;
-  const int np = hd >= 320 ? 1 : 320 / hd;  // ~320 channels of q, k, v per block
+  // ~320 channels of q, k, v per block, and at most ~128 (position, frame)
+  // rows: past 16 frames a block of 8 positions would take over 140 KB of
+  // shared memory and leave one block an SM.
+  int np = hd >= 320 ? 1 : 320 / hd;
+  if (np > 128 / frames) np = 128 / frames;
   const size_t smem =
       sizeof(float) * ((size_t)3 * np * frames * row_stride(hd) + (size_t)np * frames * frames);
   cudaError_t err =

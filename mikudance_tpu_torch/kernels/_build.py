@@ -34,8 +34,12 @@ SIGNATURES = {
     "md_flash_cross": (P, P, P, P, I, I, I, I, I, P),
     # q, k, v, o, batch, seq, heads, head_dim, stream
     "md_flash_wide": (P, P, P, P, I, I, I, I, P),
+    # q, k, v, o, batch, seq, heads, head_dim, stream
+    "md_flash_resident": (P, P, P, P, I, I, I, I, P),
     # q, k, v, o, batch, frames, positions, channels, heads, stream
     "md_temporal_attention": (P, P, P, P, I, I, I, I, I, P),
+    # q, k, v, o, sequences, tokens, channels, heads, stream
+    "md_small_attention": (P, P, P, P, I, I, I, I, P),
     # x, weight, bias, y, scratch, images, rows, channels, groups, eps, silu, x_fp32,
     # w_fp32, rows_per_block, splits, chunk_w, lanes, stream
     "md_group_norm": (P, P, P, P, P, I, L, I, I, F, I, I, I, I, I, I, I, P),

@@ -6,11 +6,13 @@ reference checkpoint's key grammar (diffusers ``Attention``,
 module's ``state_dict`` is what ``core.convert`` reads.
 
 The reference-attention "bank" mechanism is functional: write-mode blocks
-*return* their normed hidden states; read-mode blocks take the banks already
-projected through their own attn1 K/V weights (``ref_kv``) and add them to
-the self-attention K/V projections — by linearity the additive injection
-``W(norm_h + ref)`` of the reference (`mutual_mix_attention.py:169-180`).
-The CFG-uncond half gets zero bank K/V, which is plain self-attention.
+*return* their normed hidden states; read-mode blocks take the banks either
+already projected through their own attn1 K/V weights (``ref_kv``), added to
+the self-attention K/V projections, or raw (``ref``), added to the K/V input
+— the reference's injection ``W(norm_h + ref)``
+(`mutual_mix_attention.py:169-180`), of which the first is the linear
+expansion. The CFG-uncond half gets zero bank K/V or no bank at all, which
+is plain self-attention.
 
 All token tensors are (B, S, C); all image tensors are NHWC.
 """
@@ -165,6 +167,9 @@ class TransformerBlock(nn.Module):
       (`mutual_mix_attention.py:140`).
     - ``ref_kv`` given (denoising UNet): the bank K/V are added to the
       self-attention K/V projections (zeros for the uncond half).
+    - ``ref`` given (denoising UNet, raw bank of one window group): K/V are
+      projected from ``norm_h + ref``.
+    - neither: plain self-attention (the uncond pass of the streamed tiers).
     """
 
     def __init__(self, dim: int, heads: int, cross_dim: int = 768):
@@ -178,9 +183,12 @@ class TransformerBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor],
                 write: bool = False, ref_kv: Optional[KV] = None,
-                ctx_kv: Optional[KV] = None):
+                ctx_kv: Optional[KV] = None, ref: Optional[torch.Tensor] = None):
         norm_h = self.norm1(x)
-        x = x + self.attn1(norm_h, extra_kv=ref_kv)
+        if ref_kv is None and ref is not None:
+            x = x + self.attn1(norm_h, context=norm_h + ref.to(norm_h.dtype))
+        else:
+            x = x + self.attn1(norm_h, extra_kv=ref_kv)
         x = x + self.attn2(self.norm2(x), context, kv=ctx_kv)
         x = x + self.ff(self.norm3(x))
         return x, (norm_h if write else None)
@@ -211,9 +219,9 @@ class SpatialTransformer(nn.Module):
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor],
                 write: bool = False, ref_kv: Optional[KV] = None,
-                ctx_kv: Optional[KV] = None):
+                ctx_kv: Optional[KV] = None, ref: Optional[torch.Tensor] = None):
         B, H, W, C = x.shape
         h = linear_1x1(self.norm(x), self.proj_in).reshape(B, H * W, C)
-        h, bank = self.block(h, context, write=write, ref_kv=ref_kv, ctx_kv=ctx_kv)
+        h, bank = self.block(h, context, write=write, ref_kv=ref_kv, ctx_kv=ctx_kv, ref=ref)
         h = linear_1x1(h, self.proj_out).reshape(B, H, W, C)
         return h + x, bank

@@ -11,7 +11,8 @@ grammar (``down_blocks.{i}.resnets.{j}``, ``.attentions.{j}``,
   ``conv_out`` is disabled in the reference, `unet_2d_mix.py:1371-1375`).
 - ``DenoisingUNet``: the 3-D denoising UNet (reference ``unet_3d_mix.py``):
   SD1.5 with frames folded into the batch and an AnimateDiff motion module
-  after every attention/resnet layer, reading the banks as precomputed K/V.
+  after every attention/resnet layer, reading the banks as precomputed K/V
+  (``banks_kv``) or raw (``banks``).
 
 Banks are keyed by structural position (``down_i_j`` / ``mid`` / ``up_i_j``),
 which is how the reference pairs writer and reader blocks for two UNets of
@@ -155,7 +156,8 @@ class _UNetBody(nn.Module):
     def run(self, x: torch.Tensor, timesteps: torch.Tensor, context, frames: int = 1,
             write: bool = False, motion_map: Optional[torch.Tensor] = None,
             banks_kv: Optional[Dict[str, KV]] = None,
-            ctx_kv: Optional[Dict[str, KV]] = None):
+            ctx_kv: Optional[Dict[str, KV]] = None,
+            ref_banks: Optional[Dict[str, torch.Tensor]] = None):
         """x: (B*frames, H, W, C_in) NHWC. Returns (h, banks)."""
         u = self.u
         dtype = self.conv_in.weight.dtype
@@ -174,8 +176,10 @@ class _UNetBody(nn.Module):
             if ctx_kv is not None:
                 k, v = ctx_kv[key]
                 kv = (k.repeat_interleave(frames, dim=0), v.repeat_interleave(frames, dim=0))
-            ref = None if banks_kv is None else banks_kv[key]
-            h, bank = self.attention(key)(h, ctx, write=write, ref_kv=ref, ctx_kv=kv)
+            ref_kv = None if banks_kv is None else banks_kv[key]
+            ref = None if ref_banks is None else ref_banks[key]
+            h, bank = self.attention(key)(h, ctx, write=write, ref_kv=ref_kv, ctx_kv=kv,
+                                          ref=ref)
             if write:
                 banks[key] = bank
             return h
@@ -242,13 +246,16 @@ class DenoisingUNet(_UNetBody):
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,
                 context: Optional[torch.Tensor] = None,
                 banks_kv: Optional[Dict[str, KV]] = None,
-                ctx_kv: Optional[Dict[str, KV]] = None) -> torch.Tensor:
+                ctx_kv: Optional[Dict[str, KV]] = None,
+                banks: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """sample: (B, T, H, W, 4); timesteps: (B,); context: (B, S, 768),
-        unused where ``ctx_kv`` (each (B, S, C_l)) is given; banks_kv: each
-        (B*T, S_l, C_l). Returns (B, T, H, W, 4)."""
+        unused where ``ctx_kv`` (each (B, S, C_l)) is given; the banks either
+        projected (``banks_kv``, pairs of (B*T, S_l, C_l)) or raw (``banks``,
+        each (B*T, S_l, C_l)); with neither, plain self-attention. Returns
+        (B, T, H, W, 4)."""
         B, T = sample.shape[:2]
         h, _ = self.run(sample.reshape((B * T,) + sample.shape[2:]), timesteps, context,
-                        frames=T, banks_kv=banks_kv, ctx_kv=ctx_kv)
+                        frames=T, banks_kv=banks_kv, ctx_kv=ctx_kv, ref_banks=banks)
         h = conv_nhwc(self.conv_out, self.conv_norm_out(h))
         return h.reshape((B, T) + h.shape[1:])
 

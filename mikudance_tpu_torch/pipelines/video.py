@@ -1,4 +1,4 @@
-"""MikuDance video sampling pipeline, cached-bank path.
+"""MikuDance video sampling pipeline.
 
 Port of ``mikudance_tpu/pipelines/video.py`` (reference
 ``MikuDanceVideoPipeline.__call__``, `pipeline_mikudance.py:362-704`):
@@ -30,9 +30,12 @@ The pipeline runs on the CUDA card unless the caller names another device:
 ``device=None`` raises where there is no card, ``device="cpu"`` runs on the
 CPU. The bundle's modules are moved to that device.
 
-Only the cached path is ported. Per-step banks, int8 banks and
-window-grouped denoising raise ``NotImplementedError`` (ROADMAP Queue 1,
-item 8).
+Long clips (``PipelineConfig.bank_mode``, ``_denoise_streamed``): where the
+banks of every (window, position) or one UNet batch over every window would
+not fit the card, the denoiser runs over window groups, with the banks
+cached whole, cached as int8 with one entry per (frame, context variant), or
+recomputed per (step, group) through the guidance UNet. All of it runs on
+one device.
 """
 
 from __future__ import annotations
@@ -120,18 +123,74 @@ def build_condition_stack(ref_latent, skel_latent, pose_latents, face_latents,
     return torch.cat([ref, skel, pose_latents, face_latents, hand_latents], dim=-1)
 
 
+def quantize_banks(banks: Dict[str, torch.Tensor]):
+    """Symmetric per-position int8 quantization of reference banks.
+
+    Banks are LayerNormed hidden states (O(1) scale) consumed as additive
+    attention K/V inputs; one scale per (position, key) keeps the error at a
+    fraction of a percent. int8 halves the bank bytes against bf16, so a long
+    clip can cache every bank instead of recomputing them per (step, group)
+    through the guidance UNet.
+
+    Returns (values int8, scales fp32 (n, 1, 1)) dicts."""
+    qv, qs = {}, {}
+    for k, v in banks.items():
+        vf = v.float()
+        s = vf.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-8) / 127.0
+        qv[k] = torch.round(vf / s).clamp_(-127, 127).to(torch.int8)  # half to even
+        qs[k] = s
+    return qv, qs
+
+
+def dequantize_banks(qv, qs, dtype) -> Dict[str, torch.Tensor]:
+    return {k: (qv[k].float() * qs[k]).to(dtype) for k in qv}
+
+
+def choose_bank_group(num_windows: int, window_len: int, budget_positions: int,
+                      n_shards: int = 1) -> Optional[int]:
+    """Largest divisor g of num_windows with g*window_len <= budget (min 1):
+    the window-group size of the grouped denoise. With ``n_shards`` (the
+    multi-device pipeline, not ported yet) the group count must also split
+    evenly over the shards; returns None when no such g exists."""
+    best = None
+    for g in range(1, num_windows + 1):
+        if (num_windows % g == 0 and g * window_len <= budget_positions
+                and (num_windows // g) % n_shards == 0):
+            best = g
+    if n_shards == 1 and best is None:
+        best = 1  # a single over-budget window group: stream window-by-window
+    return best
+
+
+def context_variants(windows: np.ndarray, mode: str) -> np.ndarray:
+    """(nw*wf,) bool: which window positions get the uncond CLIP embed in the
+    guidance UNet. The reference tiles [u, c] f times, so the cond half's
+    position k gets index f + k."""
+    nw, wf = windows.shape
+    if mode == "cond":
+        return np.zeros(nw * wf, bool)
+    if mode == "reference_inference":
+        return np.tile((np.arange(wf) + wf) % 2 == 0, nw)
+    raise ValueError(f"unknown guidance_clip_mode {mode!r}")
+
+
+def unique_bank_index(windows: np.ndarray, mode: str):
+    """A bank depends only on (frame, CLIP-context variant), never on the
+    window a position sits in: (frames (n,), variant is uncond (n,) bool,
+    position -> unique row (nw*wf,)) of the deduplicated bank cache."""
+    pairs = windows.reshape(-1).astype(np.int64) * 2 + context_variants(windows, mode)
+    uniq, inv = np.unique(pairs, return_inverse=True)
+    return uniq // 2, (uniq % 2).astype(bool), inv.reshape(-1)
+
+
 def guidance_context_for_windows(windows: np.ndarray, ctx_cond: torch.Tensor,
                                  ctx_uncond: torch.Tensor, mode: str) -> torch.Tensor:
     """(nw*wf, S, 768) CLIP context for the guidance UNet, per window position."""
-    nw, wf = windows.shape
+    use_uncond = context_variants(windows, mode)
     if mode == "cond":
-        return ctx_cond.expand((nw * wf,) + ctx_cond.shape[1:])
-    if mode == "reference_inference":
-        # reference tiles [u, c] f times; cond half position k gets index f+k.
-        use_uncond = np.tile((np.arange(wf) + wf) % 2 == 0, nw)
-        mask = torch.as_tensor(use_uncond, device=ctx_cond.device)[:, None, None]
-        return torch.where(mask, ctx_uncond, ctx_cond)
-    raise ValueError(f"unknown guidance_clip_mode {mode!r}")
+        return ctx_cond.expand((use_uncond.size,) + ctx_cond.shape[1:])
+    mask = torch.as_tensor(use_uncond, device=ctx_cond.device)[:, None, None]
+    return torch.where(mask, ctx_uncond, ctx_cond)
 
 
 class VideoPipeline:
@@ -167,6 +226,24 @@ class VideoPipeline:
         """Guidance UNet over all (window, position) condition frames; t=0."""
         t0 = torch.zeros((window_cond.shape[0],), dtype=torch.int32, device=self.device)
         return self.bundle.guide(window_cond, window_motion, t0, g_ctx)
+
+    def _compute_banks_q8(self, window_cond, window_motion, g_ctx, chunk: int):
+        """The banks of every given position as (int8 values, fp32 scales):
+        the guidance UNet runs over ``chunk`` positions at a time and each
+        chunk is quantized as it is produced, so the extra memory is one
+        chunk's banks in the guidance UNet's type."""
+        n = window_cond.shape[0]
+        chunk = max(1, min(chunk, n))
+        qv, qs = {}, {}
+        for i in range(0, n, chunk):
+            piece = quantize_banks(self._compute_banks(
+                window_cond[i:i + chunk], window_motion[i:i + chunk], g_ctx[i:i + chunk]))
+            for buf, part in zip((qv, qs), piece):
+                for k, p in part.items():
+                    if k not in buf:
+                        buf[k] = torch.empty((n,) + p.shape[1:], dtype=p.dtype, device=p.device)
+                    buf[k][i:i + chunk] = p
+        return qv, qs
 
     # ------------------------------------------------------- CFG fusion step
     def _fused_cfg_step(self, sum_u, sum_c, counts, scale: float, t: int, t_prev: int,
@@ -210,6 +287,68 @@ class VideoPipeline:
             pred_c = pred[nw:].reshape((nw * wf,) + pred.shape[2:])
             sum_u = torch.zeros_like(latents).index_add_(0, flat_idx, pred_u)
             sum_c = torch.zeros_like(latents).index_add_(0, flat_idx, pred_c)
+            latents = self._fused_cfg_step(sum_u, sum_c, counts, guidance_scale, t, t_prev,
+                                           latents)
+        return latents
+
+    # ------------------------------------------------------ denoise (grouped)
+    def _denoise_streamed(self, noise: torch.Tensor, cond20: torch.Tensor,
+                          motion: torch.Tensor, ctx_cond: torch.Tensor, g_ctx: torch.Tensor,
+                          windows: np.ndarray, counts: torch.Tensor, ts: np.ndarray,
+                          prev_ts: np.ndarray, guidance_scale: float, group: int,
+                          banks_cached=None, bank_idx=None) -> torch.Tensor:
+        """Long-clip denoise: the UNet runs over groups of ``group`` windows,
+        never over all windows at once. Three bank modes share the loop:
+
+        - ``banks_cached=None``: the banks of a group are recomputed per
+          (step, group) through the guidance UNet from ``cond20``, ``motion``
+          and ``g_ctx`` (each (nw*wf, ...) or (T, ...)), the reference's own
+          memory behaviour (`pipeline_mikudance.py:647-653`);
+        - a dict of (nw*wf, S, C) banks: computed once outside and sliced per
+          group (cached-grouped: the banks fit, one UNet batch does not);
+        - an (int8 values, fp32 scales) tuple with ``bank_idx`` (nw*wf,): the
+          deduplicated quantized cache, gathered and dequantized per group.
+
+        CFG is two passes of the denoiser, not a doubled batch: the uncond
+        pass has a zero CLIP context and no banks (plain self-attention, the
+        same math as zero banks), so activations are half of ``_denoise``'s.
+        A group's banks are dropped before the next group's are made."""
+        den = self.bundle.den
+        nw, wf = windows.shape
+        cdt, gdt = _dtype(den), _dtype(self.bundle.guide)
+        recompute = banks_cached is None
+        quantized = isinstance(banks_cached, tuple)
+        ctx_b = ctx_cond.expand((group,) + ctx_cond.shape[1:]).to(cdt)
+        ctx_0 = torch.zeros_like(ctx_b)
+        win_idx = torch.as_tensor(windows, dtype=torch.long, device=self.device)
+        if quantized:
+            bank_idx = torch.as_tensor(bank_idx, dtype=torch.long, device=self.device)
+
+        def group_banks(rows: slice, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+            if recompute:
+                return self._compute_banks(cond20[flat].to(gdt), motion[flat].to(gdt),
+                                           g_ctx[rows])
+            if quantized:
+                idx = bank_idx[rows]
+                qv, qs = banks_cached
+                return dequantize_banks({k: v[idx] for k, v in qv.items()},
+                                        {k: v[idx] for k, v in qs.items()}, cdt)
+            return {k: v[rows] for k, v in banks_cached.items()}
+
+        latents = noise.float()
+        for t, t_prev in zip(ts.tolist(), prev_ts.tolist()):
+            sum_u, sum_c = torch.zeros_like(latents), torch.zeros_like(latents)
+            t_b = torch.full((group,), t, dtype=torch.int32, device=self.device)
+            for g0 in range(0, nw, group):
+                w_g = win_idx[g0:g0 + group]  # (group, wf)
+                flat = w_g.reshape(-1)
+                win = latents[w_g].to(cdt)  # (group, wf, h, w, 4)
+                pred_u = den(win, t_b, ctx_0).float()
+                banks = group_banks(slice(g0 * wf, (g0 + group) * wf), flat)
+                pred_c = den(win, t_b, ctx_b, banks=banks).float()
+                del banks
+                sum_u.index_add_(0, flat, pred_u.reshape((group * wf,) + pred_u.shape[2:]))
+                sum_c.index_add_(0, flat, pred_c.reshape((group * wf,) + pred_c.shape[2:]))
             latents = self._fused_cfg_step(sum_u, sum_c, counts, guidance_scale, t, t_prev,
                                            latents)
         return latents
@@ -264,7 +403,8 @@ class VideoPipeline:
         windows = ctx_sched.window_matrix(
             T, cfgc.context.frames, cfgc.context.stride, cfgc.context.overlap)
         nw, wf = windows.shape
-        self._check_cached_path(nw, wf)
+        if cfgc.bank_mode not in ("auto", "cached", "per_step", "cached_q8"):
+            raise ValueError(f"unknown bank_mode {cfgc.bank_mode!r}")
 
         # 1. VAE encodes. An absent face/hand stream (None), or a present
         # all-black uint8 one, is the reference CLI's black-frame fallback:
@@ -304,7 +444,10 @@ class VideoPipeline:
         cond20 = build_condition_stack(ref_l, skel_l, pose_l, face_l, hand_l)
         del all_frames, lat
 
-        # 2. banks for every (window, position), computed once
+        # 2. bank residency: cache the banks of every (window, position)
+        # where they fit (computed once, reused across steps), else recompute
+        # them per step in window groups (see _denoise_streamed). cached_q8
+        # keeps one int8 entry per unique (frame, context variant).
         counts = torch.as_tensor(ctx_sched.frame_counts(windows, T), dtype=torch.float32,
                                  device=dev)
         flat = torch.as_tensor(windows.reshape(-1), dtype=torch.long, device=dev)
@@ -313,16 +456,45 @@ class VideoPipeline:
         g_ctx = guidance_context_for_windows(
             windows, ctx_cond, torch.zeros_like(ctx_cond), cfgc.guidance_clip_mode).to(gdt)
         motion = torch.as_tensor(scene_motion, device=dev)
-        banks = self._compute_banks(cond20[flat].to(gdt), motion[flat].to(gdt), g_ctx)
-        mark("guidance_banks")
-
-        # 3. the loop over DDIM steps
+        noise = torch.as_tensor(noise, device=dev)
+        q8 = cfgc.bank_mode == "cached_q8"
+        per_step = cfgc.bank_mode == "per_step" or (
+            cfgc.bank_mode == "auto" and nw * wf > cfgc.cached_bank_positions)
         ts, prev_ts = inference_step_pairs(self.schedule, steps,
                                            spacing=cfgc.scheduler.timestep_spacing)
-        latents = self._denoise(torch.as_tensor(noise, device=dev), banks,
-                                ctx_cond, windows, counts, ts, prev_ts, float(scale))
-        del banks
-        mark("denoise")
+
+        # 3. the loop over DDIM steps
+        if per_step:
+            group = choose_bank_group(nw, wf, cfgc.cached_bank_positions)
+            latents = self._denoise_streamed(noise, cond20, motion, ctx_cond, g_ctx, windows,
+                                             counts, ts, prev_ts, float(scale), group)
+            mark("denoise_streamed")
+        else:
+            bank_idx = None
+            if q8:
+                u_frames, u_uncond, bank_idx = unique_bank_index(windows,
+                                                                 cfgc.guidance_clip_mode)
+                u_frames = torch.as_tensor(u_frames, dtype=torch.long, device=dev)
+                u_mask = torch.as_tensor(u_uncond, device=dev)[:, None, None]
+                g_ctx_u = torch.where(u_mask, torch.zeros_like(ctx_cond), ctx_cond).to(gdt)
+                banks = self._compute_banks_q8(cond20[u_frames].to(gdt),
+                                               motion[u_frames].to(gdt), g_ctx_u,
+                                               chunk=cfgc.cached_bank_positions)
+            else:
+                banks = self._compute_banks(cond20[flat].to(gdt), motion[flat].to(gdt), g_ctx)
+            mark("guidance_banks")
+            if q8 or (nw * wf > cfgc.max_denoise_frame_batch and nw > 1):
+                # cached-grouped: every bank fits, one UNet batch over every
+                # window does not (two 30-frame windows at 768^2)
+                group = choose_bank_group(nw, wf, cfgc.max_denoise_frame_batch)
+                latents = self._denoise_streamed(noise, cond20, motion, ctx_cond, g_ctx,
+                                                 windows, counts, ts, prev_ts, float(scale),
+                                                 group, banks_cached=banks, bank_idx=bank_idx)
+            else:
+                latents = self._denoise(noise, banks, ctx_cond, windows, counts, ts, prev_ts,
+                                        float(scale))
+            del banks  # gigabytes of cached banks, freed before the decode
+            mark("denoise")
         # 4. optional latent frame-rate upsampling (`pipeline_mikudance.py:688`)
         if cfgc.interpolation_factor > 1:
             latents = interpolate_latents(latents, cfgc.interpolation_factor,
@@ -337,20 +509,3 @@ class VideoPipeline:
         out = self._decode(latents)
         mark("decode")
         return out
-
-    def _check_cached_path(self, nw: int, wf: int) -> None:
-        """The port runs the cached-bank path with every window in one UNet
-        batch; a call that needs another path raises."""
-        cfgc = self.config
-        if cfgc.bank_mode not in ("auto", "cached", "per_step", "cached_q8"):
-            raise ValueError(f"unknown bank_mode {cfgc.bank_mode!r}")
-        if cfgc.bank_mode in ("per_step", "cached_q8") or (
-                cfgc.bank_mode == "auto" and nw * wf > cfgc.cached_bank_positions):
-            raise NotImplementedError(
-                f"bank_mode={cfgc.bank_mode!r} with {nw}x{wf} window positions needs the "
-                "per-step / int8 bank tiers (ROADMAP Queue 1, item 8)")
-        if nw * wf > cfgc.max_denoise_frame_batch and nw > 1:
-            raise NotImplementedError(
-                f"{nw} windows of {wf} frames exceed max_denoise_frame_batch="
-                f"{cfgc.max_denoise_frame_batch}: window-grouped denoising is "
-                "ROADMAP Queue 1, item 8")

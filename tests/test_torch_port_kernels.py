@@ -1,4 +1,4 @@
-"""The port's kernels (attention K1-K4, GroupNorm K5, LayerNorm K6): plain
+"""The port's kernels (attention K1-K4, K9, K13, GroupNorm K5, LayerNorm K6): plain
 versions against the JAX Pallas kernels (interpret mode, as
 ``tests/test_flash_attention.py`` and ``tests/test_group_norm.py`` run them),
 the dispatch rule, and device-only dispatch (a CPU tensor never launches a
@@ -24,7 +24,7 @@ from mikudance_tpu_torch.kernels import layer_norm as pln
 from mikudance_tpu_torch.kernels import temporal_attention as pta
 
 ATOL = RTOL = 2e-2  # kernel against dense, as tests/test_flash_attention.py
-ALL_KERNELS = (pfa.K1, pfa.K2, pta.K3, pfa.K4, pgn.K5, pln.K6)
+ALL_KERNELS = (pfa.K1, pfa.K2, pta.K3, pfa.K4, pgn.K5, pln.K6, pfa.K9, pta.K13)
 
 
 def qkv(seed, *shapes):
@@ -39,11 +39,13 @@ def jx():
     import jax.numpy as jnp
 
     import mikudance_tpu.kernels.flash_attention as fa
-    from mikudance_tpu.kernels.temporal_attention import temporal_attention_btpc
+    from mikudance_tpu.kernels.temporal_attention import (temporal_attention_btpc,
+                                                          temporal_attention_fused)
     from mikudance_tpu.kernels.group_norm import fused_group_norm
     from mikudance_tpu.kernels.layer_norm import fused_layer_norm
     from mikudance_tpu.models.layers import FusedLayerNorm
     return types.SimpleNamespace(jnp=jnp, fa=fa, btpc=temporal_attention_btpc,
+                                 fused=temporal_attention_fused,
                                  group_norm=fused_group_norm, layer_norm=fused_layer_norm,
                                  FusedLayerNorm=FusedLayerNorm)
 
@@ -93,6 +95,47 @@ def test_k4_plain_matches_pallas_streamed(hd, monkeypatch, jx):
         q_block=128, k_block=128, interpret=True)
     check(pfa.flash_attention_wide(torch.from_numpy(q), torch.from_numpy(k),
                                    torch.from_numpy(v), 1), want)
+
+
+@pytest.mark.parametrize("S,dtype", [(128, "float32"), (256, "float32"), (256, "bfloat16")])
+def test_k9_plain_matches_pallas_resident(S, dtype, jx, monkeypatch):
+    """Head width 512 as in the VAE; 2 * S * 512 * 2 bytes is far under the
+    6 MB limit, so ``flash_attention_padded`` takes ``_flash_kernel_resident``
+    (the streamed kernel is made unreachable to prove it). The TPU body casts
+    q, k, v to bf16, hence the bf16 tolerance for fp32 inputs too."""
+    hd, B = 512, 2
+    assert pfa.resident_kv(S, hd) and pfa.resident_kv(3072, hd) and not pfa.resident_kv(3073, hd)
+    assert pfa.RESIDENT_KV_BYTES == jx.fa.RESIDENT_KV_BYTES
+    monkeypatch.setattr(jx.fa, "_flash_kernel", None)
+    q, k, v = qkv(S, *[(B, S, hd)] * 3)
+    jd = getattr(jx.jnp, dtype)
+    want = jx.fa.flash_attention_padded(
+        jx.jnp.asarray(q, jd), jx.jnp.asarray(k, jd), jx.jnp.asarray(v, jd), 1.0 / np.sqrt(hd),
+        q_block=128, k_block=128, interpret=True)
+    td = getattr(torch, dtype)
+    got = pfa.flash_attention_resident(torch.from_numpy(q).to(td), torch.from_numpy(k).to(td),
+                                       torch.from_numpy(v).to(td), 1)
+    assert got.dtype == td
+    check(got, want)
+
+
+@pytest.mark.parametrize("T,C,dtype", [(8, 80, "float32"), (16, 320, "float32"),
+                                       (30, 160, "float32"), (16, 320, "bfloat16")])
+def test_k13_plain_matches_pallas_fused(T, C, dtype, jx):
+    """N = 21 sequences exercise the TPU kernel's padding to whole tiles; its
+    body rounds the scaled q and the weights to bf16 (2e-2 covers that)."""
+    N, heads = 21, 4
+    q, k, v = qkv(T + C, *[(N, T, C)] * 3)
+    jd, td = getattr(jx.jnp, dtype), getattr(torch, dtype)
+    want = jx.fused(jx.jnp.asarray(q, jd), jx.jnp.asarray(k, jd), jx.jnp.asarray(v, jd), heads,
+                    128, True)
+    tq, tk, tv = (torch.from_numpy(a).to(td) for a in (q, k, v))
+    got = pta.small_sequence_attention(tq, tk, tv, heads)
+    assert got.dtype == td and got.shape == (N, T, C)
+    check(got, want)
+    # the same function as the general plain attention
+    torch.testing.assert_close(got.float(), pfa.dot_product_attention(tq, tk, tv, heads).float(),
+                               atol=1e-5 if dtype == "float32" else ATOL, rtol=0)
 
 
 def norm_data(seed, shape):
@@ -181,12 +224,22 @@ def test_plain_chunking_is_exact(monkeypatch):
     (((2, 16, 9216, 320),) * 3, 8, "temporal_attention"),        # motion modules
     (((32, 9216, 320),) * 3, 8, "flash_attention_fullc"),         # level 0, hd 40
     (((32, 2304, 640),) * 3, 8, "flash_attention_fullc"),         # level 1, hd 80
-    (((4, 9216, 512),) * 3, 1, "flash_attention_wide"),           # VAE mid-block
+    (((4, 9216, 512),) * 3, 1, "flash_attention_wide"),           # VAE mid-block, 768^2
+    (((4, 4096, 512),) * 3, 1, "flash_attention_wide"),           # 512^2: K/V of 8 MB stream
+    (((8, 3072, 512),) * 3, 1, "flash_attention_resident"),       # 512 x 384: 6 MB, resident
+    (((8, 2304, 512),) * 3, 1, "flash_attention_resident"),       # 384^2
+    (((8, 1024, 512),) * 3, 1, "flash_attention_resident"),       # 256^2
+    (((2, 16384, 256),) * 3, 2, "flash_attention_wide"),          # 2 heads of 128: 8 MB a head
+    (((2, 8192, 256),) * 3, 2, "flash_attention_resident"),       # 4 MB a head
     (((32, 9216, 320), (32, 257, 320), (32, 257, 320)), 8, "cross_attention"),
     (((32, 2304, 640), (32, 257, 640), (32, 257, 640)), 8, "cross_attention"),
     (((32, 576, 1280),) * 3, 8, "dot_product_attention"),         # level 2: plain
     (((32, 144, 1280), (32, 257, 1280), (32, 257, 1280)), 8, "dot_product_attention"),
-    (((64, 16, 320),) * 3, 8, "dot_product_attention"),           # 3-D short sequences
+    (((120, 16, 1280),) * 3, 8, "small_sequence_attention"),      # mid-block on a 4 x 4 map
+    (((64, 32, 320),) * 3, 8, "small_sequence_attention"),        # B >= 64, S <= 32
+    (((63, 16, 1280),) * 3, 8, "dot_product_attention"),          # a batch under 64
+    (((64, 33, 320),) * 3, 8, "dot_product_attention"),           # more than 32 tokens
+    (((64, 16, 320), (64, 257, 320), (64, 257, 320)), 8, "dot_product_attention"),
     (((1, 257, 1024),) * 3, 16, "dot_product_attention"),         # CLIP tower, 16 heads of 64
 ])
 def test_dispatch_rule(shape, heads, route, monkeypatch):
@@ -194,7 +247,8 @@ def test_dispatch_rule(shape, heads, route, monkeypatch):
     class (checked on meta tensors: shapes only, no compute)."""
     calls = []
     for name in ("temporal_attention", "flash_attention_fullc", "flash_attention_wide",
-                 "cross_attention", "dot_product_attention"):
+                 "flash_attention_resident", "small_sequence_attention", "cross_attention",
+                 "dot_product_attention"):
         monkeypatch.setattr(pfa, name, lambda *a, _n=name: calls.append(_n))
     pfa.attention(*[torch.empty(s, device="meta") for s in shape], heads)
     assert calls == [route]
@@ -213,7 +267,9 @@ def test_cpu_tensors_never_launch():
     for out, want in (
         (pfa.attention(q, q, q, 2), pfa.dot_product_attention(q, q, q, 2)),          # K1 route
         (pfa.attention(q, ctx, ctx, 2), pfa.dot_product_attention(q, ctx, ctx, 2)),  # K2 route
-        (pfa.attention(r(1, 1024, 128), *[r(1, 1024, 128)] * 2, 1), None),           # K4 route
+        (pfa.attention(r(1, 1024, 128), *[r(1, 1024, 128)] * 2, 1), None),           # K9 route
+        (pfa.flash_attention_wide(r(1, 64, 128), *[r(1, 64, 128)] * 2, 1), None),    # K4
+        (pfa.attention(r(64, 8, 16), *[r(64, 8, 16)] * 2, 2), None),                 # K13 route
         (pfa.attention(r(1, 4, 6, 16), *[r(1, 4, 6, 16)] * 2, 2), None),             # K3 route
     ):
         if want is not None:
@@ -264,6 +320,66 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
         pta._check_operands(x, x, x, 2)
 
 
+@pytest.mark.parametrize("case,match", [
+    ("device", "unsupported device"), ("width", "head width"), ("cross", "S_kv == S"),
+    ("long", "S_kv == S"), ("dtype", "bf16"), ("offset", "32-byte"),
+])
+def test_resident_wrapper_refuses_what_the_kernel_does_not_take(case, match, monkeypatch):
+    """K9 takes heads of 512 over S <= 3072 self-attention tokens, bf16,
+    32-byte aligned; anything else raises before a launch."""
+    def m(*s, dtype=torch.bfloat16):
+        return torch.empty(s, dtype=dtype, device="meta")
+
+    q = k = v = m(2, 1024, 512)
+    heads = 1
+    if case == "width":
+        q = k = v = m(2, 1024, 256)
+    elif case == "cross":
+        k = v = m(2, 512, 512)
+    elif case == "long":
+        q = k = v = m(1, 3088, 512)
+    elif case == "dtype":
+        q = m(2, 1024, 512, dtype=torch.float32)
+    elif case == "offset":  # 16 bytes in: fine for K4's row loads, not for K9's fragments
+        q = k = v = torch.empty(8 + 1024 * 512, dtype=torch.bfloat16,
+                                device="meta")[8:].view(1, 1024, 512)
+    if case != "device":  # let the meta tensors past the device check
+        monkeypatch.setattr(pfa, "_check_cuda", lambda name, *a: pfa._check_operands(name, *a))
+    launched = []
+    monkeypatch.setattr(pfa, "_launch", lambda *a: launched.append(a))
+    with pytest.raises(ValueError, match=match):
+        pfa.flash_attention_resident(q, k, v, heads)
+    assert not launched
+
+
+@pytest.mark.parametrize("case,match", [
+    ("shape", "share an"), ("frames", "T <= 32"), ("width", "head width"), ("dtype", "bf16"),
+    ("view", "contiguous"), ("offset", "4-byte"),
+])
+def test_small_sequence_wrapper_refuses_what_the_kernel_does_not_take(case, match):
+    def m(*s, dtype=torch.bfloat16):
+        return torch.empty(s, dtype=dtype, device="meta")
+
+    q = k = v = m(64, 16, 320)
+    with pytest.raises(ValueError, match="unsupported device"):
+        pta.small_sequence_attention(q, k, v, 8)
+    if case == "shape":
+        k = m(64, 8, 320)
+    elif case == "frames":
+        q = k = v = m(64, 33, 320)
+    elif case == "width":
+        q = k = v = m(64, 16, 384)  # heads of 48
+    elif case == "dtype":
+        q = k = v = m(64, 16, 320, dtype=torch.float32)
+    elif case == "view":
+        q = k = v = m(64, 16, 640)[..., :320]
+    else:
+        q = k = v = torch.empty(1 + 64 * 16 * 320, dtype=torch.bfloat16,
+                                device="meta")[1:].view(64, 16, 320)
+    with pytest.raises(ValueError, match=match):
+        pta._check_small_operands(q, k, v, 8)
+
+
 @pytest.mark.parametrize("fail", [None, "layer_norm.cu"])
 def test_build_runs_one_compiler_per_source_then_links(fail, tmp_path, monkeypatch):
     """``_build.build`` with a stand-in compiler (a script that records its
@@ -290,8 +406,8 @@ def test_build_runs_one_compiler_per_source_then_links(fail, tmp_path, monkeypat
     monkeypatch.setenv("PATH", "/usr/bin:/bin")  # no real nvcc ahead of the stand-in
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert {"flash_attention.cu", "temporal_attention.cu", "group_norm.cu",
-            "layer_norm.cu"} <= set(sources)
+    assert {"flash_attention.cu", "flash_resident.cu", "temporal_attention.cu",
+            "small_attention.cu", "group_norm.cu", "layer_norm.cu"} <= set(sources)
     if fail:
         with pytest.raises(RuntimeError, match=fail):
             _build.build()
@@ -306,7 +422,7 @@ def test_build_runs_one_compiler_per_source_then_links(fail, tmp_path, monkeypat
     assert all("arch=compute_90a,code=sm_90a" in c for c in compiles)
     assert len(calls) == len(sources) + 1 and "-shared" in calls[-1]
     assert _build.build() == lib and len((tmp_path / "calls").read_text().splitlines()) == len(calls)
-    for name in ("md_group_norm", "md_layer_norm"):
+    for name in ("md_group_norm", "md_layer_norm", "md_flash_resident", "md_small_attention"):
         assert name in _build.SIGNATURES
 
 
@@ -415,27 +531,43 @@ def test_norm_kernel_matches_plain_on_card(case, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["K1-hd40", "K1-hd80", "K2", "K3", "K3-one-frame", "K4"])
+@pytest.mark.parametrize("case", ["K1-hd40", "K1-hd80", "K2", "K3", "K3-one-frame", "K3-30-frames",
+                                  "K4", "K9", "K9-ragged", "K9-two-heads", "K13-hd40",
+                                  "K13-hd80", "K13-hd160-30-tokens", "K13-one-token"])
 def test_kernel_matches_plain_on_card(case, cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
 
     def r(*s):
         return torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
 
-    if case.startswith("K1"):
+    kern = case.split("-")[0]
+    if kern == "K1":
         hd = int(case[-2:])
         args, fn, plain = [r(2, 1100, 8 * hd) for _ in range(3)] + [8], \
             pfa.flash_attention_fullc, pfa.dot_product_attention
-    elif case == "K2":
+    elif kern == "K2":
         args, fn, plain = [r(2, 1100, 320), r(2, 257, 320), r(2, 257, 320), 8], \
             pfa.cross_attention, pfa.dot_product_attention
-    elif case.startswith("K3"):  # one frame: a motion-module denoiser at T = 1
-        frames = 1 if case == "K3-one-frame" else 16
+    elif kern == "K3":  # one frame: a motion-module denoiser at T = 1
+        frames = {"K3-one-frame": 1, "K3-30-frames": 30}.get(case, 16)
         args, fn, plain = [r(2, frames, 300, 640) for _ in range(3)] + [8], \
             pta.temporal_attention, pta.temporal_attention_plain
+    elif kern == "K9":  # ragged: 1155 = 72 * 16 + 3 keys, the tail tile masked
+        S, heads = {"K9": (1024, 1), "K9-ragged": (1155, 1), "K9-two-heads": (1040, 2)}[case]
+        args, fn, plain = [r(2, S, 512 * heads) for _ in range(3)] + [heads], \
+            pfa.flash_attention_resident, pfa.dot_product_attention
+    elif kern == "K13":
+        N, T, C = {"K13-hd40": (70, 16, 320), "K13-hd80": (65, 32, 640),
+                   "K13-hd160-30-tokens": (64, 30, 1280), "K13-one-token": (64, 1, 320)}[case]
+        args, fn, plain = [r(N, T, C) for _ in range(3)] + [8], \
+            pta.small_sequence_attention, pta.small_sequence_attention_plain
     else:
         args, fn, plain = [r(2, 1100, 512) for _ in range(3)] + [1], \
             pfa.flash_attention_wide, pfa.dot_product_attention
     got = fn(*args)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), plain(*args).float(), atol=ATOL, rtol=RTOL)
+    want = plain(*args).float()
+    torch.testing.assert_close(got.float(), want, atol=ATOL, rtol=RTOL)
+    # N(0, 1) inputs give small outputs (a flat softmax): the relative distance
+    # is what a wrong kernel cannot pass
+    assert ((got.float() - want).norm() / want.norm()).item() < 1e-2

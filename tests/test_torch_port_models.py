@@ -157,10 +157,12 @@ def test_downsample_and_upsample_padding():
 
 
 @torch.no_grad()
-@pytest.mark.parametrize("mode", ["write", "read"])
+@pytest.mark.parametrize("mode", ["write", "read", "read-raw-bank", "read-no-bank"])
 def test_spatial_transformer(mode):
     """Write mode returns the bank; read mode adds projected bank K/V to the
-    self-attention and takes hoisted cross-attention K/V."""
+    self-attention and takes hoisted cross-attention K/V, or takes the raw
+    bank (K/V projected from norm_h + ref), or none (plain self-attention),
+    the three read forms of the JAX block."""
     rng = np.random.default_rng(3)
     tm = build(layers.SpatialTransformer, 64, 4, 768)
     params = {}
@@ -171,6 +173,17 @@ def test_spatial_transformer(mode):
         want, bank_w = jm.apply({"params": params}, jnp.asarray(x), jnp.asarray(ctx), write=True)
         got, bank_g = tm(t(x), t(ctx), write=True)
         close(bank_g, bank_w, 2e-4, "bank")
+    elif mode != "read":
+        ref = randn(rng, 2, 64, 64) if mode == "read-raw-bank" else None
+        want, _ = jm.apply({"params": params}, jnp.asarray(x), jnp.asarray(ctx),
+                           ref=None if ref is None else jnp.asarray(ref))
+        got, bank = tm(t(x), t(ctx), ref=None if ref is None else t(ref))
+        assert bank is None
+        if ref is not None:  # the raw form is the projected form, by linearity
+            a1 = tm.block.attn1
+            again, _ = tm(t(x), t(ctx), ref_kv=a1.project_kv(t(ref)))
+            close(again, got, 1e-5, "raw bank against projected bank")
+            assert (got - tm(t(x), t(ctx))[0]).abs().max() > 1e-3  # and the bank matters
     else:
         ref_kv = (randn(rng, 2, 64, 64), randn(rng, 2, 64, 64))
         ctx_kv = (randn(rng, 2, 5, 64), randn(rng, 2, 5, 64))
@@ -472,3 +485,26 @@ def test_tiny_denoising_unet_with_hoisted_kv():
     got = tm(t(x), t(ts), banks_kv=banks_kv, ctx_kv=ctx_kv)
     assert got.shape == (B, T, H, W, 4)
     close(got, want, 1e-3, "denoising unet")
+
+
+@torch.no_grad()
+@pytest.mark.parametrize("with_banks", [True, False], ids=["raw-banks", "no-banks"])
+def test_tiny_denoising_unet_with_raw_banks(with_banks):
+    """The streamed tiers' two CFG passes: raw banks of one window group with
+    the CLIP context, and no banks with a zero context."""
+    rng = np.random.default_rng(11)
+    tm = build(unet.DenoisingUNet, TINY_DEN)
+    params = {"params": jconvert.convert_unet(tm.state_dict(), with_motion=True)}
+    B, T, H, W = 1, 3, 16, 16
+    x, ts = randn(rng, B, T, H, W, 4), np.array([321], np.int32)
+    ctx = randn(rng, B, 5, 768) if with_banks else np.zeros((B, 5, 768), np.float32)
+    sizes = {"down_0": (256, 32), "down_1": (64, 64), "down_2": (16, 96), "mid": (4, 96),
+             "up_1": (16, 96), "up_2": (64, 64), "up_3": (256, 32)}
+    banks = {k: randn(rng, B * T, *sizes["mid" if k == "mid" else k.rsplit("_", 1)[0]])
+             for k in unet.bank_keys(TINY)} if with_banks else None
+    want = jax.jit(lambda p, *a: junet.DenoisingUNet(TINY_DEN).apply(p, *a))(
+        params, jnp.asarray(x), jnp.asarray(ts), jnp.asarray(ctx),
+        None if banks is None else {k: jnp.asarray(v) for k, v in banks.items()})
+    got = tm(t(x), t(ts), t(ctx), banks=None if banks is None else {k: t(v) for k, v in
+                                                                    banks.items()})
+    close(got, want, 1e-3, "denoising unet, raw banks")

@@ -7,7 +7,8 @@ video pipelines (SD decoder; temporal decoder with latent interpolation) and
 both image pipelines sample the same numpy inputs: final latents agree within
 1e-3 and decoded uint8 frames within one level. Scene motion and latent
 interpolation are held to the JAX functions at 1e-5. A pipeline runs on the
-CPU only when asked by name.
+CPU only when asked by name. The long-clip bank tiers have a file of their
+own, ``test_torch_port_long_clips.py``.
 """
 
 import subprocess
@@ -134,21 +135,6 @@ def test_guidance_context_tiling_matches_jax():
         got = video.guidance_context_for_windows(windows, torch.from_numpy(c),
                                                  torch.zeros(1, 2, 3), mode)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-
-
-@pytest.mark.parametrize("change,item", [
-    (dict(bank_mode="per_step"), "item 8"),
-    (dict(bank_mode="cached_q8"), "item 8"),
-    (dict(cached_bank_positions=4), "item 8"),
-    (dict(max_denoise_frame_batch=4), "item 8"),
-])
-def test_paths_not_ported_raise(pipes, change, item):
-    """The bank tiers of ROADMAP item 8 raise."""
-    port = pipes[0]
-    cfg = PipelineConfig(width=W, height=H, context=ContextConfig(frames=3, overlap=1), **change)
-    pipe = video.VideoPipeline(port.bundle, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        pipe(*inputs(0))
 
 
 # ----------------------------------------------- temporal decoder, interpolation
