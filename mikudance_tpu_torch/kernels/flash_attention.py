@@ -1,7 +1,7 @@
 """Attention dispatch and the flash kernels.
 
-Kernels (``csrc/flash_attention.cu``, K9 in ``csrc/flash_resident.cu``), each
-beside its plain PyTorch version:
+Kernels (``csrc/flash_attention.cu``, K9 in ``csrc/flash_resident.cu``, K10
+and K11 in ``csrc/flash_anchor.cu``), each beside its plain PyTorch version:
 
 - K1 ``flash_attention_fullc``: packed-heads self-attention (UNet levels
   with S >= 1024), replacing ``_flash_kernel_fullc_nt``.
@@ -14,10 +14,19 @@ beside its plain PyTorch version:
   at width 512: every picture under 512^2), replacing
   ``_flash_kernel_resident``.
 
-The plain version of all four is ``dot_product_attention`` (the JAX
+- K10 / K11 ``flash_attention_fullc_anchored``: packed-heads self-attention
+  with the self-score anchor and the +-100 clamp in place of the running
+  maximum, replacing ``_flash_kernel_fullc_resident`` (K10, a batch element's
+  K and V under ``FULLC_RESIDENT_BYTES``: the 2304-token level) and
+  ``_flash_kernel_fullc_stream`` (K11, above it: the 9216-token level). They
+  take K1's place while ``TRANSPOSED_FULLC`` and ``NEUTRAL_FULLC`` are off
+  (the row-major configuration).
+
+The plain version of K1, K2, K4 and K9 is ``dot_product_attention`` (the JAX
 package's ``models/layers.py:60`` math: fp32 scores and softmax, weights cast
 to v's dtype), processed in chunks of the batch x head dimension so the
-score tensor stays bounded.
+score tensor stays bounded; that of K10 and K11 is ``anchored_attention``,
+which is the same function only while the clamp does not bite.
 
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises. ``attention`` routes
@@ -41,6 +50,26 @@ K2 = CudaKernel("K2 cross_attention", "md_flash_cross", _SRC, f"{_TPU}:598")
 K4 = CudaKernel("K4 flash_attention_wide", "md_flash_wide", _SRC, f"{_TPU}:44")
 K9 = CudaKernel("K9 flash_attention_resident", "md_flash_resident",
                 "mikudance_tpu_torch/csrc/flash_resident.cu", f"{_TPU}:85")
+_SRC_ANCHOR = "mikudance_tpu_torch/csrc/flash_anchor.cu"
+K10 = CudaKernel("K10 flash_anchor_resident", "md_flash_anchor_resident", _SRC_ANCHOR,
+                 f"{_TPU}:158")
+K11 = CudaKernel("K11 flash_anchor_stream", "md_flash_anchor_stream", _SRC_ANCHOR,
+                 f"{_TPU}:209")
+
+# The JAX package's routing switches for packed heads (head widths that are
+# no multiple of 128), with its defaults (``flash_attention.py:592,595``);
+# read at call time. Both on: K1. Both off: K10 / K11 (the row-major
+# configuration). Only TRANSPOSED_FULLC on: the HBM-transposed kernel above
+# the resident limit, which is not ported yet.
+TRANSPOSED_FULLC = True
+NEUTRAL_FULLC = True
+# A batch element's bf16 K and V with all heads packed, lane-padded as on the
+# TPU, up to which the JAX package keeps them on chip (K10) and above which it
+# streams key blocks (K11).
+FULLC_RESIDENT_BYTES = 7 * 1024 * 1024
+LANES = 128
+EXP_CLAMP = 100.0  # two-sided log2-domain clamp around the anchor
+LOG2E = 1.4426950408889634
 
 # Upper bound on the fp32 score bytes one chunk of the plain version holds.
 PLAIN_SCORE_BYTES = 1 << 30
@@ -75,6 +104,67 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         w = torch.softmax(s, dim=-1).to(v.dtype)
         out[i:i + n] = torch.matmul(w, vh[i:i + n])
     return out.reshape(B, heads, Sq, hd).transpose(1, 2).reshape(B, Sq, C)
+
+
+def _anchored_chunks(q, k, heads: int):
+    """Per chunk of batch x heads: (slice, log2-domain scores from the bf16
+    rounded scaled q and bf16 k, the row anchors), all fp32."""
+    B, S, C = q.shape
+    hd = C // heads
+
+    def split(x):
+        return x.reshape(B, x.shape[1], heads, hd).transpose(1, 2).reshape(B * heads, -1, hd)
+
+    qh, kh = split(q).float(), split(k).to(torch.bfloat16).float()
+    n = max(1, PLAIN_SCORE_BYTES // (S * k.shape[1] * 4))
+    for i in range(0, B * heads, n):
+        qf = qh[i:i + n] * (LOG2E / math.sqrt(hd))
+        off = (qf * qh[i:i + n]).sum(dim=-1, keepdim=True)
+        s = torch.matmul(qf.to(torch.bfloat16).float(), kh[i:i + n].transpose(1, 2))
+        yield slice(i, i + n), s, off
+
+
+def anchored_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       heads: int) -> torch.Tensor:
+    """The plain version of K10 and K11: what the JAX package's
+    ``_flash_kernel_fullc_resident`` / ``_flash_kernel_fullc_stream`` compute
+    on (B, S, C) tensors. Per head, ``q' = q * log2(e) / sqrt(hd)`` in fp32,
+    the row anchor ``off = sum(q' * q)``, scores from bf16(q') and bf16 k,
+    ``p = bf16(exp2(clip(s - off, -100, 100)))`` and ``(p @ v) / sum(p)`` with
+    both sums in fp32 over the rounded p. Equal to the softmax while no score
+    leaves the clamp; not beyond."""
+    B, S, C = q.shape
+    hd = C // heads
+    vh = v.reshape(B, v.shape[1], heads, hd).transpose(1, 2).reshape(B * heads, -1, hd)
+    vh = vh.to(torch.bfloat16).float()
+    out = torch.empty(B * heads, S, hd, dtype=q.dtype, device=q.device)
+    for sl, s, off in _anchored_chunks(q, k, heads):
+        p = torch.exp2((s - off).clamp_(-EXP_CLAMP, EXP_CLAMP)).to(torch.bfloat16).float()
+        out[sl] = (torch.matmul(p, vh[sl]) / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+    return out.reshape(B, heads, S, hd).transpose(1, 2).reshape(B, S, C)
+
+
+def anchor_excursion(q: torch.Tensor, k: torch.Tensor, heads: int) -> float:
+    """The largest ``|s - off|`` of the anchored scores, in log2 units: past
+    ``EXP_CLAMP`` the clamp bites and K10 / K11 leave the exact softmax."""
+    return max((s - off).abs().max().item() for _, s, off in _anchored_chunks(q, k, heads))
+
+
+def _lane_padded_bytes(S: int, C: int) -> int:
+    return S * ((C + LANES - 1) // LANES) * LANES * 2
+
+
+def _can_fuse_ones(C: int, heads: int) -> bool:
+    """Whether the JAX package appends a ones lane per head to V (it does
+    while that does not grow V's lane-padded width); it enters the byte rule."""
+    return -C % LANES >= heads
+
+
+def fullc_resident(S_kv: int, C: int, heads: int) -> bool:
+    """The JAX package's byte rule (``flash_attention.py:296``): whether a
+    batch element's packed K and V stay under ``FULLC_RESIDENT_BYTES``."""
+    Cv = C + heads if _can_fuse_ones(C, heads) else C
+    return _lane_padded_bytes(S_kv, C) + _lane_padded_bytes(S_kv, Cv) <= FULLC_RESIDENT_BYTES
 
 
 def _check_cuda(name: str, q, k, v, heads: int, head_dims) -> int:
@@ -119,6 +209,47 @@ def flash_attention_fullc(q, k, v, heads: int) -> torch.Tensor:
     return _launch(K1, q, k, v, q.shape[0], q.shape[1], heads, hd)
 
 
+def _check_anchored(name: str, q, k, v, heads: int) -> int:
+    hd = _check_cuda(name, q, k, v, heads, PACKED_HEAD_DIMS)
+    if k.shape[1] != q.shape[1]:
+        raise ValueError(f"{name}: self-attention needs S_kv == S")
+    return hd
+
+
+def flash_anchor_resident(q, k, v, heads: int) -> torch.Tensor:
+    """K10: anchored packed-heads self-attention, K/V fragments from L2."""
+    if q.device.type == "cpu":
+        return anchored_attention(q, k, v, heads)
+    hd = _check_anchored("flash_anchor_resident", q, k, v, heads)
+    if hd == 40 and heads % 2:  # heads of 40 are read in aligned pairs
+        raise ValueError("flash_anchor_resident: head width 40 needs an even number of heads")
+    if any(t.data_ptr() % 32 for t in (q, k, v)):  # fragment loads from global memory
+        raise ValueError("flash_anchor_resident: q, k, v must start on a 32-byte boundary")
+    return _launch(K10, q, k, v, q.shape[0], q.shape[1], heads, hd)
+
+
+def flash_anchor_stream(q, k, v, heads: int) -> torch.Tensor:
+    """K11: anchored packed-heads self-attention, key tiles staged through
+    shared memory."""
+    if q.device.type == "cpu":
+        return anchored_attention(q, k, v, heads)
+    hd = _check_anchored("flash_anchor_stream", q, k, v, heads)
+    return _launch(K11, q, k, v, q.shape[0], q.shape[1], heads, hd)
+
+
+def flash_attention_fullc_anchored(q, k, v, heads: int) -> torch.Tensor:
+    """K10 / K11: the counterpart of the JAX package's ``flash_attention_fullc``
+    (``flash_attention.py:278``; the port's ``flash_attention_fullc`` is K1, the
+    counterpart of ``flash_attention_fullc_nt``). Packed-heads self-attention
+    with the self-score anchor, q/k/v (B, S, C); K10 while a batch element's
+    K and V pass ``fullc_resident``, else K11."""
+    if q.device.type == "cpu":
+        return anchored_attention(q, k, v, heads)
+    if fullc_resident(k.shape[1], q.shape[-1], heads):
+        return flash_anchor_resident(q, k, v, heads)
+    return flash_anchor_stream(q, k, v, heads)
+
+
 def cross_attention(q, k, v, heads: int) -> torch.Tensor:
     """K2: q (B, S, C) against a short k/v (B, S_kv, C)."""
     if q.device.type == "cpu":
@@ -161,7 +292,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> 
 
     - 4-D (B, T, P, C) -> K3, temporal attention across frames;
     - 3-D, S_q = S_kv <= 32 and B >= 64 -> K13, many short sequences;
-    - S_q = S_kv >= 1024, head width not a multiple of 128 -> K1;
+    - S_q = S_kv >= 1024, head width not a multiple of 128 -> K1 while
+      ``TRANSPOSED_FULLC`` and ``NEUTRAL_FULLC`` are on (the default); K10 or
+      K11 by ``fullc_resident`` while both are off; with only
+      ``TRANSPOSED_FULLC`` on, K10 under the resident limit and above it the
+      HBM-transposed kernel, which is not ported (``NotImplementedError``);
     - S_q = S_kv >= 1024, head width a multiple of 128 -> K9 while one
       head's K and V fit ``RESIDENT_KV_BYTES``, else K4;
     - S_q >= 1024 against S_kv <= 512 keys -> K2;
@@ -176,7 +311,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> 
         return small_sequence_attention(q, k, v, heads)
     if S_q == S_kv and S_q >= 1024:
         if hd % 128:
-            return flash_attention_fullc(q, k, v, heads)
+            if NEUTRAL_FULLC and TRANSPOSED_FULLC:
+                return flash_attention_fullc(q, k, v, heads)
+            if TRANSPOSED_FULLC and not fullc_resident(S_kv, q.shape[-1], heads):
+                raise NotImplementedError(
+                    "TRANSPOSED_FULLC without NEUTRAL_FULLC routes K/V above the resident "
+                    "limit to the HBM-transposed kernel (_flash_kernel_fullc_t), which is "
+                    "not ported yet: ROADMAP.md Queue 2 item 12")
+            return flash_attention_fullc_anchored(q, k, v, heads)
         if resident_kv(S_kv, hd):
             return flash_attention_resident(q, k, v, heads)
         return flash_attention_wide(q, k, v, heads)

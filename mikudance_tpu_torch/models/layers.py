@@ -29,8 +29,15 @@ from torch import nn
 from ..kernels.flash_attention import attention as run_attention
 from ..kernels.group_norm import fused_group_norm
 from ..kernels.layer_norm import fused_layer_norm
+from ..kernels.linear import fused_linear
 
 KV = Tuple[torch.Tensor, torch.Tensor]
+
+# Run the read-mode TransformerBlock interior as one row-major chain of the
+# norm, linear and attention kernels (TransformerBlock._chain): the JAX
+# package's switch of the same name (``models/layers.py:182``), off by
+# default, read at call time.
+PALLAS_CHAIN = False
 
 
 def get_timestep_embedding(
@@ -170,6 +177,9 @@ class TransformerBlock(nn.Module):
     - ``ref`` given (denoising UNet, raw bank of one window group): K/V are
       projected from ``norm_h + ref``.
     - neither: plain self-attention (the uncond pass of the streamed tiers).
+
+    With ``PALLAS_CHAIN`` set, a read-mode call on 3-D tokens with hoisted
+    context K/V and no raw bank takes ``_chain``.
     """
 
     def __init__(self, dim: int, heads: int, cross_dim: int = 768):
@@ -184,6 +194,8 @@ class TransformerBlock(nn.Module):
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor],
                 write: bool = False, ref_kv: Optional[KV] = None,
                 ctx_kv: Optional[KV] = None, ref: Optional[torch.Tensor] = None):
+        if PALLAS_CHAIN and not write and x.ndim == 3 and ref is None and ctx_kv is not None:
+            return self._chain(x, ref_kv, ctx_kv), None
         norm_h = self.norm1(x)
         if ref_kv is None and ref is not None:
             x = x + self.attn1(norm_h, context=norm_h + ref.to(norm_h.dtype))
@@ -192,6 +204,44 @@ class TransformerBlock(nn.Module):
         x = x + self.attn2(self.norm2(x), context, kv=ctx_kv)
         x = x + self.ff(self.norm3(x))
         return x, (norm_h if write else None)
+
+
+    def _chain(self, x: torch.Tensor, ref_kv: Optional[KV], ctx_kv: KV) -> torch.Tensor:
+        """The block interior on flattened (B*S, C) rows, every product through
+        ``fused_linear`` with the addition that follows it as the residual:
+        LN -> q, k + bank K, v + bank V -> attention -> to_out + x -> LN ->
+        cross q -> attention -> to_out + x -> LN -> GEGLU pair + x. The same
+        function as ``forward``'s standard path, in the JAX ``_chain``'s order
+        of operations (``models/layers.py:493-524``)."""
+        B, S, C = x.shape
+        dt = x.dtype
+        heads = self.attn1.heads
+
+        def rows(t: torch.Tensor) -> torch.Tensor:
+            return t.to(dt).reshape(B * S, C).contiguous()
+
+        x2 = rows(x)
+        hn = fused_layer_norm(x2, self.norm1.weight, self.norm1.bias, self.norm1.eps)
+        rk, rv = (None, None) if ref_kv is None else (rows(ref_kv[0]), rows(ref_kv[1]))
+        q = fused_linear(hn, self.attn1.to_q.weight, None)
+        k = fused_linear(hn, self.attn1.to_k.weight, None, rk)
+        v = fused_linear(hn, self.attn1.to_v.weight, None, rv)
+        a1 = run_attention(q.view(B, S, C), k.view(B, S, C), v.view(B, S, C), heads)
+        out1 = self.attn1.to_out[0]
+        x2 = fused_linear(a1.reshape(B * S, C), out1.weight, out1.bias, x2)
+
+        n2 = fused_layer_norm(x2, self.norm2.weight, self.norm2.bias, self.norm2.eps)
+        q2 = fused_linear(n2, self.attn2.to_q.weight, None)
+        a2 = run_attention(q2.view(B, S, C), ctx_kv[0].to(dt), ctx_kv[1].to(dt), heads)
+        out2 = self.attn2.to_out[0]
+        x2 = fused_linear(a2.reshape(B * S, C), out2.weight, out2.bias, x2)
+
+        n3 = fused_layer_norm(x2, self.norm3.weight, self.norm3.bias, self.norm3.eps)
+        proj, ff_out = self.ff.net[0].proj, self.ff.net[2]
+        hidden, gate = fused_linear(n3, proj.weight, proj.bias).chunk(2, dim=-1)
+        hf = (hidden * F.gelu(gate)).contiguous()  # exact erf GELU
+        x2 = fused_linear(hf, ff_out.weight, ff_out.bias, x2)
+        return x2.view(B, S, C)
 
 
 def linear_1x1(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:

@@ -4,7 +4,11 @@ Port of ``mikudance_tpu/models/resnet.py``. Frames are folded into the
 batch axis upstream (the reference's "inflated" 3-D convs are 2-D convs on
 ``(b f) c h w``), so everything here is 2-D on (B*T, H, W, C). Convolutions
 run through ``conv_nhwc``: a channels-last tensor viewed as NCHW is what
-cuDNN's channels-last kernels take, so no layout copy is made.
+cuDNN's channels-last kernels take, so no layout copy is made. While
+``kernels.conv2d.PREFER_PALLAS`` is set it sends the stride-1 3x3 convolutions
+to the fused kernel instead, as the JAX package's ``conv3x3`` does
+(``models/resnet.py:40-53``); the UNets, MAN, the SD VAE and the temporal
+decoder all convolve through this one helper.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..kernels import conv2d as _conv2d
 from .layers import GroupNorm
 
 
@@ -22,7 +27,12 @@ def conv_nhwc(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
     """Apply a torch ``Conv2d`` (OIHW weights) to an NHWC tensor. The result
     is contiguous NHWC (what the norm kernels take): a channels-last input
     gives a channels-last output, so ``contiguous`` copies only if a backend
-    answered in NCHW."""
+    answered in NCHW. With ``conv2d.PREFER_PALLAS`` set (read at every call),
+    a convolution that ``conv2d.applicable`` accepts goes to ``conv3x3_fused``
+    with the module's weights, repacked once."""
+    if _conv2d.PREFER_PALLAS and _conv2d.applicable(conv, x):
+        packed = _conv2d.packed_weight(conv) if x.device.type == "cuda" else None
+        return _conv2d.conv3x3_fused(x.contiguous(), conv.weight, conv.bias, packed)
     return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1).contiguous()
 
 

@@ -1,4 +1,7 @@
-"""The port's kernels (attention K1-K4, K9, K13, GroupNorm K5, LayerNorm K6): plain
+"""The port's kernels (attention K1-K4, K9, K13, GroupNorm K5, LayerNorm K6; the
+row-major configuration's K7, K8, K10, K11 have their plain-vs-Pallas tests in
+``test_torch_port_row_major.py`` and their dispatch, refusals and card tests
+here): plain
 versions against the JAX Pallas kernels (interpret mode, as
 ``tests/test_flash_attention.py`` and ``tests/test_group_norm.py`` run them),
 the dispatch rule, and device-only dispatch (a CPU tensor never launches a
@@ -18,13 +21,18 @@ import numpy as np
 import pytest
 import torch
 
+from mikudance_tpu_torch.kernels import conv2d as pcv
 from mikudance_tpu_torch.kernels import flash_attention as pfa
 from mikudance_tpu_torch.kernels import group_norm as pgn
 from mikudance_tpu_torch.kernels import layer_norm as pln
+from mikudance_tpu_torch.kernels import linear as plin
+from mikudance_tpu_torch.kernels import row_major
 from mikudance_tpu_torch.kernels import temporal_attention as pta
+from mikudance_tpu_torch.models import layers as players
 
 ATOL = RTOL = 2e-2  # kernel against dense, as tests/test_flash_attention.py
-ALL_KERNELS = (pfa.K1, pfa.K2, pta.K3, pfa.K4, pgn.K5, pln.K6, pfa.K9, pta.K13)
+ALL_KERNELS = (pfa.K1, pfa.K2, pta.K3, pfa.K4, pgn.K5, pln.K6, plin.K7, pcv.K8, pfa.K9, pfa.K10,
+               pfa.K11, pta.K13)
 
 
 def qkv(seed, *shapes):
@@ -48,6 +56,11 @@ def jx():
                                  fused=temporal_attention_fused,
                                  group_norm=fused_group_norm, layer_norm=fused_layer_norm,
                                  FusedLayerNorm=FusedLayerNorm)
+
+
+ROUTES = ("temporal_attention", "flash_attention_fullc", "flash_attention_wide",
+          "flash_attention_resident", "small_sequence_attention", "cross_attention",
+          "dot_product_attention", "flash_anchor_resident", "flash_anchor_stream")
 
 
 def check(got: torch.Tensor, want) -> None:
@@ -241,17 +254,92 @@ def test_plain_chunking_is_exact(monkeypatch):
     (((64, 33, 320),) * 3, 8, "dot_product_attention"),           # more than 32 tokens
     (((64, 16, 320), (64, 257, 320), (64, 257, 320)), 8, "dot_product_attention"),
     (((1, 257, 1024),) * 3, 16, "dot_product_attention"),         # CLIP tower, 16 heads of 64
+    # packed heads at other sizes: K1 under the default switches, never K10 / K11
+    (((8, 1024, 320),) * 3, 8, "flash_attention_fullc"),          # 256^2, level 0
+    (((8, 4096, 640),) * 3, 8, "flash_attention_fullc"),          # 1024^2, level 1
 ])
 def test_dispatch_rule(shape, heads, route, monkeypatch):
     """``attention`` picks the route the JAX dispatcher picks for each shape
-    class (checked on meta tensors: shapes only, no compute)."""
+    class (checked on meta tensors: shapes only, no compute), under the
+    default switches; ``test_dispatch_rule_with_the_fullc_switches`` has the
+    other settings."""
     calls = []
-    for name in ("temporal_attention", "flash_attention_fullc", "flash_attention_wide",
-                 "flash_attention_resident", "small_sequence_attention", "cross_attention",
-                 "dot_product_attention"):
+    for name in ROUTES:
         monkeypatch.setattr(pfa, name, lambda *a, _n=name: calls.append(_n))
     pfa.attention(*[torch.empty(s, device="meta") for s in shape], heads)
     assert calls == [route]
+
+
+BOTH_OFF = dict(TRANSPOSED_FULLC=False, NEUTRAL_FULLC=False)
+
+
+@pytest.mark.parametrize("switches,shape,heads,route", [
+    # both off, the row-major configuration: the JAX byte rule picks K10 or K11
+    (BOTH_OFF, ((32, 9216, 320),) * 3, 8, "flash_anchor_stream"),      # level 0: K11
+    (BOTH_OFF, ((32, 2304, 640),) * 3, 8, "flash_anchor_resident"),    # level 1: K10
+    (BOTH_OFF, ((8, 1024, 320),) * 3, 8, "flash_anchor_resident"),     # 256^2, level 0
+    (BOTH_OFF, ((8, 4096, 320),) * 3, 8, "flash_anchor_resident"),     # 512^2: 6.3 MB
+    (BOTH_OFF, ((8, 4096, 640),) * 3, 8, "flash_anchor_stream"),       # 1024^2, level 1
+    # NEUTRAL_FULLC alone changes nothing while TRANSPOSED_FULLC is off
+    (dict(TRANSPOSED_FULLC=False, NEUTRAL_FULLC=True), ((32, 9216, 320),) * 3, 8,
+     "flash_anchor_stream"),
+    # TRANSPOSED_FULLC alone: K10 under the resident limit, above it the kernel not ported
+    (dict(TRANSPOSED_FULLC=True, NEUTRAL_FULLC=False), ((32, 2304, 640),) * 3, 8,
+     "flash_anchor_resident"),
+    (dict(TRANSPOSED_FULLC=True, NEUTRAL_FULLC=False), ((32, 9216, 320),) * 3, 8,
+     "NotImplementedError"),
+    # every other route is untouched by the switches
+    (BOTH_OFF, ((2, 16, 9216, 320),) * 3, 8, "temporal_attention"),
+    (BOTH_OFF, ((4, 9216, 512),) * 3, 1, "flash_attention_wide"),
+    (BOTH_OFF, ((8, 2304, 512),) * 3, 1, "flash_attention_resident"),
+    (BOTH_OFF, ((32, 9216, 320), (32, 257, 320), (32, 257, 320)), 8, "cross_attention"),
+    (BOTH_OFF, ((32, 576, 1280),) * 3, 8, "dot_product_attention"),
+    (BOTH_OFF, ((120, 16, 1280),) * 3, 8, "small_sequence_attention"),
+    # the defaults: K1, as before the switches existed
+    ({}, ((32, 9216, 320),) * 3, 8, "flash_attention_fullc"),
+    ({}, ((32, 2304, 640),) * 3, 8, "flash_attention_fullc"),
+])
+def test_dispatch_rule_with_the_fullc_switches(switches, shape, heads, route, monkeypatch):
+    """The branch of the JAX ``_flash`` (``flash_attention.py:769-800``) for head
+    widths that are no multiple of 128, under each setting of its two
+    switches; on meta tensors (shapes only)."""
+    assert pfa.TRANSPOSED_FULLC is True and pfa.NEUTRAL_FULLC is True  # the JAX defaults
+    calls = []
+    for name in ROUTES:
+        monkeypatch.setattr(pfa, name, lambda *a, _n=name: calls.append(_n))
+    for name, value in switches.items():
+        monkeypatch.setattr(pfa, name, value)
+    args = [torch.empty(s, device="meta") for s in shape]
+    if route == "NotImplementedError":
+        with pytest.raises(NotImplementedError, match="Queue 2 item 12"):
+            pfa.attention(*args, heads)
+        assert not calls
+    else:
+        pfa.attention(*args, heads)
+        assert calls == [route]
+
+
+def test_row_major_sets_and_restores_the_switches():
+    """``row_major()`` flips the four switches for its block and puts them
+    back, also when the block raises; the defaults are the JAX package's."""
+    def state():
+        return (players.PALLAS_CHAIN, pcv.PREFER_PALLAS, pfa.TRANSPOSED_FULLC, pfa.NEUTRAL_FULLC)
+
+    assert state() == (False, False, True, True)
+    with row_major():
+        assert state() == (True, True, False, False)
+    assert state() == (False, False, True, True)
+    with pytest.raises(KeyError):
+        with row_major():
+            raise KeyError("inside")
+    assert state() == (False, False, True, True)
+    pcv.PREFER_PALLAS = True  # a switch set by hand outlives a block, as it was
+    try:
+        with row_major():
+            pass
+        assert state() == (False, True, True, True)
+    finally:
+        pcv.PREFER_PALLAS = False
 
 
 def test_cpu_tensors_never_launch():
@@ -279,6 +367,18 @@ def test_cpu_tensors_never_launch():
                                pgn.group_norm_plain(x, w, b, 4, 1e-6, True), rtol=0, atol=0)
     torch.testing.assert_close(pln.fused_layer_norm(x, w, b, 1e-5),            # K6 route
                                pln.layer_norm_plain(x, w, b, 1e-5), rtol=0, atol=0)
+    xr, wl, bl, res = r(6, 16), r(8, 16), r(8), r(6, 8)
+    torch.testing.assert_close(plin.fused_linear(xr, wl, bl, res),             # K7 route
+                               plin.linear_plain(xr, wl, bl, res), rtol=0, atol=0)
+    xc, wc, bc = r(1, 4, 8, 32), r(8, 32, 3, 3), r(8)
+    torch.testing.assert_close(pcv.conv3x3_fused(xc, wc, bc),                  # K8 route
+                               pcv.conv3x3_plain(xc, wc, bc), rtol=0, atol=0)
+    with row_major():                                                          # K10 / K11 routes
+        torch.testing.assert_close(pfa.attention(q, q, q, 2),
+                                   pfa.anchored_attention(q, q, q, 2), rtol=0, atol=0)
+    for fn in (pfa.flash_anchor_resident, pfa.flash_anchor_stream):
+        torch.testing.assert_close(fn(q, q, q, 2), pfa.anchored_attention(q, q, q, 2),
+                                   rtol=0, atol=0)
     assert [kern.launches for kern in ALL_KERNELS] == [0] * len(ALL_KERNELS)
 
 
@@ -571,3 +671,181 @@ def test_kernel_matches_plain_on_card(case, cuda):
     # N(0, 1) inputs give small outputs (a flat softmax): the relative distance
     # is what a wrong kernel cannot pass
     assert ((got.float() - want).norm() / want.norm()).item() < 1e-2
+
+
+# ------------------------- the row-major configuration's kernels: refusals, card
+
+@pytest.mark.parametrize("case,match", [
+    ("device", "unsupported device"), ("dtype", "bf16"), ("width", "multiples of the 8"),
+    ("weight", "need x"), ("view", "contiguous"), ("residual", "residual must be"),
+    ("offset", "16-byte"), ("bias", "bias must be"),
+])
+def test_linear_wrapper_refuses_what_the_kernel_does_not_take(case, match):
+    """K7 takes contiguous, 16-byte aligned bf16 rows with Cin and Cout
+    multiples of 8; checks run before any launch, on meta tensors."""
+    x, w, b, r = _meta(4, 6, 32), _meta(16, 32), _meta(16), _meta(4, 6, 16)
+    if case == "device":
+        with pytest.raises(ValueError, match=match):
+            plin.fused_linear(x, w, b, r)
+        return
+    if case == "dtype":
+        x = _meta(4, 6, 32, dtype=torch.float32)
+    elif case == "width":
+        x, w = _meta(4, 6, 12), _meta(16, 12)
+    elif case == "weight":
+        w = _meta(32, 16)
+    elif case == "view":
+        x = _meta(4, 6, 64)[..., :32]
+    elif case == "residual":
+        r = _meta(4, 6, 8)
+    elif case == "offset":
+        x = _meta(1 + 4 * 6 * 32)[1:].view(4, 6, 32)
+    else:
+        b = _meta(16, dtype=torch.float16)
+    with pytest.raises(ValueError, match=match):
+        plin._check_operands(x, w, b, r)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("device", "unsupported device"), ("dtype", "bf16"), ("cin", "multiple of the 8"),
+    ("weight", "need x"), ("view", "contiguous"), ("packed", "packed weight"),
+    ("bias", "bias must be"),
+])
+def test_conv_wrapper_refuses_what_the_kernel_does_not_take(case, match):
+    x, w, b = _meta(2, 4, 8, 32), _meta(16, 32, 3, 3), _meta(16)
+    packed = _meta(3, 3, 16, 32)
+    if case == "device":
+        with pytest.raises(ValueError, match=match):
+            pcv.conv3x3_fused(x, w, b)
+        return
+    if case == "dtype":
+        x = _meta(2, 4, 8, 32, dtype=torch.float32)
+    elif case == "cin":
+        x, w, packed = _meta(2, 4, 8, 36), _meta(16, 36, 3, 3), _meta(3, 3, 16, 36)
+    elif case == "weight":
+        w = _meta(16, 32, 1, 1)
+    elif case == "view":
+        x = _meta(2, 32, 4, 8).permute(0, 2, 3, 1)  # NCHW memory under an NHWC shape
+    elif case == "packed":
+        packed = _meta(16, 32, 3, 3)
+    else:
+        b = _meta(8)
+    with pytest.raises(ValueError, match=match):
+        pcv._check_operands(x, w, b, packed)
+
+
+@pytest.mark.parametrize("fn,case,match", [
+    ("flash_anchor_resident", "device", "unsupported device"),
+    ("flash_anchor_resident", "width", "head width"),
+    ("flash_anchor_resident", "cross", "S_kv == S"),
+    ("flash_anchor_resident", "odd-heads", "even number of heads"),
+    ("flash_anchor_resident", "offset", "32-byte"),
+    ("flash_anchor_stream", "device", "unsupported device"),
+    ("flash_anchor_stream", "dtype", "bf16"),
+    ("flash_anchor_stream", "cross", "S_kv == S"),
+])
+def test_anchored_wrappers_refuse_what_the_kernels_do_not_take(fn, case, match, monkeypatch):
+    """K10 and K11 take bf16 self-attention at head widths 40 and 80; K10, which
+    loads fragments from global memory in 80-channel windows, also needs
+    32-byte alignment and heads of 40 in pairs."""
+    q = k = v = _meta(2, 1024, 320)
+    heads = 8
+    if case == "width":
+        q = k = v = _meta(2, 1024, 384)  # heads of 48
+    elif case == "cross":
+        k = v = _meta(2, 512, 320)
+    elif case == "odd-heads":
+        q = k = v = _meta(2, 1024, 120)
+        heads = 3
+    elif case == "offset":
+        q = k = v = _meta(8 + 1024 * 320)[8:].view(1, 1024, 320)
+    elif case == "dtype":
+        q = _meta(2, 1024, 320, dtype=torch.float32)
+    if case != "device":  # let the meta tensors past the device check
+        monkeypatch.setattr(pfa, "_check_cuda", lambda name, *a: pfa._check_operands(name, *a))
+    launched = []
+    monkeypatch.setattr(pfa, "_launch", lambda *a: launched.append(a))
+    with pytest.raises(ValueError, match=match):
+        getattr(pfa, fn)(q, k, v, heads)
+    assert not launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    "K7-bias", "K7-residual-ragged", "K7-plain", "K7-fp32-bias-wide", "K8-320", "K8-w24-to-4",
+    "K8-cin2560", "K8-one-row", "K10-hd40", "K10-hd80", "K10-ragged", "K10-clamp", "K11-hd40",
+    "K11-hd80", "K11-ragged", "K11-clamp"])
+def test_row_major_kernel_matches_plain_on_card(case, cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(s, generator=g, device=cuda) * scale).to(torch.bfloat16)
+
+    kern = case.split("-")[0]
+    if kern == "K7":
+        rows, cin, cout = {"K7-bias": (2, 515, 320, 640), "K7-residual-ragged": (1, 4321, 640, 320),
+                           "K7-plain": (3, 128, 1280, 1280),
+                           "K7-fp32-bias-wide": (1, 200, 320, 10240)}[case][1:]
+        x, w = r(rows, cin), r(cout, cin, scale=cin ** -0.5)
+        b = None if case == "K7-plain" else r(cout)
+        if case == "K7-fp32-bias-wide":
+            b = b.float()
+        res = r(rows, cout) if case == "K7-residual-ragged" else None
+        counter, got = plin.K7, lambda: plin.fused_linear(x, w, b, res)
+        want = plin.linear_plain(x, w, b, res)
+    elif kern == "K8":
+        shape, cout = {"K8-320": ((3, 24, 24, 320), 320), "K8-w24-to-4": ((2, 10, 24, 64), 4),
+                       "K8-cin2560": ((1, 8, 8, 2560), 136), "K8-one-row": ((5, 1, 8, 32), 48)}[case]
+        x, w, b = r(*shape), r(cout, shape[-1], 3, 3, scale=(9 * shape[-1]) ** -0.5), r(cout)
+        counter, got = pcv.K8, lambda: pcv.conv3x3_fused(x, w, b)
+        want = pcv.conv3x3_plain(x, w, b)
+    else:
+        hd = 80 if case.endswith("hd80") else 40
+        S = 1091 if case.endswith("ragged") else 1152
+        q, k, v = r(2, S, 8 * hd, scale=3.0 if case.endswith("clamp") else 1.0), \
+            r(2, S, 8 * hd), r(2, S, 8 * hd)
+        fn = pfa.flash_anchor_resident if kern == "K10" else pfa.flash_anchor_stream
+        counter, got = (pfa.K10 if kern == "K10" else pfa.K11), lambda: fn(q, k, v, 8)
+        want = pfa.anchored_attention(q, k, v, 8)
+        assert (pfa.anchor_excursion(q, k, 8) > pfa.EXP_CLAMP) == case.endswith("clamp")
+    before = counter.launches
+    out = got()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    torch.testing.assert_close(out.float(), want.float(), atol=ATOL, rtol=RTOL)
+    assert ((out.float() - want.float()).norm() / want.float().norm()).item() < 1e-2
+    assert torch.equal(out, got())  # no atomics: the same bits every run
+
+
+@pytest.mark.cuda
+def test_row_major_blocks_launch_on_card(cuda):
+    """A bf16 transformer block and a resnet block inside ``row_major()`` go
+    through K6 / K7 / K8 and agree with their default routes; the packed conv
+    weight is made once."""
+    from mikudance_tpu_torch.models import resnet as presnet
+
+    torch.manual_seed(0)
+    blk = players.TransformerBlock(320, 8).to(cuda, torch.bfloat16).eval()
+    res = presnet.ResnetBlock(320, 640, 1280).to(cuda, torch.bfloat16).eval()
+    g = torch.Generator(device=cuda).manual_seed(2)
+
+    def r(*s):
+        return torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+
+    x, ctx, img, temb = r(2, 256, 320), r(2, 7, 768), r(2, 16, 16, 320), r(2, 1280)
+    with torch.no_grad():
+        ctx_kv = blk.attn2.project_kv(ctx)
+        ref_kv = (r(2, 256, 320), r(2, 256, 320))
+        want_blk, _ = blk(x, None, ref_kv=ref_kv, ctx_kv=ctx_kv)
+        want_res = res(img, temb)
+        k7, k8 = plin.K7.launches, pcv.K8.launches
+        with row_major():
+            got_blk, _ = blk(x, None, ref_kv=ref_kv, ctx_kv=ctx_kv)
+            got_res = res(img, temb)
+            packed = pcv.packed_weight(res.conv1)
+            res(img, temb)
+            assert pcv.packed_weight(res.conv1) is packed
+    torch.cuda.synchronize()
+    assert plin.K7.launches == k7 + 8 and pcv.K8.launches == k8 + 4
+    for got, want in ((got_blk, want_blk), (got_res, want_res)):
+        assert ((got.float() - want.float()).norm() / want.float().norm()).item() < 2e-2
