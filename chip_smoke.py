@@ -2,21 +2,24 @@
 """Drive the PyTorch port's paths once on one CUDA card.
 
     python3 chip_smoke.py             # the smoke, below
-    python3 chip_smoke.py --profile   # device-time breakdown of requests A and B
-    python3 chip_smoke.py --kernels K7,K8,K10,K11   # phases 1-3 for the named kernels, with ptxas's report
+    python3 chip_smoke.py --profile   # device-time breakdown of requests A, B, E, one F step
+    python3 chip_smoke.py --kernels K12,K14   # phases 1-3 for the named kernels, ptxas's report
     python3 chip_smoke.py --budgets   # peak memory, phase by phase, as the clip grows
+    python3 chip_smoke.py --train     # phases 1-2, then requests F and G alone
+    python3 chip_smoke.py --train --profile   # one request-F train step under the profiler
 
 Phases, in order, one line each; any failure exits non-zero:
 
 1. card: the device and its power limit (nvidia-smi), TF32 switches;
 2. build: nvcc builds the kernel library from ``mikudance_tpu_torch/csrc``;
-3. kernels: K1-K11 and K13 against their plain PyTorch versions at the
+3. kernels: K1-K14 against their plain PyTorch versions at the
    paths' shapes, atol = rtol = 2e-2 and a relative-L2 limit, each with a
    control that the limit must reject (attention: softmax scale off by 9% on
    bf16 N(0, 1) inputs;
    K5: the wrong group size, K6: a row width miscounted by 20%, both on
    inputs with a per-channel offset and spread, K6's with a per-row offset
-   too; K7: the bias or the residual left out; K8: the taps transposed),
+   too; K7: the bias or the residual left out; K8: the taps transposed; K14:
+   the bank K/V left out),
    median times of the
    kernel, its plain version and the one library call that computes the
    same function, and the least time the card could take (``bound_ms``);
@@ -57,12 +60,30 @@ Phases, in order, one line each; any failure exits non-zero:
     ``|s - off|`` of one level-0 self-attention call says whether the +-100
     clamp of K10 / K11, which the default configuration does not have, was
     idle. Then the small request of phase 9 once more inside ``row_major()``.
+13. request F, training: ``scripts.train_stage2.main`` on synthetic batches at
+    the reference's geometry (20 frames at 576^2, batch 1, SD1.5 widths, MAN
+    and motion modules on, bf16 with fp32 master copies, remat on), three
+    optimizer steps in the default configuration (K1) and three inside
+    ``kernels.transposed()`` (K12 at level 0, K10 at level 1), same seeds and
+    so the same draws: each must launch K2, K3, K4 (the frozen VAE encoder),
+    K5, K6 and its own self-attention kernels and none of the others; finite
+    losses, the trainable partition moved, the frozen one bit-identical;
+    losses and gradient norms of the two runs held to one another, with
+    another step's draws as the control; seconds and peak memory per phase.
+    Then a small train step (4 frames at 256^2, the same networks) through
+    the kernels and with every wrapper forced to its plain version, loss and
+    gradients held to one another (control: the conditioning dropped); then
+    two ``train_stage1`` steps at 768^2 (batch cut from 8 to 1).
+14. request G: the mega-block probe K14 at (32, 2304, 640) in one launch
+    against the port's ``TransformerBlock`` read path on the same weights,
+    both timed (control: the bank K/V left out).
 
 The kernel counts are set to 0 just before each request and read just after.
 It prints the kernel record (one JSON object; ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` at each kernel's first shape; ``launches``
 from request B, for K9 and K13 from request D, for K7, K8, K10 and K11 from
-request E), the nvidia-smi line, and
+request E, for K12 from request F, for K14 from request G), the nvidia-smi
+line, and
 last the result line. Uses one card, the first visible one; imports nothing
 of JAX.
 
@@ -70,7 +91,8 @@ of JAX.
 20-step request A and a 20-step request B (after a 1-step warm-up), then a
 2-step and a 6-step request E (request A inside ``row_major()``), and prints
 device time by kernel category, per request and per denoise step, and the
-top kernels.
+top kernels; then one request-F train step (forward, backward and optimizer
+shares, device time by category).
 """
 
 import argparse
@@ -129,6 +151,25 @@ PROFILE_E_STEPS = 6
 # The card's published peaks (H100 SXM): device memory, dense bf16 tensor
 # cores, fp32 outside the tensor cores.
 PEAK_BYTES, PEAK_BF16, PEAK_FP32 = 3.35e12, 989e12, 67e12
+# Request F, the stage-2 trainer's geometry (configs/train/train_stage2.yaml):
+# 20 frames at 576^2, batch 1; its level-0 self-attention shape
+TRAIN_FRAMES, TRAIN_SIZE = 20, 576
+TRAIN_LEVEL0 = (TRAIN_FRAMES, (TRAIN_SIZE // 8) ** 2, 320)
+TRAIN_STEPS = 3
+# Request F in the transposed configuration (K12, K10) against the default one
+# (K1), same seeds and so the same draws: relative difference of each step's
+# loss and gradient norm (3.6e-5 and 4.7e-5 at most, measured on an H100).
+# The control is the loss under another step's draws.
+F_LOSS_REL = 1e-3
+F_NORM_REL = 1e-3
+# The small train step through the kernels against the plain versions: the
+# loss, and the relative L2 of all gradients taken as one vector (bf16
+# rounding through the full-width networks, forwards and backwards: 3.4e-5
+# and 1.2e-2 measured on an H100; the control, the conditioning dropped, 4.6e-1).
+SMALL_STEP_LOSS_REL = 1e-3
+SMALL_STEP_GRAD_REL_L2 = 5e-2
+# Request G: the mega-block probe against the block's read path
+G_REL_L2 = 2e-2
 
 
 def log(msg: str) -> None:
@@ -260,6 +301,7 @@ def plain_kernels():
                for n in ("flash_attention_fullc", "cross_attention", "flash_attention_wide",
                          "flash_attention_resident")]
     patches += [(fa, "flash_attention_fullc_anchored", fa.anchored_attention),
+                (fa, "flash_attention_fullc_t", fa.anchored_attention_t),
                 (layers, "fused_linear", lin.linear_plain),
                 (cv, "conv3x3_fused", lambda x, w, b, packed=None: cv.conv3x3_plain(x, w, b)),
                 (fa, "temporal_attention", ta.temporal_attention_plain),
@@ -465,7 +507,13 @@ def anchored_cases(dev, only=()):
              (fa.K10, fa.flash_anchor_resident, (8, 2304, 640), 3.0),
              (fa.K11, fa.flash_anchor_stream, level0, 1.0),
              (fa.K11, fa.flash_anchor_stream, level1, 1.0),
-             (fa.K11, fa.flash_anchor_stream, (8, 2304, 320), 3.0)]
+             (fa.K11, fa.flash_anchor_stream, (8, 2304, 320), 3.0),
+             # K12: the 576^2 trainer's level 0 (5184 = 40.5 x 128 tokens), the
+             # 768^2 level beside K1 and K11, heads of 80 on a ragged S, the clamp
+             (fa.K12, fa.flash_attention_fullc_t, TRAIN_LEVEL0, 1.0),
+             (fa.K12, fa.flash_attention_fullc_t, level0, 1.0),
+             (fa.K12, fa.flash_attention_fullc_t, (20, 1296, 640), 1.0),
+             (fa.K12, fa.flash_attention_fullc_t, (8, 2304, 320), 3.0)]
     heads = 8
     check(fa.fullc_resident(2304, 640, heads) and not fa.fullc_resident(9216, 320, heads),
           "the byte rule gives K10 the 2304-token level and K11 the 9216-token level")
@@ -479,10 +527,19 @@ def anchored_cases(dev, only=()):
         excursion = fa.anchor_excursion(q[:1], k[:1], heads)
         check((excursion > fa.EXP_CLAMP) == (q_scale > 1.0),
               f"{kern.name} {shape}: largest |s - off| {excursion:.1f} with q x {q_scale}")
-        yield (kern, f"{kern.name} q{shape} heads {heads} q x {q_scale} (largest |s - off| "
-                     f"{excursion:.1f})",
-               lambda: fn(q, k, v, heads), lambda: fa.anchored_attention(q, k, v, heads),
-               lambda: fa.anchored_attention(q * CONTROL_Q_SCALE, k, v, heads),
+        plain = fa.anchored_attention_t if kern is fa.K12 else fa.anchored_attention
+        what = (f"{kern.name} q{shape} heads {heads} q x {q_scale} (largest |s - off| "
+                f"{excursion:.1f}")
+        if kern is fa.K12 and q_scale > 1.0:
+            # the anchor rounded to bf16 moves which scores the clamp clips:
+            # here K12's function is no longer K10 / K11's
+            apart = rel_l2(plain(q, k, v, heads), fa.anchored_attention(q, k, v, heads))
+            check(apart > 0.0, f"{kern.name} {shape}: its plain version equals K10 / K11's "
+                               "on an input where the clamp bites")
+            what += f"; plain version against K10 / K11's: relative L2 {apart:.3e}"
+        yield (kern, what + ")",
+               lambda: fn(q, k, v, heads), lambda: plain(q, k, v, heads),
+               lambda: plain(q * CONTROL_Q_SCALE, k, v, heads),
                lambda: F.scaled_dot_product_attention(*lib),
                4 * shape[0] * shape[1] * shape[1] * shape[2], 2 * 4 * q.numel(), PEAK_BF16)
 
@@ -551,15 +608,212 @@ def conv_cases(dev, only=()):
         del x
 
 
+def mega_inputs(dev, level, seed: int = 5):
+    """The probe's inputs at one of its levels, (B, S, C): bank K/V and context
+    K/V N(0, 0.5), the 257 context rows padded with zeros to 320, and a seeded
+    ``TransformerBlock`` of that width whose weights the probe and the block's
+    read path share. The hidden states are N(0, 0.1), not the probe's N(0, 1):
+    LayerNorm makes the sublayers blind to their scale, so this only shrinks
+    the residual that the output carries along, and a wrong sublayer (the
+    control: the bank K/V left out) moves the output by 2e-1 and not 2e-2."""
+    from mikudance_tpu_torch.kernels import mega_block as mb
+    from mikudance_tpu_torch.models import layers
+
+    B, S, C = level
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(s, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    (block,) = seeded_modules(seed, dev, lambda: [layers.TransformerBlock(C, mb.HEADS)])
+    x, rk, rv = r(B, S, C, scale=0.1), r(B, S, C, scale=0.5), r(B, S, C, scale=0.5)
+    ck, cv = (torch.zeros(B, 320, C, dtype=torch.bfloat16, device=dev) for _ in range(2))
+    ck[:, :mb.CTX_LEN], cv[:, :mb.CTX_LEN] = (r(B, mb.CTX_LEN, C, scale=0.5) for _ in range(2))
+    return block, (x, rk, rv, ck, cv), mb.weights_from_block(block)
+
+
+def block_read_path(block, x, rk, rv, ck, cv):
+    """What the probe spans, through the port's ``TransformerBlock`` as the
+    denoising UNet calls it (K6, library products, K1, K2)."""
+    from mikudance_tpu_torch.kernels import mega_block as mb
+
+    ctx_kv = (ck[:, :mb.CTX_LEN].contiguous(), cv[:, :mb.CTX_LEN].contiguous())
+
+    def run():
+        with torch.inference_mode():
+            return block(x, None, ref_kv=(rk, rv), ctx_kv=ctx_kv)[0]
+
+    return run
+
+
+MEGA_LEVELS = ((32, 2304, 640), (32, 576, 1280), (32, 9216, 320))  # the probe's own, mid, big
+
+
+def mega_cases(dev, only=()):
+    """K14 at the probe's three levels; the control leaves the bank K/V out.
+    No single library call computes the block: the read path is timed beside."""
+    from mikudance_tpu_torch.kernels import mega_block as mb
+
+    for level in MEGA_LEVELS if wanted(mb.K14, only) else ():
+        block, ins, w = mega_inputs(dev, level)
+        x, rk, rv, ck, cv = ins
+        B, S, C = level
+        FF, SC = 4 * C, mb.CTX_LEN
+        flops = B * 2 * (4 * S * C * C + 2 * S * S * C + 2 * S * SC * C + 2 * S * C * C
+                         + S * C * 2 * FF + S * FF * C)
+        nbytes = (2 * (4 * x.numel() + 2 * ck.numel() + sum(w[n].numel() for n in mb.MATRICES))
+                  + 4 * sum(w[n].numel() for n in mb.VECTORS))
+        zero = torch.zeros_like(rk)
+        yield (mb.K14, f"{mb.K14.name} x{level} heads {mb.HEADS} context {SC} of {ck.shape[1]}",
+               lambda: mb.mega_block(*ins, w), lambda: mb.mega_block_plain(*ins, w),
+               lambda: mb.mega_block_plain(x, zero, zero, ck, cv, w), None, flops, nbytes,
+               PEAK_BF16, {"the block's read path": block_read_path(block, *ins)})
+        del block, ins, w, x, rk, rv, ck, cv, zero
+
+
+def train_config_file(stage: str, out_dir: str, **sections) -> str:
+    """The repo's ``configs/train/train_<stage>.yaml`` as it is, with the run's
+    output under ``out_dir``, a log line every step, no checkpoint, export or
+    validation inside these few steps, and ``sections`` merged over its
+    sections; written to ``out_dir`` and returned as a path."""
+    import yaml
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "configs", "train", f"train_{stage}.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    never = 10**9
+    cfg.update(output_dir=out_dir, log_every=1, checkpointing_steps=never,
+               save_model_step_interval=never, validation_steps=never)
+    cfg.pop("val", None)
+    for name, values in sections.items():
+        cfg.setdefault(name, {}).update(values)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"train_{stage}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def run_training(stage: str, n_steps: int, out_dir: str, dev, **sections):
+    """The trainer's ``main([...])`` on ``n_steps`` synthetic batches, with a
+    clock and a peak-memory reading at the borders of a step's phases: batch
+    (host data, VAE and CLIP encoders), forward (``diffusion_loss``), backward,
+    optimizer. Returns (the final TrainState, the log's records, {phase:
+    [seconds per step]}, {phase: peak GiB}); the first step's batch phase
+    holds the build of the networks."""
+    import shutil
+
+    from mikudance_tpu_torch.scripts import train_stage1, train_stage2
+    from mikudance_tpu_torch.train import steps as tsteps
+
+    shutil.rmtree(out_dir, ignore_errors=True)
+    path = train_config_file(stage, out_dir, **sections)
+    phases, peaks = defaultdict(list), defaultdict(float)
+    clock = {"t": time.perf_counter()}
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def mark(name):
+        torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        phases[name].append(now - clock["t"])
+        peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated(dev) / 2**30)
+        torch.cuda.reset_peak_memory_stats(dev)
+        clock["t"] = now
+
+    loss_fn, update = tsteps.diffusion_loss, tsteps.Optimizer.update
+
+    def timed_loss(*args, **kwargs):
+        mark("batch")
+        out = loss_fn(*args, **kwargs)
+        mark("forward")
+        return out
+
+    def timed_update(self, grads):
+        mark("backward")
+        fired = update(self, grads)
+        mark("optimizer")
+        return fired
+
+    tsteps.diffusion_loss, tsteps.Optimizer.update = timed_loss, timed_update
+    try:
+        main = {"stage1": train_stage1.main, "stage2": train_stage2.main}[stage]
+        state = main(["--config", path, "--synthetic", str(n_steps), "--max_steps",
+                      str(n_steps)])
+    finally:
+        tsteps.diffusion_loss, tsteps.Optimizer.update = loss_fn, update
+    with open(os.path.join(out_dir, f"train_{stage}_mikudance", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    check(len(records) == n_steps == state.optimizer.count,
+          f"{stage}: {len(records)} log records, {state.optimizer.count} optimizer steps")
+    return state, records, dict(phases), dict(peaks)
+
+
+def training_text(phases, peaks) -> str:
+    """First step | later steps (median seconds a phase) | peak GiB a phase."""
+    later = {k: float(np.median(v[1:])) for k, v in phases.items() if len(v) > 1}
+    first = " ".join(f"{k} {v[0]:.2f}s" for k, v in phases.items())
+    return (f"first step (build and warm-up in it): {first} | later steps, median: "
+            + " ".join(f"{k} {v:.3f}s" for k, v in later.items())
+            + f" = {sum(later.values()):.3f} s a step | peak "
+            + " ".join(f"{k} {v:.2f} GiB" for k, v in peaks.items()))
+
+
+def initial_stage2_weights(dev):
+    """The stage-2 trainer's networks as it builds them (seeded random init,
+    no files), cast to bf16: what its parameters were before the first step
+    (on the host)."""
+    from mikudance_tpu_torch.core import loaders
+
+    guide = loaders.load_guidance(None, use_man=True, device=dev)
+    den = loaders.load_denoising(None, None, use_motion=True, device=dev)
+    out = {f"guide.{k}": v.to(torch.bfloat16).cpu() for k, v in guide.state_dict().items()}
+    out.update({f"den.{k}": v.to(torch.bfloat16).cpu() for k, v in den.state_dict().items()})
+    return out  # on the host: the runs' peak-memory readings stay their own
+
+
+def small_train_batch(dev, seed: int, frames: int = 4, size: int = 256):
+    """A ready stage-2 batch at a small geometry (no encoders), and its draws."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    h = size // 8
+
+    def r(*s, scale=1.0):
+        return torch.randn(s, generator=g, device=dev) * scale
+
+    batch = {"latents": r(1, frames, h, h, 4), "cond20": r(1, frames, h, h, 20),
+             "motion": r(1, frames, h, h, 2, scale=0.1), "clip_ctx": r(1, 257, 768),
+             "uncond": torch.zeros(1, device=dev)}
+    draws = {"noise": r(1, frames, h, h, 4), "offset": r(1, 1, 1, 1, 4),
+             "t": torch.tensor([400], device=dev)}
+    return batch, draws
+
+
+def loss_and_gradients(state, cfg, schedule, batch, draws):
+    """(loss, {name: gradient}) of one loss evaluation on ``state``'s modules."""
+    from mikudance_tpu_torch.train import steps as tsteps
+
+    for p in state.trainable.values():
+        p.grad = None
+    loss, _ = tsteps.diffusion_loss(cfg, schedule, state.guide, state.den, batch, draws=draws)
+    loss.backward()
+    grads = {n: p.grad.float().clone() for n, p in state.trainable.items() if p.grad is not None}
+    for p in state.trainable.values():
+        p.grad = None
+    return float(loss.detach()), grads
+
+
+def flat(grads) -> torch.Tensor:
+    return torch.cat([g.reshape(-1) for _, g in sorted(grads.items())])
+
+
 def phase_kernels(dev, only=()):
     """Every kernel against its plain version at the paths' shapes. Returns
     the kernel record: per kernel the times at its first shape."""
     import itertools
 
     record = {}
-    for kern, what, run, plain, control, library, flops, nbytes, peak in itertools.chain(
+    for kern, what, run, plain, control, library, flops, nbytes, peak, *rest in itertools.chain(
             attention_cases(dev, only), norm_cases(dev, only), anchored_cases(dev, only),
-            linear_cases(dev, only), conv_cases(dev, only)):
+            linear_cases(dev, only), conv_cases(dev, only), mega_cases(dev, only)):
         got = run()
         torch.cuda.synchronize()
         want = plain()
@@ -575,24 +829,31 @@ def phase_kernels(dev, only=()):
         del got
         ms = cuda_ms(run, 5)
         plain_ms = cuda_ms(plain, 3)
-        library_ms = cuda_ms(library, 5)
+        library_ms = cuda_ms(library, 5) if library is not None else None
+        also = {name: cuda_ms(fn, 5) for name, fn in (rest[0] if rest else {}).items()}
         # the least time the card could take: every input read once and every
         # output written once at the memory rate, or the operations at the
         # peak rate of their type, whichever is longer
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
         bound_ms, bound_by = max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
-        chose = library_kernel_name(library)
-        if kern.name.startswith("K4"):  # head width 512: which backend takes it
-            chose = f"{chose}; {sdpa_backend_times(library)}"
+        if library is None:
+            lib_text = "no library call computes this; " + ", ".join(
+                f"{name} {t:.3f} ms" for name, t in also.items())
+        else:
+            chose = library_kernel_name(library)
+            if kern.name.startswith("K4"):  # head width 512: which backend takes it
+                chose = f"{chose}; {sdpa_backend_times(library)}"
+            lib_text = f"library {library_ms:.3f} ms ({chose})"
         log(f"kernels: {what}: max_abs_err {err:.3e}  rel_l2 {rel:.3e} (limit {REL_L2}; "
-            f"control {ctl:.3e})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  library "
-            f"{library_ms:.3f} ms ({chose})  bound {bound_ms:.3f} ms by {bound_by}")
+            f"control {ctl:.3e})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  {lib_text}  "
+            f"bound {bound_ms:.3f} ms by {bound_by}")
         # the record keeps each kernel's first (largest) shape's times
         rec = record.setdefault(kern.name, {
             "name": kern.name, "route": "cuda", "source": kern.source,
             "replaces": kern.replaces, "launches": 0, "max_abs_err": 0.0, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "shape": what.split(" ", 2)[2]})
+            "library_ms": library_ms, "shape": what.split(" ", 2)[2],
+            **{name.replace(" ", "_").replace("'", "") + "_ms": t for name, t in also.items()}})
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         torch.cuda.empty_cache()
     return record
@@ -609,6 +870,8 @@ PROFILE_CATEGORIES = [
     ("K6 LayerNorm", ("ln_kernel",)),
     ("K7 linear (the chain's products)", ("linear_kernel",)),
     ("K8 conv3x3", ("conv3x3_kernel",)),
+    ("K12 transposed anchored attention", ("fullc_t_kernel",)),
+    ("K14 mega-block", ("mega_kernel",)),
     ("K10 anchored attention, K/V from L2", ("anchor_resident_kernel",)),
     ("K11 anchored attention, K/V staged", ("anchor_stream_kernel",)),
     ("conv (cuDNN)", ("fprop", "conv", "implicit_gemm", "cudnn", "nhwc")),
@@ -649,6 +912,73 @@ def log_profile(name: str, steps: int, res) -> None:
         + " ".join(f"{k} {v:.3f}s" for k, v in phases.items()))
     for cat, ms in sorted(sums.items(), key=lambda kv: -kv[1]):
         log(f"   {cat:44s} {ms:10.1f} ms  {ms / busy:6.1%}")
+
+
+def profile_train_step(dev) -> None:
+    """One request-F step under torch.profiler: stage 2 at 20 x 576^2 in the
+    transposed configuration, on a ready batch (random latents, condition
+    stack and tokens of the trainer's shapes; the encoders are not part of the
+    step). Wall shares of forward, backward and optimizer between device
+    synchronisations, and device time by kernel category."""
+    from types import SimpleNamespace
+
+    from mikudance_tpu_torch.core import loaders
+    from mikudance_tpu_torch.diffusion.ddim import DDIMSchedule
+    from mikudance_tpu_torch.kernels import transposed
+    from mikudance_tpu_torch.train import steps as tsteps
+
+    cfg = tsteps.TrainConfig(trainable_substrings=("motion", "man_"))
+    schedule = DDIMSchedule.create(beta_schedule="linear")
+    state = tsteps.init_train_state(
+        cfg, loaders.load_guidance(None, use_man=True, device=dev, remat=True),
+        loaders.load_denoising(None, None, use_motion=True, device=dev, remat=True),
+        frozen_dtype=torch.bfloat16)
+    step = tsteps.make_train_step(cfg, schedule, state)
+    batch, _ = small_train_batch(dev, 12, TRAIN_FRAMES, TRAIN_SIZE)
+    g = torch.Generator(device=dev).manual_seed(0)
+    phases = {}
+    loss_fn, update = tsteps.diffusion_loss, tsteps.Optimizer.update
+    clock = {}
+
+    def mark(name):
+        torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        phases[name] = now - clock["t"]
+        clock["t"] = now
+
+    def timed_loss(*a, **k):
+        mark("before")
+        out = loss_fn(*a, **k)
+        mark("forward")
+        return out
+
+    def timed_update(self, grads):
+        mark("backward")
+        fired = update(self, grads)
+        mark("optimizer")
+        return fired
+
+    def one_step(_steps):
+        clock["t"] = time.perf_counter()
+        step(batch, g)
+        return SimpleNamespace(phases={k: v for k, v in phases.items() if k != "before"})
+
+    tsteps.diffusion_loss, tsteps.Optimizer.update = timed_loss, timed_update
+    try:
+        with transposed():
+            one_step(1)  # warm-up
+            torch.cuda.reset_peak_memory_stats(dev)
+            res = profile_request(one_step, 1)
+    finally:
+        tsteps.diffusion_loss, tsteps.Optimizer.update = loss_fn, update
+    log_profile("request F, one stage-2 step (transposed)", 1, res)
+    total = sum(res[1].values())
+    log("profile: request F shares of the step: " + ", ".join(
+        f"{k} {v / total:.1%}" for k, v in res[1].items())
+        + f"; peak {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+    log("profile: top kernels, request F step (ms, calls, name)")
+    for ms, n, name in res[3][:25]:
+        log(f"   {ms:10.1f} {n:6d}  {name[:110]}")
 
 
 def phase_profile(pipe, request_b) -> None:
@@ -878,7 +1208,10 @@ def check_video(frames, latents, n_frames: int, what: str, height: int = H,
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="device-time breakdown of requests A and B instead of the smoke")
+                    help="device-time breakdown of requests A, B, E and of one request-F "
+                         "train step instead of the smoke")
+    ap.add_argument("--train", action="store_true",
+                    help="build, then requests F and G alone (the trainers, the mega-block)")
     ap.add_argument("--budgets", action="store_true",
                     help="peak memory of one-step 768^2 requests as the clip grows")
     ap.add_argument("--kernels", metavar="K7,K8",
@@ -891,7 +1224,8 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the card")
     check(torch.cuda.device_count() == 1, f"one card, got {torch.cuda.device_count()}")
     from mikudance_tpu_torch.core.configs import ContextConfig, PipelineConfig
-    from mikudance_tpu_torch.kernels import _build, row_major
+    from mikudance_tpu_torch.kernels import _build, row_major, transposed
+    from mikudance_tpu_torch.kernels import mega_block as mb
     from mikudance_tpu_torch.kernels import conv2d as cv
     from mikudance_tpu_torch.kernels import flash_attention as fa
     from mikudance_tpu_torch.kernels import group_norm as gn
@@ -904,10 +1238,12 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     kernels = (fa.K1, fa.K2, ta.K3, fa.K4, gn.K5, ln.K6, lin.K7, cv.K8, fa.K9, fa.K10, fa.K11,
-               ta.K13)
-    # the row-major configuration's kernels launch only inside row_major()
+               fa.K12, ta.K13, mb.K14)
+    # the row-major configuration's kernels launch only inside row_major();
+    # K12 only inside transposed(); K14 is the probe's and on no model's path
     row_major_only = (lin.K7, cv.K8, fa.K10, fa.K11)
-    default_kernels = [k for k in kernels if k not in row_major_only]
+    off_the_sampler = (fa.K12, mb.K14)
+    default_kernels = [k for k in kernels if k not in row_major_only + off_the_sampler]
     # K9 and K13 take only maps under 512^2: requests A, B and C run at 768^2
     at_768 = [k for k in default_kernels if k not in (fa.K9, ta.K13)]
 
@@ -915,11 +1251,12 @@ def main() -> int:
         for k in kernels:
             k.launches = 0
 
-    def read_counts(what: str, expect=default_kernels, absent=row_major_only) -> dict:
+    def read_counts(what: str, expect=default_kernels, absent=row_major_only,
+                    also_absent=off_the_sampler) -> dict:
         counts = {k.name: k.launches for k in kernels}
         missing = [k.name for k in expect if k.launches == 0]
         check(not missing, f"{what}: kernels not launched: {missing}")
-        stray = [k.name for k in absent if k.launches]
+        stray = [k.name for k in tuple(absent) + tuple(also_absent) if k.launches]
         check(not stray, f"{what}: kernels launched that are not on this path: {stray}")
         return counts
 
@@ -953,14 +1290,168 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
         return bundle, VideoPipeline(bundle, cfg), bundle_b, VideoPipeline(bundle_b, cfg)
 
+    def training_phases():
+        """Requests F and G; returns their launch counts (F transposed, F
+        default, the stage-1 steps, G)."""
+        # 13. request F: the stage-2 trainer at the reference's geometry, a few
+        # optimizer steps, in the transposed configuration and in the default one
+        train_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                 "chip_smoke")
+        before = initial_stage2_weights(dev)
+        runs = {}
+        # the default configuration first: the transposed run's state is kept
+        # for the small step below, the default run's is dropped at once
+        for name, configuration in (("default", contextlib.nullcontext),
+                                    ("transposed", transposed)):
+            reset_counts()
+            t0 = time.perf_counter()
+            with configuration():
+                state, records, phases, peaks = run_training("stage2", TRAIN_STEPS,
+                                                             os.path.join(train_dir, name), dev)
+            wall = time.perf_counter() - t0
+            on_f = [fa.K2, ta.K3, fa.K4, gn.K5, ln.K6] + ([fa.K12, fa.K10] if name == "transposed"
+                                                          else [fa.K1])
+            launches = read_counts(f"request F ({name})", on_f,
+                                   absent=[k for k in kernels if k not in on_f], also_absent=())
+            losses = [r["train_loss"] for r in records]
+            norms = [r["grad_norm"] for r in records]
+            check(all(math.isfinite(v) for v in losses + norms), f"request F ({name}): {records}")
+            named = {**{f"guide.{k}": v.cpu() for k, v in state.guide.state_dict().items()},
+                     **{f"den.{k}": v.cpu() for k, v in state.den.state_dict().items()}}
+            trainable = set(state.trainable)
+            check(trainable == {n for n in named if "motion" in n or "man_" in n}
+                  and 0 < len(trainable) < len(named),
+                  f"request F ({name}): the trainable partition")
+            moved = sum(not torch.equal(named[n], before[n]) for n in trainable)
+            frozen_moved = [n for n in named if n not in trainable
+                            and not torch.equal(named[n], before[n])]
+            check(not frozen_moved,
+                  f"request F ({name}): frozen parameters moved: {frozen_moved[:3]}")
+            check(moved > len(trainable) // 2,
+                  f"request F ({name}): {moved} of {len(trainable)} trainable tensors moved")
+            check(all(p.dtype == torch.bfloat16 for p in state.den.parameters())
+                  and all(m.dtype == torch.float32 for m in state.optimizer.master.values()),
+                  f"request F ({name}): bf16 modules, fp32 master copies")
+            log(f"request F ({name}): stage 2, {TRAIN_FRAMES}x{TRAIN_SIZE}x{TRAIN_SIZE}, batch "
+                f"1, bf16, remat on, {TRAIN_STEPS} optimizer steps in {wall:.1f} s | "
+                f"{training_text(phases, peaks)} | losses {losses} | gradient norms {norms} | "
+                f"{moved} of {len(trainable)} trainable tensors moved, "
+                f"{len(named) - len(trainable)} frozen ones bit-identical | launches {launches}")
+            runs[name] = (losses, norms, launches, state if name == "transposed" else None)
+            del named, state
+        del before
+        (loss_t, norm_t, launches_f, state), (loss_d, norm_d, launches_f_default, _) = \
+            runs["transposed"], runs["default"]
+        runs.clear()
+        # the same draws through K12 + K10 and through K1: the first step's loss and
+        # gradient norm come from identical weights; later steps follow weights that
+        # already differ by one bf16-rounded update. The control: another step's
+        # draws (step 2 against step 1).
+        rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+        d_loss = [rel(a, b) for a, b in zip(loss_t, loss_d)]
+        d_norm = [rel(a, b) for a, b in zip(norm_t, norm_d)]
+        ctl_loss = rel(loss_t[1], loss_d[0])
+        log(f"request F, transposed against default, same draws: loss apart by {d_loss} (limit "
+            f"{F_LOSS_REL}; control, another step's draws, {ctl_loss:.3e}), gradient norm apart "
+            f"by {d_norm} (limit {F_NORM_REL})")
+        check(max(d_loss) < F_LOSS_REL < ctl_loss,
+              f"request F: losses {d_loss}, control {ctl_loss}")
+        check(max(d_norm) < F_NORM_REL, f"request F: gradient norms {d_norm}")
+
+        # a small train step (stage 2, full widths, 4 frames at 256^2) through the
+        # kernels and with every wrapper forced to its plain version
+        from mikudance_tpu_torch.diffusion.ddim import DDIMSchedule
+        from mikudance_tpu_torch.train.steps import TrainConfig
+
+        tcfg = TrainConfig(trainable_substrings=("motion", "man_"))
+        schedule = DDIMSchedule.create(beta_schedule="linear")
+        batch, draws = small_train_batch(dev, 11)
+        reset_counts()
+        loss_k, grads_k = loss_and_gradients(state, tcfg, schedule, batch, draws)
+        used = [k.name for k in kernels if k.launches > 0]
+        with plain_kernels():
+            counts = {k.name: k.launches for k in kernels}
+            loss_p, grads_p = loss_and_gradients(state, tcfg, schedule, batch, draws)
+            check(counts == {k.name: k.launches for k in kernels},
+                  "the plain step launched a kernel")
+        # the control: the sample's banks and tokens switched off
+        zero_bank = {**batch, "uncond": torch.ones(1, device=dev)}
+        loss_c, grads_c = loss_and_gradients(state, tcfg, schedule, zero_bank, draws)
+        rel_g, rel_c = rel_l2(flat(grads_k), flat(grads_p)), rel_l2(flat(grads_c), flat(grads_p))
+        log(f"check, train step: stage 2, 4x256x256, kernels {used} vs plain versions: loss "
+            f"{loss_k:.6f} vs {loss_p:.6f} (apart by {rel(loss_k, loss_p):.3e}, limit "
+            f"{SMALL_STEP_LOSS_REL}), relative L2 of all {len(grads_k)} gradients {rel_g:.3e} "
+            f"(limit {SMALL_STEP_GRAD_REL_L2}; control, the conditioning dropped: loss "
+            f"{loss_c:.6f}, gradients {rel_c:.3e})")
+        check(rel(loss_k, loss_p) < SMALL_STEP_LOSS_REL and grads_k.keys() == grads_p.keys()
+              and rel_g < SMALL_STEP_GRAD_REL_L2 < rel_c,
+              f"small train step: loss {loss_k} vs {loss_p}, gradients {rel_g} (control {rel_c})")
+        check(used == [k.name for k in (fa.K1, fa.K2, ta.K3, gn.K5, ln.K6)],
+              f"small train step: kernels {used}")
+        del state, grads_k, grads_p, grads_c, batch, draws
+        torch.cuda.empty_cache()
+
+        # one stage-1 step at 768^2 (both UNets train; batch cut from 8 to 1)
+        reset_counts()
+        t0 = time.perf_counter()
+        state1, records1, phases1, peaks1 = run_training(
+            "stage1", 2, os.path.join(train_dir, "stage1"), dev, data={"train_bs": 1})
+        wall = time.perf_counter() - t0
+        launches_s1 = read_counts("stage-1 steps", [fa.K1, fa.K2, fa.K4, gn.K5, ln.K6],
+                                  absent=[ta.K3, fa.K9, ta.K13])
+        check(all(math.isfinite(r["train_loss"]) and math.isfinite(r["grad_norm"])
+                  for r in records1)
+              and len(state1.trainable) == len(list(state1.guide.parameters()))
+              + len(list(state1.den.parameters())), f"stage-1 steps: {records1}")
+        log(f"stage-1 steps: 768x768, batch 1, bf16, 2 optimizer steps in {wall:.1f} s | "
+            f"{training_text(phases1, peaks1)} | losses {[r['train_loss'] for r in records1]} | "
+            f"launches {launches_s1}")
+        del state1
+        torch.cuda.empty_cache()
+
+        # 14. request G: the mega-block probe against the block's read path
+        block, ins, w = mega_inputs(dev, MEGA_LEVELS[0], seed=6)
+        read_path = block_read_path(block, *ins)
+        reset_counts()
+        out_g = mb.mega_block(*ins, w)
+        torch.cuda.synchronize()
+        launches_g = {k.name: k.launches for k in kernels}
+        check(launches_g[mb.K14.name] == 1 and sum(launches_g.values()) == 1,
+              f"request G: one launch of K14 and nothing else, got {launches_g}")
+        want_g = read_path()
+        zero = torch.zeros_like(ins[1])
+        rel_g = rel_l2(out_g, want_g)
+        rel_g_ctl = rel_l2(mb.mega_block(ins[0], zero, zero, ins[3], ins[4], w), want_g)
+        check(out_g.shape == ins[0].shape and bool(torch.isfinite(out_g.float()).all()),
+              "request G: finite output of the input's shape")
+        ms_g, ms_read = cuda_ms(lambda: mb.mega_block(*ins, w), 5), cuda_ms(read_path, 5)
+        log(f"request G: mega-block probe x{MEGA_LEVELS[0]} in one launch {ms_g:.3f} ms; the "
+            f"port's TransformerBlock read path on the same weights {ms_read:.3f} ms; relative L2 "
+            f"between them {rel_g:.3e} (limit {G_REL_L2}: tanh for erf GELU, an fp32 for a bf16 residual "
+            f"stream; control without the bank K/V {rel_g_ctl:.3e})")
+        check(rel_g < G_REL_L2 < rel_g_ctl, f"request G: {rel_g:.3e} and the control "
+                                            f"{rel_g_ctl:.3e} on either side of {G_REL_L2}")
+        del block, ins, w, out_g, want_g, zero
+
+        return launches_f, launches_f_default, launches_s1, launches_g
+
     if args.budgets:
         phase_budgets(build_bundle(0, dev), dev)
+        return 0
+    if args.profile and args.train:  # the train step's profile alone
+        profile_train_step(dev)
         return 0
     if args.profile:
         _, pipe, _, pipe_b = headline_pipes()
         phase_profile(pipe, lambda steps: run_request_b(pipe_b, 5, steps))
+        del pipe, pipe_b
+        torch.cuda.empty_cache()
+        profile_train_step(dev)
         return 0
 
+    if args.train:
+        training_phases()
+        return 0
     if args.kernels:
         log((lib.with_suffix(".log")).read_text())
         phase_kernels(dev, tuple(args.kernels.split(",")))
@@ -1199,9 +1690,15 @@ def main() -> int:
     log(f"check, row-major: 4x256x256, 1 step, kernels {used} vs plain versions: relative L2 "
         f"of the latents {rel:.3e} (limit {SMALL_REL_L2})")
     # 256^2: 1024 tokens at level 0 stay under the resident limit (K10, not K11)
-    small_row_major = [k.name for k in kernels if k not in (fa.K1, fa.K4, fa.K11, ta.K13)]
+    small_row_major = [k.name for k in kernels
+                       if k not in (fa.K1, fa.K4, fa.K11, ta.K13) + off_the_sampler]
     check(rel < SMALL_REL_L2 and used == small_row_major,
           f"small row-major request: rel {rel}, kernels {used}")
+
+    # 13-14. requests F and G
+    del bundle, pipe, bundle_b, pipe_b, small_pipe, d_pipe, q8_pipe, lat_k, lat_p, lat_warm
+    torch.cuda.empty_cache()
+    launches_f, launches_f_default, launches_s1, launches_g = training_phases()
 
     for rec in record.values():
         # launches: from the main path that runs the kernel, request B at
@@ -1217,6 +1714,14 @@ def main() -> int:
         rec["launches"] = (launches_d if on_d else launches_b)[rec["name"]]
         if rec["name"] in [k.name for k in row_major_only]:
             rec["launches"] = launches_e[rec["name"]]
+        rec["launches_request_f"] = launches_f[rec["name"]]
+        rec["launches_request_f_default"] = launches_f_default[rec["name"]]
+        rec["launches_stage1_steps"] = launches_s1[rec["name"]]
+        rec["launches_request_g"] = launches_g[rec["name"]]
+        if rec["name"] == fa.K12.name:
+            rec["launches"] = launches_f[rec["name"]]
+        if rec["name"] == mb.K14.name:
+            rec["launches"] = launches_g[rec["name"]]
         rec["launches_request_a"] = launches_a[rec["name"]]
         rec["launches_image_request"] = launches_i[rec["name"]]
     kern_line = {"kernels": list(record.values())}

@@ -655,3 +655,70 @@ def clip_vision_state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
         i += 1
     _emit(tree, _dense_rules("visual_projection", ("visual_projection",), bias=False), "", (), out)
     return out
+
+
+# --------------------------------------------------------------------------
+# training: both UNets at once, and the trainable mask in either naming
+# --------------------------------------------------------------------------
+
+def train_params_to_jax(guide_sd: Mapping, den_sd: Mapping, num_blocks: int = 4,
+                        layers_per_block: int = 2) -> Dict[str, Dict]:
+    """The two port modules' ``state_dict``s -> the JAX ``TrainState.params``
+    layout ``{"guide": tree, "den": tree}`` (numpy fp32 leaves)."""
+    return {
+        "guide": convert_unet(guide_sd, num_blocks, layers_per_block, with_man=True,
+                              with_conv_out=False),
+        "den": convert_unet(den_sd, num_blocks, layers_per_block, with_motion=True),
+    }
+
+
+def train_params_from_jax(params: Mapping, num_blocks: int = 4,
+                          layers_per_block: int = 2) -> Dict[str, Dict[str, np.ndarray]]:
+    """``{"guide": tree, "den": tree}`` -> ``{"guide": state_dict, "den":
+    state_dict}``; also maps a tree of gradients onto the port's names (the
+    transforms are permutations)."""
+    return {net: unet_state_dict_from_jax(params[net], num_blocks, layers_per_block)
+            for net in ("guide", "den")}
+
+
+def unet_key_paths(state_dict: Mapping, num_blocks: int = 4,
+                   layers_per_block: int = 2) -> Dict[str, Tuple[str, ...]]:
+    """{state_dict key: path of its leaf in the JAX tree}, found by sending
+    every tensor through ``convert_unet`` filled with its own index."""
+    keys = list(state_dict)
+    marked = {k: np.full(tuple(state_dict[k].shape), i, np.float32) for i, k in enumerate(keys)}
+    tree = convert_unet(marked, num_blocks, layers_per_block, with_motion=True, with_man=True)
+    out: Dict[str, Tuple[str, ...]] = {}
+
+    def walk(node, path):
+        if isinstance(node, Mapping):
+            for k, v in node.items():
+                walk(v, path + (k,))
+        else:
+            out[keys[int(np.asarray(node).flat[0])]] = path
+
+    walk(tree, ())
+    return out
+
+
+def trainable_mask_to_jax(mask: Mapping[str, bool], guide_sd: Mapping, den_sd: Mapping,
+                          num_blocks: int = 4, layers_per_block: int = 2) -> Dict[str, Dict]:
+    """The port's ``{"guide.<key>" / "den.<key>": bool}`` -> the JAX mask tree
+    ``{"guide": ..., "den": ...}`` over the same tensors."""
+    out: Dict[str, Dict] = {}
+    for net, sd in (("guide", guide_sd), ("den", den_sd)):
+        tree: Dict[str, Any] = {}
+        for key, path in unet_key_paths(sd, num_blocks, layers_per_block).items():
+            _set(tree, path, bool(mask[f"{net}.{key}"]))
+        out[net] = tree
+    return out
+
+
+def trainable_mask_from_jax(mask: Mapping, guide_sd: Mapping, den_sd: Mapping,
+                            num_blocks: int = 4, layers_per_block: int = 2) -> Dict[str, bool]:
+    """The JAX mask tree -> the port's flat ``{name: bool}``."""
+    out: Dict[str, bool] = {}
+    for net, sd in (("guide", guide_sd), ("den", den_sd)):
+        for key, path in unet_key_paths(sd, num_blocks, layers_per_block).items():
+            out[f"{net}.{key}"] = bool(_get(mask[net], path))
+    return out

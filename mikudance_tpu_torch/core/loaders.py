@@ -87,10 +87,13 @@ def _finish(module: nn.Module, sd: Optional[Mapping[str, torch.Tensor]], dtype) 
 def load_guidance(reference_unet_path: Optional[str], use_man: bool = True,
                   dtype=torch.float32, device=None,
                   generator: Optional[torch.Generator] = None,
-                  unet_config: Optional[UNetConfig] = None) -> GuidanceUNet:
-    """GuidanceUNet from the released reference_unet file, or random init."""
+                  unet_config: Optional[UNetConfig] = None,
+                  remat: bool = False) -> GuidanceUNet:
+    """GuidanceUNet from the released reference_unet file, or random init.
+    ``remat``: per-block rematerialisation for training (the reference's
+    ``enable_gradient_checkpointing``)."""
     cfg = GuidanceUNetConfig(use_man=use_man, unet=unet_config or UNetConfig())
-    model = _build(lambda: GuidanceUNet(cfg), 0, generator, device)
+    model = _build(lambda: GuidanceUNet(cfg, remat=remat), 0, generator, device)
     have = reference_unet_path and os.path.exists(reference_unet_path)
     return _finish(model, load_torch_state_dict(reference_unet_path) if have else None, dtype)
 
@@ -100,16 +103,17 @@ def load_denoising(denoising_unet_path: Optional[str], motion_module_path: Optio
                    dtype=torch.float32, device=None,
                    generator: Optional[torch.Generator] = None,
                    unet_config: Optional[UNetConfig] = None,
-                   motion_config: Optional[MotionModuleConfig] = None) -> DenoisingUNet:
+                   motion_config: Optional[MotionModuleConfig] = None,
+                   remat: bool = False) -> DenoisingUNet:
     """DenoisingUNet from SD UNet -> motion module -> denoising UNet files
     merged in that order (later files override), or random init where the
     denoising file is absent. ``motion_config``: the reference's
     ``unet_additional_kwargs.motion_module_kwargs``; the defaults are the
-    released checkpoints'."""
+    released checkpoints'. ``remat``: per-block rematerialisation for training."""
     u = unet_config or UNetConfig()
     cfg = DenoisingUNetConfig(unet=u, motion=motion_config or MotionModuleConfig(
         enabled=use_motion, num_attention_heads=u.attention_heads))
-    model = _build(lambda: DenoisingUNet(cfg), 1, generator, device)
+    model = _build(lambda: DenoisingUNet(cfg, remat=remat), 1, generator, device)
     sd = None
     if denoising_unet_path and os.path.exists(denoising_unet_path):
         sd = {}

@@ -5,7 +5,9 @@ reference (``configs/inference/mikudance_config.yaml:24-33``: linear betas
 0.00085..0.012, ``rescale_betas_zero_snr``, ``timestep_spacing "trailing"``,
 ``prediction_type "v_prediction"``, ``clip_sample false``). The schedule math
 is copied from ``mikudance_tpu/diffusion/ddim.py:26-68`` and stays numpy; the
-per-step update runs in torch fp32 on the latents' device.
+per-step update runs in torch fp32 on the latents' device, and so does the
+training half (``add_noise``, ``get_velocity``, ``snr``,
+``min_snr_loss_weight``).
 """
 
 from __future__ import annotations
@@ -146,6 +148,31 @@ class DDIMSchedule:
         prev = torch.sqrt(a_prev) * pred_x0 + torch.sqrt(1.0 - a_prev) * pred_eps
         return prev.to(sample.dtype)
 
+    # ------------------------------------------------------------- training
+    def _gather(self, t: torch.Tensor) -> torch.Tensor:
+        """alpha_bar at integer timesteps ``t`` (B,), fp32 on t's device."""
+        table = torch.from_numpy(self.alphas_cumprod).to(t.device)
+        return table[t.long()]
+
+    def _signal_and_noise(self, x0: torch.Tensor, t: torch.Tensor):
+        a = self._gather(t).reshape((-1,) + (1,) * (x0.ndim - 1))
+        return torch.sqrt(a), torch.sqrt(1.0 - a)
+
+    def add_noise(self, x0: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        sa, sb = self._signal_and_noise(x0, t)
+        return (sa * x0.float() + sb * noise.float()).to(x0.dtype)
+
+    def get_velocity(self, x0: torch.Tensor, noise: torch.Tensor,
+                     t: torch.Tensor) -> torch.Tensor:
+        sa, sb = self._signal_and_noise(x0, t)
+        return (sa * noise.float() - sb * x0.float()).to(x0.dtype)
+
+    def snr(self, t: torch.Tensor) -> torch.Tensor:
+        """SNR(t) = alpha_bar / (1 - alpha_bar); 0 at the last timestep of a
+        zero-terminal-SNR schedule."""
+        a = self._gather(t)
+        return a / (1.0 - a)
+
 
 def inference_step_pairs(
     schedule: DDIMSchedule, num_inference_steps: int, spacing: str = "trailing"
@@ -154,3 +181,15 @@ def inference_step_pairs(
     ts = schedule.timesteps(num_inference_steps, spacing)
     prev = ts - schedule.num_train_timesteps // num_inference_steps
     return ts.astype(np.int32), prev.astype(np.int32)
+
+
+def min_snr_loss_weight(schedule: DDIMSchedule, t: torch.Tensor, gamma: float,
+                        prediction_type: PredictionType) -> torch.Tensor:
+    """Min-SNR-gamma per-sample loss weights (Hang et al.): ``min(snr, gamma) /
+    snr`` for epsilon prediction, ``min(snr, gamma) / (snr + 1)`` for
+    v-prediction."""
+    snr = schedule.snr(t)
+    capped = torch.clamp(snr, max=gamma)
+    if prediction_type == "v_prediction":
+        return capped / (snr + 1.0)
+    return capped / torch.clamp(snr, min=1e-8)

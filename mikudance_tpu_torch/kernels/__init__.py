@@ -4,6 +4,19 @@ import contextlib
 
 
 @contextlib.contextmanager
+def _switched(switches):
+    """Set (module, name, value) switches for a ``with`` block and restore
+    them on the way out, also after an exception."""
+    saved = [getattr(mod, name) for mod, name, _ in switches]
+    for mod, name, value in switches:
+        setattr(mod, name, value)
+    try:
+        yield
+    finally:
+        for (mod, name, _), value in zip(switches, saved):
+            setattr(mod, name, value)
+
+
 def row_major():
     """The JAX package's whole-loop row-major configuration of the sampler
     for a ``with`` block: ``models.layers.PALLAS_CHAIN`` and
@@ -16,14 +29,18 @@ def row_major():
     from . import conv2d, flash_attention
     from ..models import layers
 
-    switches = ((layers, "PALLAS_CHAIN", True), (conv2d, "PREFER_PALLAS", True),
-                (flash_attention, "TRANSPOSED_FULLC", False),
-                (flash_attention, "NEUTRAL_FULLC", False))
-    saved = [getattr(mod, name) for mod, name, _ in switches]
-    for mod, name, value in switches:
-        setattr(mod, name, value)
-    try:
-        yield
-    finally:
-        for (mod, name, _), value in zip(switches, saved):
-            setattr(mod, name, value)
+    return _switched(((layers, "PALLAS_CHAIN", True), (conv2d, "PREFER_PALLAS", True),
+                      (flash_attention, "TRANSPOSED_FULLC", False),
+                      (flash_attention, "NEUTRAL_FULLC", False)))
+
+
+def transposed():
+    """The JAX package's transposed configuration for a ``with`` block:
+    ``kernels.flash_attention.TRANSPOSED_FULLC`` on and ``NEUTRAL_FULLC`` off.
+    Packed-heads self-attention goes through K12 where a batch element's K and
+    V pass the resident limit, through K10 under it; K1 is not used. Both
+    switches are restored on the way out."""
+    from . import flash_attention
+
+    return _switched(((flash_attention, "TRANSPOSED_FULLC", True),
+                      (flash_attention, "NEUTRAL_FULLC", False)))

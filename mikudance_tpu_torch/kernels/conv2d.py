@@ -19,8 +19,11 @@ not in the ``state_dict``), made at the first call and again whenever the
 weight is replaced, written to in place, cast or moved.
 
 Dispatch is by the tensor's device alone: a CPU tensor goes to the plain
-version; a CUDA tensor launches the kernel or raises. The kernel takes bf16
-contiguous NHWC ``x`` with ``Cin`` a multiple of 8, 16-byte aligned, a bf16
+version; a CUDA tensor launches the kernel or raises. The wrapper is
+differentiable: the backward is the vector-Jacobian product of the plain
+version, as in the JAX package (``conv2d.py:146``), so the gradient lands on
+the OIHW ``weight`` it was given and never on the packed copy. The kernel
+takes bf16 contiguous NHWC ``x`` with ``Cin`` a multiple of 8, 16-byte aligned, a bf16
 weight and a bf16 or fp32 bias (or none).
 """
 
@@ -32,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ._autograd import differentiable, plain_vjp
 from ._build import CudaKernel
 
 K8 = CudaKernel(
@@ -111,6 +115,11 @@ def conv3x3_fused(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Te
     """K8 on CUDA tensors, the plain version on CPU tensors. x (N, H, W, Cin)
     NHWC; weight (Cout, Cin, 3, 3); ``packed`` is ``pack_weight(weight)`` where
     the caller keeps it (``packed_weight``), else it is made here."""
+    return differentiable(lambda a, w, b: _conv3x3_fused(a, w, b, packed),
+                          plain_vjp(conv3x3_plain), x, weight, bias)
+
+
+def _conv3x3_fused(x, weight, bias, packed) -> torch.Tensor:
     if x.device.type == "cpu":
         return conv3x3_plain(x, weight, bias)
     if x.device.type != "cuda":

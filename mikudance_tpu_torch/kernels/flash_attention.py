@@ -14,6 +14,11 @@ and K11 in ``csrc/flash_anchor.cu``), each beside its plain PyTorch version:
   at width 512: every picture under 512^2), replacing
   ``_flash_kernel_resident``.
 
+- K12 ``flash_attention_fullc_t`` (``csrc/flash_fullc_t.cu``): packed-heads
+  self-attention with the anchor rounded to bf16 and folded into the Q K^T
+  product and both products transposed, replacing ``_flash_kernel_fullc_t``:
+  K1's place above the resident limit while only ``NEUTRAL_FULLC`` is off (the
+  transposed configuration: the 5184-token level of 576^2 training).
 - K10 / K11 ``flash_attention_fullc_anchored``: packed-heads self-attention
   with the self-score anchor and the +-100 clamp in place of the running
   maximum, replacing ``_flash_kernel_fullc_resident`` (K10, a batch element's
@@ -26,7 +31,13 @@ The plain version of K1, K2, K4 and K9 is ``dot_product_attention`` (the JAX
 package's ``models/layers.py:60`` math: fp32 scores and softmax, weights cast
 to v's dtype), processed in chunks of the batch x head dimension so the
 score tensor stays bounded; that of K10 and K11 is ``anchored_attention``,
-which is the same function only while the clamp does not bite.
+which is the same function only while the clamp does not bite; that of K12
+is ``anchored_attention`` with the anchor rounded to bf16 before it is
+subtracted.
+
+Every wrapper is differentiable (``_autograd.differentiable``): the backward
+of all of them is the chunked dense recompute of the exact softmax
+(``_autograd.flash_backward``), as the JAX package's ``_flash_bwd``.
 
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises. ``attention`` routes
@@ -36,10 +47,12 @@ with ``flash_attention_padded``'s choice between its two kernels, :690).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
+from ._autograd import differentiable, flash_vjp
 from ._build import CudaKernel
 from .temporal_attention import MAX_FRAMES, small_sequence_attention, temporal_attention
 
@@ -55,12 +68,14 @@ K10 = CudaKernel("K10 flash_anchor_resident", "md_flash_anchor_resident", _SRC_A
                  f"{_TPU}:158")
 K11 = CudaKernel("K11 flash_anchor_stream", "md_flash_anchor_stream", _SRC_ANCHOR,
                  f"{_TPU}:209")
+K12 = CudaKernel("K12 flash_attention_fullc_t", "md_flash_fullc_t",
+                 "mikudance_tpu_torch/csrc/flash_fullc_t.cu", f"{_TPU}:357")
 
 # The JAX package's routing switches for packed heads (head widths that are
 # no multiple of 128), with its defaults (``flash_attention.py:592,595``);
 # read at call time. Both on: K1. Both off: K10 / K11 (the row-major
-# configuration). Only TRANSPOSED_FULLC on: the HBM-transposed kernel above
-# the resident limit, which is not ported yet.
+# configuration). Only TRANSPOSED_FULLC on (the transposed configuration): K12
+# above the resident limit, K10 under it.
 TRANSPOSED_FULLC = True
 NEUTRAL_FULLC = True
 # A batch element's bf16 K and V with all heads packed, lane-padded as on the
@@ -106,9 +121,10 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, heads, Sq, hd).transpose(1, 2).reshape(B, Sq, C)
 
 
-def _anchored_chunks(q, k, heads: int):
+def _anchored_chunks(q, k, heads: int, round_anchor: bool = False):
     """Per chunk of batch x heads: (slice, log2-domain scores from the bf16
-    rounded scaled q and bf16 k, the row anchors), all fp32."""
+    rounded scaled q and bf16 k, the row anchors), all fp32; the anchors
+    rounded to bf16 where asked."""
     B, S, C = q.shape
     hd = C // heads
 
@@ -120,28 +136,41 @@ def _anchored_chunks(q, k, heads: int):
     for i in range(0, B * heads, n):
         qf = qh[i:i + n] * (LOG2E / math.sqrt(hd))
         off = (qf * qh[i:i + n]).sum(dim=-1, keepdim=True)
+        if round_anchor:
+            off = off.to(torch.bfloat16).float()
         s = torch.matmul(qf.to(torch.bfloat16).float(), kh[i:i + n].transpose(1, 2))
         yield slice(i, i + n), s, off
 
 
 def anchored_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       heads: int) -> torch.Tensor:
+                       heads: int, round_anchor: bool = False) -> torch.Tensor:
     """The plain version of K10 and K11: what the JAX package's
     ``_flash_kernel_fullc_resident`` / ``_flash_kernel_fullc_stream`` compute
     on (B, S, C) tensors. Per head, ``q' = q * log2(e) / sqrt(hd)`` in fp32,
     the row anchor ``off = sum(q' * q)``, scores from bf16(q') and bf16 k,
     ``p = bf16(exp2(clip(s - off, -100, 100)))`` and ``(p @ v) / sum(p)`` with
     both sums in fp32 over the rounded p. Equal to the softmax while no score
-    leaves the clamp; not beyond."""
+    leaves the clamp; not beyond. ``round_anchor`` rounds ``off`` to bf16 before
+    the subtraction, which is K12's function (``anchored_attention_t``)."""
     B, S, C = q.shape
     hd = C // heads
     vh = v.reshape(B, v.shape[1], heads, hd).transpose(1, 2).reshape(B * heads, -1, hd)
     vh = vh.to(torch.bfloat16).float()
     out = torch.empty(B * heads, S, hd, dtype=q.dtype, device=q.device)
-    for sl, s, off in _anchored_chunks(q, k, heads):
+    for sl, s, off in _anchored_chunks(q, k, heads, round_anchor):
         p = torch.exp2((s - off).clamp_(-EXP_CLAMP, EXP_CLAMP)).to(torch.bfloat16).float()
         out[sl] = (torch.matmul(p, vh[sl]) / p.sum(dim=-1, keepdim=True)).to(q.dtype)
     return out.reshape(B, heads, S, hd).transpose(1, 2).reshape(B, S, C)
+
+
+def anchored_attention_t(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         heads: int) -> torch.Tensor:
+    """The plain version of K12: what the JAX package's ``_flash_kernel_fullc_t``
+    computes. ``anchored_attention`` with the anchor rounded to bf16, as it is
+    when it rides the Q K^T product as one more bf16 column. The rounding is a
+    factor on a whole row of p that cancels in ``acc / l`` until the clamp
+    bites; from there K12 and K10 / K11 clip different scores."""
+    return anchored_attention(q, k, v, heads, round_anchor=True)
 
 
 def anchor_excursion(q: torch.Tensor, k: torch.Tensor, heads: int) -> float:
@@ -199,6 +228,17 @@ def _launch(kernel: CudaKernel, q, k, v, *dims) -> torch.Tensor:
     return o
 
 
+def _differentiable(fn):
+    """``fn(q, k, v, heads)`` with the flash backward (``_autograd``)."""
+
+    @functools.wraps(fn)
+    def wrapper(q, k, v, heads: int) -> torch.Tensor:
+        return differentiable(lambda a, b, c: fn(a, b, c, heads), flash_vjp(heads), q, k, v)
+
+    return wrapper
+
+
+@_differentiable
 def flash_attention_fullc(q, k, v, heads: int) -> torch.Tensor:
     """K1: packed-heads self-attention, q/k/v (B, S, C)."""
     if q.device.type == "cpu":
@@ -216,6 +256,7 @@ def _check_anchored(name: str, q, k, v, heads: int) -> int:
     return hd
 
 
+@_differentiable
 def flash_anchor_resident(q, k, v, heads: int) -> torch.Tensor:
     """K10: anchored packed-heads self-attention, K/V fragments from L2."""
     if q.device.type == "cpu":
@@ -228,6 +269,7 @@ def flash_anchor_resident(q, k, v, heads: int) -> torch.Tensor:
     return _launch(K10, q, k, v, q.shape[0], q.shape[1], heads, hd)
 
 
+@_differentiable
 def flash_anchor_stream(q, k, v, heads: int) -> torch.Tensor:
     """K11: anchored packed-heads self-attention, key tiles staged through
     shared memory."""
@@ -237,6 +279,7 @@ def flash_anchor_stream(q, k, v, heads: int) -> torch.Tensor:
     return _launch(K11, q, k, v, q.shape[0], q.shape[1], heads, hd)
 
 
+@_differentiable
 def flash_attention_fullc_anchored(q, k, v, heads: int) -> torch.Tensor:
     """K10 / K11: the counterpart of the JAX package's ``flash_attention_fullc``
     (``flash_attention.py:278``; the port's ``flash_attention_fullc`` is K1, the
@@ -250,6 +293,17 @@ def flash_attention_fullc_anchored(q, k, v, heads: int) -> torch.Tensor:
     return flash_anchor_stream(q, k, v, heads)
 
 
+@_differentiable
+def flash_attention_fullc_t(q, k, v, heads: int) -> torch.Tensor:
+    """K12: the counterpart of the JAX package's ``flash_attention_fullc_t``
+    (``flash_attention.py:436``), q/k/v (B, S, C) in and out; any S."""
+    if q.device.type == "cpu":
+        return anchored_attention_t(q, k, v, heads)
+    hd = _check_anchored("flash_attention_fullc_t", q, k, v, heads)
+    return _launch(K12, q, k, v, q.shape[0], q.shape[1], heads, hd)
+
+
+@_differentiable
 def cross_attention(q, k, v, heads: int) -> torch.Tensor:
     """K2: q (B, S, C) against a short k/v (B, S_kv, C)."""
     if q.device.type == "cpu":
@@ -258,6 +312,7 @@ def cross_attention(q, k, v, heads: int) -> torch.Tensor:
     return _launch(K2, q, k, v, q.shape[0], q.shape[1], k.shape[1], heads, hd)
 
 
+@_differentiable
 def flash_attention_wide(q, k, v, heads: int) -> torch.Tensor:
     """K4: self-attention with one head of width 512 per (B, S, C) row."""
     if q.device.type == "cpu":
@@ -273,6 +328,7 @@ def resident_kv(S_kv: int, hd: int) -> bool:
     return 2 * S_kv * hd * 2 <= RESIDENT_KV_BYTES
 
 
+@_differentiable
 def flash_attention_resident(q, k, v, heads: int) -> torch.Tensor:
     """K9: self-attention with heads of width 512 over S <= 3072 tokens."""
     if q.device.type == "cpu":
@@ -295,8 +351,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> 
     - S_q = S_kv >= 1024, head width not a multiple of 128 -> K1 while
       ``TRANSPOSED_FULLC`` and ``NEUTRAL_FULLC`` are on (the default); K10 or
       K11 by ``fullc_resident`` while both are off; with only
-      ``TRANSPOSED_FULLC`` on, K10 under the resident limit and above it the
-      HBM-transposed kernel, which is not ported (``NotImplementedError``);
+      ``TRANSPOSED_FULLC`` on, K10 under the resident limit and K12 above it;
     - S_q = S_kv >= 1024, head width a multiple of 128 -> K9 while one
       head's K and V fit ``RESIDENT_KV_BYTES``, else K4;
     - S_q >= 1024 against S_kv <= 512 keys -> K2;
@@ -314,10 +369,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> 
             if NEUTRAL_FULLC and TRANSPOSED_FULLC:
                 return flash_attention_fullc(q, k, v, heads)
             if TRANSPOSED_FULLC and not fullc_resident(S_kv, q.shape[-1], heads):
-                raise NotImplementedError(
-                    "TRANSPOSED_FULLC without NEUTRAL_FULLC routes K/V above the resident "
-                    "limit to the HBM-transposed kernel (_flash_kernel_fullc_t), which is "
-                    "not ported yet: ROADMAP.md Queue 2 item 12")
+                return flash_attention_fullc_t(q, k, v, heads)
             return flash_attention_fullc_anchored(q, k, v, heads)
         if resident_kv(S_kv, hd):
             return flash_attention_resident(q, k, v, heads)

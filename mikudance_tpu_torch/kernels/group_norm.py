@@ -6,7 +6,9 @@ and the glue between them. ``group_norm_plain`` is its plain PyTorch version,
 the two-pass math of the JAX package's ``group_norm_ref`` (:33).
 
 Dispatch is by the tensor's device alone: a CPU tensor goes to the plain
-version; a CUDA tensor launches the kernel or raises.
+version; a CUDA tensor launches the kernel or raises. The wrapper is
+differentiable: the backward is the vector-Jacobian product of the plain
+version, as in the JAX package (``group_norm.py:161``).
 
 The kernel takes x of shape (N, ..., C), contiguous, bf16 or fp32, starting
 on a 16-byte boundary, with C a multiple of the 16-byte vector (8 bf16 or 4
@@ -20,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ._autograd import differentiable, plain_vjp
 from ._build import CudaKernel
 
 K5 = CudaKernel(
@@ -94,6 +97,13 @@ def _check_operands(x, weight, bias, groups: int) -> int:
 def fused_group_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                      groups: int, eps: float, silu: bool = False) -> torch.Tensor:
     """K5 on CUDA tensors, the plain version on CPU tensors."""
+    return differentiable(
+        lambda a, w, b: _fused_group_norm(a, w, b, groups, eps, silu),
+        plain_vjp(lambda a, w, b: group_norm_plain(a, w, b, groups, eps, silu)),
+        x, weight, bias)
+
+
+def _fused_group_norm(x, weight, bias, groups: int, eps: float, silu: bool) -> torch.Tensor:
     if x.device.type == "cpu":
         return group_norm_plain(x, weight, bias, groups, eps, silu)
     if x.device.type != "cuda":

@@ -8,7 +8,9 @@ kernel takes the mean first and the centred variance from the row it holds in
 registers, as ``_ln_kernel`` does; the two differ by fp32 rounding only.
 
 Dispatch is by the tensor's device alone: a CPU tensor goes to the plain
-version; a CUDA tensor launches the kernel or raises.
+version; a CUDA tensor launches the kernel or raises. The wrapper is
+differentiable: the backward is the vector-Jacobian product of the plain
+version, as in the JAX package (``layer_norm.py:113``).
 
 The kernel takes x of any leading shape (..., C), contiguous, bf16 or fp32,
 with an even C <= 1280, starting on a boundary of one pair (4 bytes of bf16,
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from ._autograd import differentiable, plain_vjp
 from ._build import CudaKernel
 
 K6 = CudaKernel(
@@ -66,6 +69,12 @@ def _check_operands(x, weight, bias) -> None:
 def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                      eps: float = 1e-5) -> torch.Tensor:
     """K6 on CUDA tensors, the plain version on CPU tensors."""
+    return differentiable(lambda a, w, b: _fused_layer_norm(a, w, b, eps),
+                          plain_vjp(lambda a, w, b: layer_norm_plain(a, w, b, eps)),
+                          x, weight, bias)
+
+
+def _fused_layer_norm(x, weight, bias, eps: float) -> torch.Tensor:
     if x.device.type == "cpu":
         return layer_norm_plain(x, weight, bias, eps)
     if x.device.type != "cuda":

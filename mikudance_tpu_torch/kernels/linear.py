@@ -11,7 +11,10 @@ is the transformer block's row-major chain (``models/layers.py``).
 kernel reads in place as its column-major right operand.
 
 Dispatch is by the tensor's device alone: a CPU tensor goes to the plain
-version; a CUDA tensor launches the kernel or raises. The kernel takes bf16
+version; a CUDA tensor launches the kernel or raises. The wrapper is
+differentiable: the backward is the vector-Jacobian product of the plain
+version, as in the JAX package (``linear.py:131``), with no gradient for an
+absent bias or residual. The kernel takes bf16
 ``x`` of any leading shape ``(..., Cin)``, contiguous and 16-byte aligned,
 ``Cin`` and ``Cout`` multiples of 8, a bf16 weight, a bf16 or fp32 bias (or
 none) and a bf16 residual of the output's shape (or none).
@@ -23,6 +26,7 @@ from typing import Optional
 
 import torch
 
+from ._autograd import differentiable, plain_vjp
 from ._build import CudaKernel
 
 K7 = CudaKernel(
@@ -73,6 +77,10 @@ def fused_linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                  residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K7 on CUDA tensors, the plain version on CPU tensors.
     x: (..., Cin); w: (Cout, Cin); b: (Cout,) or None; residual: (..., Cout)."""
+    return differentiable(_fused_linear, plain_vjp(linear_plain), x, w, b, residual)
+
+
+def _fused_linear(x, w, b, residual) -> torch.Tensor:
     if x.device.type == "cpu":
         return linear_plain(x, w, b, residual)
     if x.device.type != "cuda":

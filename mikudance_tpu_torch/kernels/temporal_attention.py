@@ -13,7 +13,9 @@ shrunk that far. ``small_sequence_attention_plain`` is its plain version,
 the same math as ``temporal_attention_plain`` with one position a sequence.
 
 Dispatch is by the tensor's device alone: a CPU tensor goes to the plain
-version; a CUDA tensor launches the kernel or raises.
+version; a CUDA tensor launches the kernel or raises. Both wrappers are
+differentiable: the backward is the vector-Jacobian product of the plain
+version, as in the JAX package (``temporal_attention.py:239, 252``).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import math
 
 import torch
 
+from ._autograd import differentiable, plain_vjp
 from ._build import CudaKernel
 
 K3 = CudaKernel(
@@ -68,6 +71,12 @@ def temporal_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        heads: int) -> torch.Tensor:
     """K3 on CUDA tensors, the plain version on CPU tensors."""
+    return differentiable(
+        lambda a, b, c: _temporal_attention(a, b, c, heads),
+        plain_vjp(lambda a, b, c: temporal_attention_plain(a, b, c, heads)), q, k, v)
+
+
+def _temporal_attention(q, k, v, heads: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return temporal_attention_plain(q, k, v, heads)
     if q.device.type != "cuda":
@@ -105,6 +114,12 @@ def small_sequence_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Te
 def small_sequence_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              heads: int) -> torch.Tensor:
     """K13 on CUDA tensors, the plain version on CPU tensors."""
+    return differentiable(
+        lambda a, b, c: _small_sequence_attention(a, b, c, heads),
+        plain_vjp(lambda a, b, c: small_sequence_attention_plain(a, b, c, heads)), q, k, v)
+
+
+def _small_sequence_attention(q, k, v, heads: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return small_sequence_attention_plain(q, k, v, heads)
     if q.device.type != "cuda":

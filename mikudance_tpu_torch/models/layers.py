@@ -25,6 +25,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import attention as run_attention
 from ..kernels.group_norm import fused_group_norm
@@ -38,6 +39,16 @@ KV = Tuple[torch.Tensor, torch.Tensor]
 # package's switch of the same name (``models/layers.py:182``), off by
 # default, read at call time.
 PALLAS_CHAIN = False
+
+
+def remat_call(enabled: bool, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``; with ``enabled`` and gradients on, under
+    ``torch.utils.checkpoint`` (non-reentrant): the call's activations are
+    dropped after the forward and recomputed in the backward (the JAX
+    package's ``nn.remat``)."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    return fn(*args, **kwargs)
 
 
 def get_timestep_embedding(
@@ -179,11 +190,14 @@ class TransformerBlock(nn.Module):
     - neither: plain self-attention (the uncond pass of the streamed tiers).
 
     With ``PALLAS_CHAIN`` set, a read-mode call on 3-D tokens with hoisted
-    context K/V and no raw bank takes ``_chain``.
+    context K/V and no raw bank takes ``_chain``, unless ``remat`` is on.
+    ``remat`` (training) recomputes the 4x-wide GEGLU in the backward, nested
+    inside the per-block rematerialisation of the UNets.
     """
 
-    def __init__(self, dim: int, heads: int, cross_dim: int = 768):
+    def __init__(self, dim: int, heads: int, cross_dim: int = 768, remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.norm1 = LayerNorm(dim)
         self.attn1 = Attention(dim, heads)
         self.norm2 = LayerNorm(dim)
@@ -194,7 +208,8 @@ class TransformerBlock(nn.Module):
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor],
                 write: bool = False, ref_kv: Optional[KV] = None,
                 ctx_kv: Optional[KV] = None, ref: Optional[torch.Tensor] = None):
-        if PALLAS_CHAIN and not write and x.ndim == 3 and ref is None and ctx_kv is not None:
+        if PALLAS_CHAIN and not write and not self.remat and x.ndim == 3 and ref is None \
+                and ctx_kv is not None:
             return self._chain(x, ref_kv, ctx_kv), None
         norm_h = self.norm1(x)
         if ref_kv is None and ref is not None:
@@ -202,9 +217,8 @@ class TransformerBlock(nn.Module):
         else:
             x = x + self.attn1(norm_h, extra_kv=ref_kv)
         x = x + self.attn2(self.norm2(x), context, kv=ctx_kv)
-        x = x + self.ff(self.norm3(x))
+        x = x + remat_call(self.remat, self.ff, self.norm3(x))
         return x, (norm_h if write else None)
-
 
     def _chain(self, x: torch.Tensor, ref_kv: Optional[KV], ctx_kv: KV) -> torch.Tensor:
         """The block interior on flattened (B*S, C) rows, every product through
@@ -256,11 +270,13 @@ class SpatialTransformer(nn.Module):
     ``Transformer2DModel`` with the SD1.5 config (1x1-conv projections, one
     block, ``transformer_blocks.0``)."""
 
-    def __init__(self, dim: int, heads: int, cross_dim: int = 768, norm_groups: int = 32):
+    def __init__(self, dim: int, heads: int, cross_dim: int = 768, norm_groups: int = 32,
+                 remat: bool = False):
         super().__init__()
         self.norm = GroupNorm(norm_groups, dim, 1e-6)
         self.proj_in = nn.Conv2d(dim, dim, 1)
-        self.transformer_blocks = nn.ModuleList([TransformerBlock(dim, heads, cross_dim)])
+        self.transformer_blocks = nn.ModuleList(
+            [TransformerBlock(dim, heads, cross_dim, remat)])
         self.proj_out = nn.Conv2d(dim, dim, 1)
 
     @property

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .layers import Attention, GEGLUFeedForward, GroupNorm, LayerNorm
+from .layers import Attention, GEGLUFeedForward, GroupNorm, LayerNorm, remat_call
 
 
 def temporal_positional_encoding(max_len: int, dim: int) -> np.ndarray:
@@ -53,8 +53,9 @@ class TemporalAttentionLayer(Attention):
 
 class TemporalTransformerBlock(nn.Module):
     def __init__(self, dim: int, heads: int, attention_layers: int, max_len: int,
-                 use_pe: bool):
+                 use_pe: bool, remat: bool = False):
         super().__init__()
+        self.remat = remat  # nested: each attention layer and the feed-forward
         self.attention_blocks = nn.ModuleList(
             [TemporalAttentionLayer(dim, heads, max_len, use_pe)
              for _ in range(attention_layers)])
@@ -64,18 +65,19 @@ class TemporalTransformerBlock(nn.Module):
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         for attn, norm in zip(self.attention_blocks, self.norms):
-            h = h + attn(norm(h))
-        return h + self.ff(self.ff_norm(h))
+            h = h + remat_call(self.remat, attn, norm(h))
+        return h + remat_call(self.remat, self.ff, self.ff_norm(h))
 
 
 class TemporalTransformer(nn.Module):
     def __init__(self, dim: int, heads: int, num_transformer_blocks: int,
-                 attention_layers: int, max_len: int, use_pe: bool, norm_groups: int):
+                 attention_layers: int, max_len: int, use_pe: bool, norm_groups: int,
+                 remat: bool = False):
         super().__init__()
         self.norm = GroupNorm(norm_groups, dim, 1e-6)
         self.proj_in = nn.Linear(dim, dim)
         self.transformer_blocks = nn.ModuleList(
-            [TemporalTransformerBlock(dim, heads, attention_layers, max_len, use_pe)
+            [TemporalTransformerBlock(dim, heads, attention_layers, max_len, use_pe, remat)
              for _ in range(num_transformer_blocks)])
         self.proj_out = nn.Linear(dim, dim)
         nn.init.zeros_(self.proj_out.weight)  # zero_initialize (reference :73-75)
@@ -96,11 +98,11 @@ class MotionModule(nn.Module):
 
     def __init__(self, dim: int, heads: int = 8, num_transformer_blocks: int = 1,
                  attention_layers: int = 2, max_len: int = 32, use_pe: bool = True,
-                 norm_groups: int = 32):
+                 norm_groups: int = 32, remat: bool = False):
         super().__init__()
         self.temporal_transformer = TemporalTransformer(
             dim, heads, num_transformer_blocks, attention_layers, max_len, use_pe,
-            norm_groups)
+            norm_groups, remat)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.temporal_transformer(x)

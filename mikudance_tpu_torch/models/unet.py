@@ -29,7 +29,8 @@ import torch
 from torch import nn
 
 from ..core.configs import DenoisingUNetConfig, GuidanceUNetConfig, UNetConfig
-from .layers import GroupNorm, SpatialTransformer, TimestepEmbed, get_timestep_embedding
+from .layers import (GroupNorm, SpatialTransformer, TimestepEmbed, get_timestep_embedding,
+                     remat_call)
 from .man import MANBlock
 from .motion_module import MotionModule
 from .resnet import Downsample, ResnetBlock, Upsample, conv3x3, conv_nhwc
@@ -64,12 +65,15 @@ class _Block(nn.Module):
 class _UNetBody(nn.Module):
     """The SD1.5 wiring both UNets share: conv_in, time embedding, down /
     mid / up blocks with skips. Optional parts: motion modules (denoiser),
-    MAN blocks (guidance), the output head (denoiser)."""
+    MAN blocks (guidance), the output head (denoiser). ``remat`` (training)
+    recomputes every resnet block, spatial transformer and motion module in
+    the backward instead of keeping its activations."""
 
     def __init__(self, u: UNetConfig, in_channels: int, motion=None,
                  man_hidden: Optional[int] = None, motion_channels: int = 2,
-                 out_head: bool = True):
+                 out_head: bool = True, remat: bool = False):
         super().__init__()
+        self.remat = remat
         ch, n, L = u.block_out_channels, u.num_blocks, u.layers_per_block
         self.u = u
         temb = u.time_embed_dim
@@ -81,10 +85,10 @@ class _UNetBody(nn.Module):
             return MotionModule(dim, motion.num_attention_heads, motion.num_transformer_blocks,
                                 motion.attention_layers_per_block,
                                 motion.temporal_position_encoding_max_len,
-                                motion.temporal_position_encoding, groups)
+                                motion.temporal_position_encoding, groups, remat)
 
         def st(dim):
-            return SpatialTransformer(dim, heads, u.cross_attention_dim, groups)
+            return SpatialTransformer(dim, heads, u.cross_attention_dim, groups, remat)
 
         self.conv_in = conv3x3(in_channels, ch[0])
         self.time_embedding = TimestepEmbed(ch[0], temb)
@@ -169,7 +173,8 @@ class _UNetBody(nn.Module):
 
         def motion(mod, h):
             BT, hh, ww, c = h.shape
-            return mod(h.reshape(BT // frames, frames, hh, ww, c)).reshape(BT, hh, ww, c)
+            h5 = h.reshape(BT // frames, frames, hh, ww, c)
+            return remat_call(self.remat, mod, h5).reshape(BT, hh, ww, c)
 
         def attn(key, h):
             kv = None
@@ -178,8 +183,8 @@ class _UNetBody(nn.Module):
                 kv = (k.repeat_interleave(frames, dim=0), v.repeat_interleave(frames, dim=0))
             ref_kv = None if banks_kv is None else banks_kv[key]
             ref = None if ref_banks is None else ref_banks[key]
-            h, bank = self.attention(key)(h, ctx, write=write, ref_kv=ref_kv, ctx_kv=kv,
-                                          ref=ref)
+            h, bank = remat_call(self.remat, self.attention(key), h, ctx, write=write,
+                                 ref_kv=ref_kv, ctx_kv=kv, ref=ref)
             if write:
                 banks[key] = bank
             return h
@@ -188,7 +193,7 @@ class _UNetBody(nn.Module):
         skips = [h]
         for i, blk in enumerate(self.down_blocks):
             for j, res in enumerate(blk.resnets):
-                h = res(h, temb)
+                h = remat_call(self.remat, res, h, temb)
                 if hasattr(blk, "attentions"):
                     h = attn(f"down_{i}_{j}", h)
                 if self.with_motion:
@@ -202,15 +207,15 @@ class _UNetBody(nn.Module):
                 # (unet_2d_mix.py:1288); skip tensors are untouched.
                 h = self.man_blocks[i](h, motion_map)
 
-        h = self.mid_block.resnets[0](h, temb)
+        h = remat_call(self.remat, self.mid_block.resnets[0], h, temb)
         h = attn("mid", h)
         if self.motion_mid:
             h = motion(self.mid_block.motion_modules[0], h)
-        h = self.mid_block.resnets[1](h, temb)
+        h = remat_call(self.remat, self.mid_block.resnets[1], h, temb)
 
         for i, blk in enumerate(self.up_blocks):
             for j, res in enumerate(blk.resnets):
-                h = res(torch.cat([h, skips.pop()], dim=-1), temb)
+                h = remat_call(self.remat, res, torch.cat([h, skips.pop()], dim=-1), temb)
                 if hasattr(blk, "attentions"):
                     h = attn(f"up_{i}_{j}", h)
                 if self.with_motion:
@@ -223,10 +228,10 @@ class _UNetBody(nn.Module):
 class GuidanceUNet(_UNetBody):
     """Writes the reference-attention banks; t=0 in the reference."""
 
-    def __init__(self, cfg: GuidanceUNetConfig = GuidanceUNetConfig()):
+    def __init__(self, cfg: GuidanceUNetConfig = GuidanceUNetConfig(), remat: bool = False):
         super().__init__(cfg.unet, cfg.cond_channels,
                          man_hidden=cfg.man_hidden if cfg.use_man else None,
-                         motion_channels=cfg.motion_channels, out_head=False)
+                         motion_channels=cfg.motion_channels, out_head=False, remat=remat)
         self.cfg = cfg
 
     def forward(self, cond: torch.Tensor, motion_map: Optional[torch.Tensor],
@@ -239,8 +244,8 @@ class GuidanceUNet(_UNetBody):
 
 
 class DenoisingUNet(_UNetBody):
-    def __init__(self, cfg: DenoisingUNetConfig = DenoisingUNetConfig()):
-        super().__init__(cfg.unet, cfg.unet.in_channels, motion=cfg.motion)
+    def __init__(self, cfg: DenoisingUNetConfig = DenoisingUNetConfig(), remat: bool = False):
+        super().__init__(cfg.unet, cfg.unet.in_channels, motion=cfg.motion, remat=remat)
         self.cfg = cfg
 
     def forward(self, sample: torch.Tensor, timesteps: torch.Tensor,

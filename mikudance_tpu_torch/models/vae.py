@@ -10,6 +10,8 @@ downsample padding.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -183,3 +185,17 @@ class Decoder(nn.Module):
 
 def latent_mean(moments: torch.Tensor, latent_channels: int = 4) -> torch.Tensor:
     return moments[..., :latent_channels]
+
+
+def latent_sample(moments: torch.Tensor, generator: Optional[torch.Generator] = None,
+                  latent_channels: int = 4,
+                  noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One draw from the encoder's diagonal Gaussian: ``mean + std * eps`` with
+    the log-variance clipped to [-30, 20]. ``eps`` is drawn in fp32 from
+    ``generator`` on the moments' device, or given as ``noise``."""
+    mean = moments[..., :latent_channels]
+    std = torch.exp(0.5 * moments[..., latent_channels:].clamp(-30.0, 20.0))
+    if noise is None:
+        noise = torch.randn(mean.shape, generator=generator, device=mean.device,
+                            dtype=torch.float32)
+    return mean + std * noise.to(mean.dtype)

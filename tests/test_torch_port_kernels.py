@@ -60,7 +60,8 @@ def jx():
 
 ROUTES = ("temporal_attention", "flash_attention_fullc", "flash_attention_wide",
           "flash_attention_resident", "small_sequence_attention", "cross_attention",
-          "dot_product_attention", "flash_anchor_resident", "flash_anchor_stream")
+          "dot_product_attention", "flash_anchor_resident", "flash_anchor_stream",
+          "flash_attention_fullc_t")
 
 
 def check(got: torch.Tensor, want) -> None:
@@ -271,6 +272,7 @@ def test_dispatch_rule(shape, heads, route, monkeypatch):
 
 
 BOTH_OFF = dict(TRANSPOSED_FULLC=False, NEUTRAL_FULLC=False)
+TRANSPOSED = dict(TRANSPOSED_FULLC=True, NEUTRAL_FULLC=False)
 
 
 @pytest.mark.parametrize("switches,shape,heads,route", [
@@ -283,11 +285,14 @@ BOTH_OFF = dict(TRANSPOSED_FULLC=False, NEUTRAL_FULLC=False)
     # NEUTRAL_FULLC alone changes nothing while TRANSPOSED_FULLC is off
     (dict(TRANSPOSED_FULLC=False, NEUTRAL_FULLC=True), ((32, 9216, 320),) * 3, 8,
      "flash_anchor_stream"),
-    # TRANSPOSED_FULLC alone: K10 under the resident limit, above it the kernel not ported
-    (dict(TRANSPOSED_FULLC=True, NEUTRAL_FULLC=False), ((32, 2304, 640),) * 3, 8,
-     "flash_anchor_resident"),
-    (dict(TRANSPOSED_FULLC=True, NEUTRAL_FULLC=False), ((32, 9216, 320),) * 3, 8,
-     "NotImplementedError"),
+    # TRANSPOSED_FULLC alone (the transposed configuration): K10 under the
+    # resident limit, K12 above it
+    (TRANSPOSED, ((32, 2304, 640),) * 3, 8, "flash_anchor_resident"),
+    (TRANSPOSED, ((32, 9216, 320),) * 3, 8, "flash_attention_fullc_t"),
+    (TRANSPOSED, ((20, 5184, 320),) * 3, 8, "flash_attention_fullc_t"),  # 576^2 training, level 0
+    (TRANSPOSED, ((20, 1296, 640),) * 3, 8, "flash_anchor_resident"),    # and level 1
+    (TRANSPOSED, ((8, 4096, 640),) * 3, 8, "flash_attention_fullc_t"),   # 1024^2, level 1
+    (TRANSPOSED, ((20, 5184, 320), (20, 257, 320), (20, 257, 320)), 8, "cross_attention"),
     # every other route is untouched by the switches
     (BOTH_OFF, ((2, 16, 9216, 320),) * 3, 8, "temporal_attention"),
     (BOTH_OFF, ((4, 9216, 512),) * 3, 1, "flash_attention_wide"),
@@ -309,14 +314,22 @@ def test_dispatch_rule_with_the_fullc_switches(switches, shape, heads, route, mo
         monkeypatch.setattr(pfa, name, lambda *a, _n=name: calls.append(_n))
     for name, value in switches.items():
         monkeypatch.setattr(pfa, name, value)
-    args = [torch.empty(s, device="meta") for s in shape]
-    if route == "NotImplementedError":
-        with pytest.raises(NotImplementedError, match="Queue 2 item 12"):
-            pfa.attention(*args, heads)
-        assert not calls
-    else:
-        pfa.attention(*args, heads)
-        assert calls == [route]
+    pfa.attention(*[torch.empty(s, device="meta") for s in shape], heads)
+    assert calls == [route]
+
+
+def test_transposed_sets_and_restores_the_switches():
+    """``transposed()`` turns ``NEUTRAL_FULLC`` off for its block and puts both
+    switches back, also when the block raises."""
+    from mikudance_tpu_torch.kernels import transposed
+
+    assert (pfa.TRANSPOSED_FULLC, pfa.NEUTRAL_FULLC) == (True, True)
+    with transposed():
+        assert (pfa.TRANSPOSED_FULLC, pfa.NEUTRAL_FULLC) == (True, False)
+    with pytest.raises(KeyError):
+        with transposed():
+            raise KeyError("inside")
+    assert (pfa.TRANSPOSED_FULLC, pfa.NEUTRAL_FULLC) == (True, True)
 
 
 def test_row_major_sets_and_restores_the_switches():
@@ -774,7 +787,7 @@ def test_anchored_wrappers_refuse_what_the_kernels_do_not_take(fn, case, match, 
 @pytest.mark.parametrize("case", [
     "K7-bias", "K7-residual-ragged", "K7-plain", "K7-fp32-bias-wide", "K8-320", "K8-w24-to-4",
     "K8-cin2560", "K8-one-row", "K10-hd40", "K10-hd80", "K10-ragged", "K10-clamp", "K11-hd40",
-    "K11-hd80", "K11-ragged", "K11-clamp"])
+    "K11-hd80", "K11-ragged", "K11-clamp", "K12-hd40", "K12-hd80", "K12-ragged", "K12-clamp"])
 def test_row_major_kernel_matches_plain_on_card(case, cuda):
     g = torch.Generator(device=cuda).manual_seed(1)
 
@@ -804,9 +817,11 @@ def test_row_major_kernel_matches_plain_on_card(case, cuda):
         S = 1091 if case.endswith("ragged") else 1152
         q, k, v = r(2, S, 8 * hd, scale=3.0 if case.endswith("clamp") else 1.0), \
             r(2, S, 8 * hd), r(2, S, 8 * hd)
-        fn = pfa.flash_anchor_resident if kern == "K10" else pfa.flash_anchor_stream
-        counter, got = (pfa.K10 if kern == "K10" else pfa.K11), lambda: fn(q, k, v, 8)
-        want = pfa.anchored_attention(q, k, v, 8)
+        fn, counter = {"K10": (pfa.flash_anchor_resident, pfa.K10),
+                       "K11": (pfa.flash_anchor_stream, pfa.K11),
+                       "K12": (pfa.flash_attention_fullc_t, pfa.K12)}[kern]
+        got = lambda: fn(q, k, v, 8)  # noqa: E731
+        want = (pfa.anchored_attention_t if kern == "K12" else pfa.anchored_attention)(q, k, v, 8)
         assert (pfa.anchor_excursion(q, k, 8) > pfa.EXP_CLAMP) == case.endswith("clamp")
     before = counter.launches
     out = got()
@@ -849,3 +864,114 @@ def test_row_major_blocks_launch_on_card(cuda):
     assert plin.K7.launches == k7 + 8 and pcv.K8.launches == k8 + 4
     for got, want in ((got_blk, want_blk), (got_res, want_res)):
         assert ((got.float() - want.float()).norm() / want.float().norm()).item() < 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10",
+                                  "K11", "K12", "K13"])
+def test_backward_through_each_wrapper_on_card(case, cuda):
+    """Each wrapper on CUDA tensors that require a gradient: the forward
+    launches the kernel once, the backward matches autograd through the plain
+    version in fp32 on the same bf16 inputs, an input that asks for no
+    gradient gets none, and without ``requires_grad`` nothing is recorded."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(s, generator=g, device=cuda) * scale).to(torch.bfloat16)
+
+    def qkv(S, C, Skv=None):
+        return [r(2, S, C), r(2, Skv or S, C), r(2, Skv or S, C)]
+
+    if case in ("K1", "K10", "K11", "K12"):
+        fn, counter = {"K1": (pfa.flash_attention_fullc, pfa.K1),
+                       "K10": (pfa.flash_anchor_resident, pfa.K10),
+                       "K11": (pfa.flash_anchor_stream, pfa.K11),
+                       "K12": (pfa.flash_attention_fullc_t, pfa.K12)}[case]
+        ins, call = qkv(1091, 320), lambda a, b, c: fn(a, b, c, 8)
+        plain = lambda a, b, c: pfa.dot_product_attention(a, b, c, 8)  # noqa: E731
+    elif case == "K2":
+        ins, counter = qkv(1100, 320, 257), pfa.K2
+        call = lambda a, b, c: pfa.cross_attention(a, b, c, 8)  # noqa: E731
+        plain = lambda a, b, c: pfa.dot_product_attention(a, b, c, 8)  # noqa: E731
+    elif case in ("K4", "K9"):
+        fn, counter = {"K4": (pfa.flash_attention_wide, pfa.K4),
+                       "K9": (pfa.flash_attention_resident, pfa.K9)}[case]
+        ins, call = qkv(1155, 512), lambda a, b, c: fn(a, b, c, 1)
+        plain = lambda a, b, c: pfa.dot_product_attention(a, b, c, 1)  # noqa: E731
+    elif case == "K3":
+        ins, counter = [r(1, 20, 50, 320) for _ in range(3)], pta.K3
+        call = lambda a, b, c: pta.temporal_attention(a, b, c, 8)  # noqa: E731
+        plain = lambda a, b, c: pta.temporal_attention_plain(a, b, c, 8)  # noqa: E731
+    elif case == "K13":
+        ins, counter = [r(64, 16, 320) for _ in range(3)], pta.K13
+        call = lambda a, b, c: pta.small_sequence_attention(a, b, c, 8)  # noqa: E731
+        plain = lambda a, b, c: pta.small_sequence_attention_plain(a, b, c, 8)  # noqa: E731
+    elif case == "K5":
+        ins, counter = [r(2, 12, 12, 320), r(320).float(), r(320).float()], pgn.K5
+        call = lambda x, w, b: pgn.fused_group_norm(x, w, b, 32, 1e-5, True)  # noqa: E731
+        plain = lambda x, w, b: pgn.group_norm_plain(x, w, b, 32, 1e-5, True)  # noqa: E731
+    elif case == "K6":
+        ins, counter = [r(2, 77, 320), r(320).float(), r(320).float()], pln.K6
+        call = lambda x, w, b: pln.fused_layer_norm(x, w, b, 1e-5)  # noqa: E731
+        plain = lambda x, w, b: pln.layer_norm_plain(x, w, b, 1e-5)  # noqa: E731
+    elif case == "K7":
+        ins, counter = [r(200, 320), r(640, 320, scale=320 ** -0.5), r(640), r(200, 640)], plin.K7
+        call, plain = plin.fused_linear, plin.linear_plain
+    else:
+        ins, counter = [r(2, 16, 16, 64), r(48, 64, 3, 3, scale=(9 * 64) ** -0.5), r(48)], pcv.K8
+        call, plain = pcv.conv3x3_fused, pcv.conv3x3_plain
+
+    before = counter.launches
+    out = call(*ins)
+    assert counter.launches == before + 1 and out.grad_fn is None  # nothing recorded
+    live = [t.clone().requires_grad_(i != 1) for i, t in enumerate(ins)]  # input 1 frozen
+    before = counter.launches
+    out = call(*live)
+    assert counter.launches == before + 1 and out.grad_fn is not None
+    cot = torch.randn(out.shape, generator=g, device=cuda).to(out.dtype)
+    out.backward(cot)
+    assert counter.launches == before + 1  # the backward is plain math
+    assert live[1].grad is None
+    ref = [t.float().clone().requires_grad_(i != 1) for i, t in enumerate(ins)]
+    plain(*ref).backward(cot.float())
+    for i, (a, b) in enumerate(zip(live, ref)):
+        if i == 1:
+            continue
+        rel = ((a.grad.float() - b.grad).norm() / b.grad.norm()).item()
+        assert rel < 2e-2, f"{case}: gradient of input {i}: relative L2 {rel:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("level", [(3, 1155, 640), (5, 576, 1280), (2, 2304, 320)])
+def test_mega_block_matches_plain_on_card(level, cuda):
+    """K14 in one launch against its plain version, on ragged S, a chunked
+    batch and each head width; the bank left out must show."""
+    from mikudance_tpu_torch.kernels import mega_block as mb
+
+    B, S, C = level
+    torch.manual_seed(0)
+    block = players.TransformerBlock(C, mb.HEADS).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    with torch.no_grad():
+        for p in block.parameters():
+            if not p.any():
+                p.normal_(0.0, 1e-2, generator=g)
+    w = mb.weights_from_block(block)
+
+    def r(*s, scale=1.0):
+        return (torch.randn(s, generator=g, device=cuda) * scale).to(torch.bfloat16)
+
+    x, rk, rv = r(B, S, C, scale=0.1), r(B, S, C, scale=0.5), r(B, S, C, scale=0.5)
+    ck, cv = (torch.zeros(B, 320, C, dtype=torch.bfloat16, device=cuda) for _ in range(2))
+    ck[:, :257], cv[:, :257] = r(B, 257, C, scale=0.5), r(B, 257, C, scale=0.5)
+    before = mb.K14.launches
+    out = mb.mega_block(x, rk, rv, ck, cv, w)
+    torch.cuda.synchronize()
+    assert mb.K14.launches == before + 1
+    want = mb.mega_block_plain(x, rk, rv, ck, cv, w)
+    torch.testing.assert_close(out.float(), want.float(), atol=ATOL, rtol=RTOL)
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()  # noqa: E731
+    assert rel(out, want) < 1e-2
+    zero = torch.zeros_like(rk)
+    assert rel(mb.mega_block_plain(x, zero, zero, ck, cv, w), want) > 1e-2
+    assert torch.equal(out, mb.mega_block(x, rk, rv, ck, cv, w))  # no atomics in the data path
