@@ -22,7 +22,11 @@ Phases, in order, one line each; any failure exits non-zero:
    the bank K/V left out),
    median times of the
    kernel, its plain version and the one library call that computes the
-   same function, and the least time the card could take (``bound_ms``);
+   same function, and the least time the card could take (``bound_ms``).
+   K1 is held to ``anchored_attention_t`` (the TPU kernel's anchor and
+   clamp), also where the clamp bites and the exact softmax is another
+   function, and to K12 on the same inputs, since the two kernels compute
+   one function; its log line also gives the exp2 floor;
 4. request A: ``VideoPipeline.__call__`` at the headline geometry (16 uint8
    frames at 768^2, SD1.5 widths, context 30/8, CFG 3.5, 20 DDIM steps,
    absent face/hand streams, ready-made CLIP tokens and zero flow, SD-VAE
@@ -78,7 +82,9 @@ Phases, in order, one line each; any failure exits non-zero:
     against the port's ``TransformerBlock`` read path on the same weights,
     both timed (control: the bank K/V left out).
 
-The kernel counts are set to 0 just before each request and read just after.
+The kernel counts are set to 0 just before each request and read just after;
+K1's and K4's must equal the counts the smoke read before the dispatcher
+took the JAX block rule (``K1_K4_LAUNCHES``).
 It prints the kernel record (one JSON object; ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` at each kernel's first shape; ``launches``
 from request B, for K9 and K13 from request D, for K7, K8, K10 and K11 from
@@ -97,6 +103,7 @@ shares, device time by category).
 
 import argparse
 import contextlib
+import functools
 import json
 import math
 import os
@@ -151,6 +158,9 @@ PROFILE_E_STEPS = 6
 # The card's published peaks (H100 SXM): device memory, dense bf16 tensor
 # cores, fp32 outside the tensor cores.
 PEAK_BYTES, PEAK_BF16, PEAK_FP32 = 3.35e12, 989e12, 67e12
+# exp2 a clock on one SM's special-function units (Hopper: 4 quadrants of 4):
+# the anchored attention's other floor beside its flops
+EXP2_PER_CLOCK_SM = 16
 # Request F, the stage-2 trainer's geometry (configs/train/train_stage2.yaml):
 # 20 frames at 576^2, batch 1; its level-0 self-attention shape
 TRAIN_FRAMES, TRAIN_SIZE = 20, 576
@@ -170,6 +180,14 @@ SMALL_STEP_LOSS_REL = 1e-3
 SMALL_STEP_GRAD_REL_L2 = 5e-2
 # Request G: the mega-block probe against the block's read path
 G_REL_L2 = 2e-2
+# Launches of K1 and K4 on each path as the smoke read them before the
+# dispatcher took the JAX block rule (PERF.md section 6): the rule changes no
+# route of these geometries, so they must stay as they were.
+K1_K4_LAUNCHES = {"request A": (210, 7), "request B": (210, 4), "image request": (210, 2),
+                  "request C, per-step": (180, 19), "request C, cached_q8": (130, 19),
+                  "request C, cached-grouped": (90, 16), "request D": (25, 0),
+                  "request F (default)": (111, 63), "request F (transposed)": (0, 63),
+                  "stage-1 steps": (40, 6)}
 
 
 def log(msg: str) -> None:
@@ -298,9 +316,9 @@ def plain_kernels():
     from mikudance_tpu_torch.models import layers
 
     patches = [(fa, n, fa.dot_product_attention)
-               for n in ("flash_attention_fullc", "cross_attention", "flash_attention_wide",
-                         "flash_attention_resident")]
-    patches += [(fa, "flash_attention_fullc_anchored", fa.anchored_attention),
+               for n in ("cross_attention", "flash_attention_wide", "flash_attention_resident")]
+    patches += [(fa, "flash_attention_fullc", fa.anchored_attention_t),
+                (fa, "flash_attention_fullc_anchored", fa.anchored_attention),
                 (fa, "flash_attention_fullc_t", fa.anchored_attention_t),
                 (layers, "fused_linear", lin.linear_plain),
                 (cv, "conv3x3_fused", lambda x, w, b, packed=None: cv.conv3x3_plain(x, w, b)),
@@ -368,6 +386,22 @@ def norm_input(shape, g, dev, row_offset: bool = False) -> torch.Tensor:
     return x
 
 
+@functools.cache
+def max_sm_clock_hz() -> float:
+    """The card's highest SM clock (nvidia-smi ``clocks.max.sm``), in Hz."""
+    out = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def exp2_floor_ms(n: int) -> float:
+    """The least time ``n`` exp2 take on the special-function units: 16 a
+    clock on each SM at the card's highest SM clock."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n / (EXP2_PER_CLOCK_SM * sms * max_sm_clock_hz()) * 1e3
+
+
 def wanted(kern, only) -> bool:
     """Whether ``only`` (kernel numbers such as "K9"; empty: all) names ``kern``."""
     return not only or kern.name.split(" ")[0] in only
@@ -376,7 +410,8 @@ def wanted(kern, only) -> bool:
 def attention_cases(dev, only=()):
     """K1-K4, K9 and K13 at the sampler's shapes: (kernel, label, run, plain,
     control, library, flops, bytes, peak rate); ``only`` keeps the kernels
-    whose names it lists."""
+    whose names it lists. K1 is held to ``anchored_attention_t``, also on an
+    input where the clamp bites (q three times as large)."""
     import torch.nn.functional as F
 
     from mikudance_tpu_torch.kernels import flash_attention as fa
@@ -387,12 +422,13 @@ def attention_cases(dev, only=()):
     def r(*s):
         return torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
 
-    # (kernel, wrapper, plain, shapes of q, k, v, heads); batch = the main
-    # path's (2 CFG halves x 16 frames; B=2 for the motion modules; the VAE
-    # encode chunk of 8 frames)
+    # (kernel, wrapper, plain, shapes of q, k, v, heads[, q scale]); batch =
+    # the main path's (2 CFG halves x 16 frames; B=2 for the motion modules;
+    # the VAE encode chunk of 8 frames, 4 pictures at 576^2 in training)
     cases = [
-        (fa.K1, fa.flash_attention_fullc, fa.dot_product_attention, [(32, 9216, 320)] * 3, 8),
-        (fa.K1, fa.flash_attention_fullc, fa.dot_product_attention, [(32, 2304, 640)] * 3, 8),
+        (fa.K1, fa.flash_attention_fullc, fa.anchored_attention_t, [(32, 9216, 320)] * 3, 8),
+        (fa.K1, fa.flash_attention_fullc, fa.anchored_attention_t, [(32, 2304, 640)] * 3, 8),
+        (fa.K1, fa.flash_attention_fullc, fa.anchored_attention_t, [(8, 2304, 320)] * 3, 8, 3.0),
         (fa.K2, fa.cross_attention, fa.dot_product_attention,
          [(32, 9216, 320), (32, 257, 320), (32, 257, 320)], 8),
         (fa.K2, fa.cross_attention, fa.dot_product_attention,
@@ -405,6 +441,7 @@ def attention_cases(dev, only=()):
         (ta.K3, ta.temporal_attention, ta.temporal_attention_plain, [(1, 30, 9216, 320)] * 3, 8),
         (ta.K3, ta.temporal_attention, ta.temporal_attention_plain, [(4, 30, 1024, 320)] * 3, 8),
         (fa.K4, fa.flash_attention_wide, fa.dot_product_attention, [(8, 9216, 512)] * 3, 1),
+        (fa.K4, fa.flash_attention_wide, fa.dot_product_attention, [(4, 5184, 512)] * 3, 1),
         # the VAE mid-block under 512^2: 256^2, 384^2, the largest S K9 takes,
         # and a ragged S (a 33 x 35 latent map)
         (fa.K9, fa.flash_attention_resident, fa.dot_product_attention, [(8, 1024, 512)] * 3, 1),
@@ -422,10 +459,23 @@ def attention_cases(dev, only=()):
         (ta.K13, ta.small_sequence_attention, ta.small_sequence_attention_plain,
          [(64, 30, 1280)] * 3, 8),
     ]
-    for kern, fn, plain, shapes, heads in cases:
+    for kern, fn, plain, shapes, heads, *q_scale in cases:
         if not wanted(kern, only):
             continue
         q, k, v = (r(*s) for s in shapes)
+        what = f"{kern.name} q{shapes[0]} kv{shapes[1][1]} heads {heads}"
+        if q_scale:
+            q = (q.float() * q_scale[0]).to(torch.bfloat16)
+        if kern is fa.K1:
+            excursion = fa.anchor_excursion(q[:1], k[:1], heads)
+            check((excursion > fa.EXP_CLAMP) == bool(q_scale),
+                  f"{what}: largest |s - off| {excursion:.1f} with q x {q_scale}")
+            what += f" q x {q_scale[0] if q_scale else 1.0} (largest |s - off| {excursion:.1f}"
+            if q_scale:  # the exact softmax is another function here
+                apart = rel_l2(fa.dot_product_attention(q, k, v, heads), plain(q, k, v, heads))
+                check(apart > REL_L2, f"{what}: the softmax and K1's function agree")
+                what += f"; the exact softmax against it: relative L2 {apart:.3e}"
+            what += f"; exp2 floor {exp2_floor_ms(q.shape[0] * heads * q.shape[1] ** 2):.3f} ms)"
         C = q.shape[-1]
         hd = C // heads
         if q.ndim == 4:  # K3: one T x T attention per (batch, position, head)
@@ -436,7 +486,7 @@ def attention_cases(dev, only=()):
         else:
             flops = 4 * q.shape[0] * q.shape[1] * k.shape[1] * C
             lib = [t.view(t.shape[0], t.shape[1], heads, hd).transpose(1, 2) for t in (q, k, v)]
-        yield (kern, f"{kern.name} q{shapes[0]} kv{shapes[1][1]} heads {heads}",
+        yield (kern, what,
                lambda: fn(q, k, v, heads), lambda: plain(q, k, v, heads),
                lambda: plain(q * CONTROL_Q_SCALE, k, v, heads),
                lambda: F.scaled_dot_product_attention(*lib),
@@ -513,13 +563,15 @@ def anchored_cases(dev, only=()):
              (fa.K12, fa.flash_attention_fullc_t, TRAIN_LEVEL0, 1.0),
              (fa.K12, fa.flash_attention_fullc_t, level0, 1.0),
              (fa.K12, fa.flash_attention_fullc_t, (20, 1296, 640), 1.0),
-             (fa.K12, fa.flash_attention_fullc_t, (8, 2304, 320), 3.0)]
-    heads = 8
-    check(fa.fullc_resident(2304, 640, heads) and not fa.fullc_resident(9216, 320, heads),
+             (fa.K12, fa.flash_attention_fullc_t, (8, 2304, 320), 3.0),
+             # K10 with an odd number of heads of 40: the last one has no partner
+             (fa.K10, fa.flash_anchor_resident, (8, 2304, 120), 1.0, 3)]
+    check(fa.fullc_resident(2304, 640, 8) and not fa.fullc_resident(9216, 320, 8),
           "the byte rule gives K10 the 2304-token level and K11 the 9216-token level")
-    for kern, fn, shape, q_scale in cases:
+    for kern, fn, shape, q_scale, *heads in cases:
         if not wanted(kern, only):
             continue
+        heads = heads[0] if heads else 8
         q, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
         q, k, v = (q * q_scale).to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
         hd = shape[-1] // heads
@@ -805,11 +857,35 @@ def flat(grads) -> torch.Tensor:
     return torch.cat([g.reshape(-1) for _, g in sorted(grads.items())])
 
 
+def check_k1_against_k12(dev) -> None:
+    """K1 and K12 compute one function (``anchored_attention_t``): both kernels
+    on the same inputs, at level 0 and where the clamp bites, held to each
+    other under the relative-L2 limit; K12 with the softmax scale off by 9% is
+    the control."""
+    from mikudance_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    for shape, q_scale in (((32, 9216, 320), 1.0), ((8, 2304, 320), 3.0)):
+        q, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+        q, k, v = (q * q_scale).to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
+        k1 = fa.flash_attention_fullc(q, k, v, 8)
+        rel = rel_l2(k1, fa.flash_attention_fullc_t(q, k, v, 8))
+        ctl = rel_l2(k1, fa.flash_attention_fullc_t(q * CONTROL_Q_SCALE, k, v, 8))
+        log(f"kernels: K1 against K12 on the same inputs q{shape} heads 8 q x {q_scale}: "
+            f"relative L2 {rel:.3e} (limit {REL_L2}; control {ctl:.3e})")
+        check(rel < REL_L2 < ctl, f"K1 against K12 {shape}: {rel:.3e}, control {ctl:.3e}")
+        del q, k, v, k1
+
+
 def phase_kernels(dev, only=()):
     """Every kernel against its plain version at the paths' shapes. Returns
     the kernel record: per kernel the times at its first shape."""
     import itertools
 
+    from mikudance_tpu_torch.kernels import flash_attention as fa
+
+    if wanted(fa.K1, only) or wanted(fa.K12, only):
+        check_k1_against_k12(dev)
     record = {}
     for kern, what, run, plain, control, library, flops, nbytes, peak, *rest in itertools.chain(
             attention_cases(dev, only), norm_cases(dev, only), anchored_cases(dev, only),
@@ -861,9 +937,11 @@ def phase_kernels(dev, only=()):
 
 # kernel-name substrings -> category, first match wins
 PROFILE_CATEGORIES = [
-    ("K1/K2 hd 40 (S=9216 self + cross)", ("attn_tile_kernel<48",)),
-    ("K1/K2 hd 80 (S=2304 self + cross)", ("attn_tile_kernel<80",)),
-    ("K4 hd 512 (VAE)", ("attn_tile_kernel<512",)),
+    ("K1 hd 40 (S=9216 self)", ("flash_fullc_kernel<40>",)),
+    ("K1 hd 80 (S=2304 self)", ("flash_fullc_kernel<80>",)),
+    ("K2 hd 40 (S=9216 cross)", ("attn_tile_kernel<48",)),
+    ("K2 hd 80 (S=2304 cross)", ("attn_tile_kernel<80",)),
+    ("K4 hd 512 (VAE)", ("flash_wide_kernel",)),
     ("K3 temporal", ("temporal_kernel",)),
     ("K5 GroupNorm (statistics, finish, apply)", ("gn_stats_kernel", "gn_finish_kernel",
                                                   "gn_apply_kernel")),
@@ -1251,6 +1329,11 @@ def main() -> int:
         for k in kernels:
             k.launches = 0
 
+    def same_launches(what: str, counts: dict) -> None:
+        got = (counts[fa.K1.name], counts[fa.K4.name])
+        check(got == K1_K4_LAUNCHES[what],
+              f"{what}: K1 / K4 launched {got} times, {K1_K4_LAUNCHES[what]} before")
+
     def read_counts(what: str, expect=default_kernels, absent=row_major_only,
                     also_absent=off_the_sampler) -> dict:
         counts = {k.name: k.launches for k in kernels}
@@ -1313,6 +1396,7 @@ def main() -> int:
                                                           else [fa.K1])
             launches = read_counts(f"request F ({name})", on_f,
                                    absent=[k for k in kernels if k not in on_f], also_absent=())
+            same_launches(f"request F ({name})", launches)
             losses = [r["train_loss"] for r in records]
             norms = [r["grad_norm"] for r in records]
             check(all(math.isfinite(v) for v in losses + norms), f"request F ({name}): {records}")
@@ -1399,6 +1483,7 @@ def main() -> int:
         wall = time.perf_counter() - t0
         launches_s1 = read_counts("stage-1 steps", [fa.K1, fa.K2, fa.K4, gn.K5, ln.K6],
                                   absent=[ta.K3, fa.K9, ta.K13])
+        same_launches("stage-1 steps", launches_s1)
         check(all(math.isfinite(r["train_loss"]) and math.isfinite(r["grad_norm"])
                   for r in records1)
               and len(state1.trainable) == len(list(state1.guide.parameters()))
@@ -1468,6 +1553,7 @@ def main() -> int:
     frames, latents, timer = run_request(pipe, make_inputs(0, T, H, W), STEPS)
     wall = time.perf_counter() - t0
     launches_a = read_counts("request A", at_768)
+    same_launches("request A", launches_a)
     check_video(frames, latents, T, "request A")
     phases = phase_text(timer)
     log(f"request A: {T}x{H}x{W} {STEPS} steps in {wall:.3f} s | {phases} | peak "
@@ -1489,6 +1575,7 @@ def main() -> int:
     frames, latents, timer, flow, tokens = run_request_b(pipe_b, 2, STEPS)
     wall = time.perf_counter() - t0
     launches_b = read_counts("request B", at_768)
+    same_launches("request B", launches_b)
     check_video(frames, latents, T, "request B")
     check(flow.shape == (T, H // 8, W // 8, 2) and bool(torch.isfinite(flow).all())
           and bool(flow.any()), f"request B: flow {tuple(flow.shape)} finite and not all zero")
@@ -1516,6 +1603,7 @@ def main() -> int:
     wall = time.perf_counter() - t0
     # no motion modules at stage 1: K3 is not on this path
     launches_i = read_counts("image request", [k for k in at_768 if k is not ta.K3])
+    same_launches("image request", launches_i)
     check(image.shape == (1, H, W, 3) and image.dtype == np.uint8, f"image {image.shape}")
     lat = image_pipe(*pictures, tokens, noise, num_inference_steps=2, decode=False)
     check(lat.shape == (1, H // 8, W // 8, 4) and bool(torch.isfinite(lat).all()),
@@ -1585,9 +1673,11 @@ def main() -> int:
     lat_step, launches_c = long_request(
         "request C, 48 frames, auto past 64 cached positions (3 windows, per-step banks)",
         tier_pipe(bank_mode="auto", cached_bank_positions=64), clip48)
+    same_launches("request C, per-step", launches_c)
     q8_pipe = tier_pipe(bank_mode="cached_q8", cached_bank_positions=64,
                         max_denoise_frame_batch=32)
     lat_q8, launches_q8 = long_request("request C, 48 frames, cached_q8", q8_pipe, clip48)
+    same_launches("request C, cached_q8", launches_q8)
     dequantize = video_mod.dequantize_banks
     video_mod.dequantize_banks = lambda qv, qs, dtype: dequantize(
         qv, {k: 2 * v for k, v in qs.items()}, dtype)
@@ -1599,6 +1689,7 @@ def main() -> int:
     lat_grouped, launches_grouped = long_request(
         "request C, 40 frames, max_denoise_frame_batch 32 (2 windows, cached-grouped)",
         tier_pipe(bank_mode="auto", cached_bank_positions=64, max_denoise_frame_batch=32), clip40)
+    same_launches("request C, cached-grouped", launches_grouped)
     lat_step40, _ = long_request(
         "request C, 40 frames, per-step banks", tier_pipe(bank_mode="per_step",
                                                           cached_bank_positions=32), clip40,
@@ -1623,6 +1714,7 @@ def main() -> int:
     frames, latents, timer, flow = run_request_d(d_pipe, 8, D_STEPS, D_FRAMES, D_SIZE)
     wall = time.perf_counter() - t0
     launches_d = read_counts("request D", [k for k in default_kernels if k is not fa.K4])
+    same_launches("request D", launches_d)
     check(launches_d[fa.K4.name] == 0, f"request D launched K4: {launches_d}")
     check_video(frames, latents, D_FRAMES, "request D", D_SIZE, D_SIZE)
     check(bool(flow.any()) and bool(torch.isfinite(flow).all()), "request D: flow")

@@ -1,5 +1,5 @@
 // cp.async helpers shared by the kernels that stage tiles through shared
-// memory (gemm_tile.cuh, flash_anchor.cu), for Hopper (sm_90a).
+// memory, for Hopper (sm_90a).
 
 #pragma once
 

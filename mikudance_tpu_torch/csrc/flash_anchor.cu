@@ -33,7 +33,10 @@
 //   the aligned window of 80 channels that holds the head (the head itself at
 //   width 80, the head pair at width 40) with Q zero outside its own head, and
 //   writes its own head's columns only. A ragged last key tile is staged
-//   through shared memory, zero-filled.
+//   through shared memory, zero-filled. So is every key tile of the last head
+//   of 40 when the head count is odd: it has no partner, and its window would
+//   reach past the row's C channels. Its 40 channels are staged into columns
+//   0-39 of the tile, whose columns 40-79 are zeroed once.
 //   K11 stages key tiles through shared memory with cp.async, two stages, a
 //   head of 40 padded to 48 columns there.
 // In both, keys past S get p = 0 exactly, and query rows past S are not written.
@@ -242,6 +245,12 @@ anchor_resident_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
   const int win = h * HD / D * D, woff = h * HD - win;
   const size_t batch = static_cast<size_t>(b) * seq * ld;
+  // the unpaired last head of 40 (woff = 0): every tile staged, 40 columns
+  const bool lone = HD == 40 && heads % 2 == 1 && h == heads - 1;
+  if (lone) {
+    for (int i = threadIdx.x; i < 2 * BK * L::LD / 8; i += kThreads)
+      reinterpret_cast<uint4*>(kt_s)[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
   const float off = prepare_q<HD, D>(q_s, q + batch + h * HD, q0, seq, ld, woff, scale_log2);
   const bf16* k_w = k + batch + win;
   const bf16* v_w = v + batch + win;
@@ -251,7 +260,17 @@ anchor_resident_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(oacc[j], 0.f);
   float l = 0.f;
   const bf16* q_w = q_s + warp * 16 * L::LD;
-  const int full = seq / BK, rem = seq % BK;
+  const int full = lone ? 0 : seq / BK, rem = lone ? 0 : seq % BK;
+  for (int t = 0; lone && t * BK < seq; ++t) {
+    __syncthreads();  // every warp is done with the previous tile
+    stage_rows<BK, 40, L::LD>(kt_s, k_w, t * BK, seq, ld);
+    stage_rows<BK, 40, L::LD>(vt_s, v_w, t * BK, seq, ld);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    tile_update<D, BK>(q_w, kt_s, L::LD, vt_s, L::LD, s_w, p_w, off, min(BK, seq - t * BK), oacc,
+                       l);
+  }
   for (int t = 0; t < full; ++t) {
     const size_t at = static_cast<size_t>(t) * BK * ld;
     tile_update<D, BK>(q_w, k_w + at, ld, v_w + at, ld, s_w, p_w, off, BK, oacc, l);
@@ -350,14 +369,14 @@ constexpr int stream_smem() {
 
 extern "C" {
 
-// q, k, v, o: (batch, seq, heads * hd) bf16, contiguous, hd 40 or 80.
-// K10 needs 32-byte aligned tensors and an even number of heads at hd 40
-// (fragments are loaded from global memory in windows of 80 channels).
+// q, k, v, o: (batch, seq, heads * hd) bf16, contiguous, hd 40 or 80, any
+// head count. K10 needs 32-byte aligned tensors (fragments are loaded from
+// global memory in windows of 80 channels).
 int md_flash_anchor_resident(const void* q, const void* k, const void* v, void* o, int batch,
                              int seq, int heads, int hd, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (seq < 1) return cudaErrorInvalidValue;
-  if (hd == 40 && heads % 2 == 0)
+  if (hd == 40)
     return launch(anchor_resident_kernel<40>, resident_smem<80, 64>(), q, k, v, o, batch, seq,
                   heads, hd, s);
   if (hd == 80)

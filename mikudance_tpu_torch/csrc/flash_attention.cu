@@ -1,35 +1,21 @@
-// Flash attention for the port's main path, hand-written for Hopper (sm_90a).
+// Cross-attention from the UNet tokens to the CLIP context, hand-written for
+// Hopper (sm_90a).
 //
-// Three kernels share one tile loop (attn_tile_kernel) and differ in their
-// tile plan:
+//   K2 md_flash_cross  replaces mikudance_tpu/kernels/flash_attention.py
+//      _cross_kernel_fullc (:598): S queries (9216 and 2304 tokens at 768^2)
+//      against the 257 CLIP tokens, heads of 40 and 80 packed in C. Each block
+//      reads head h's channel slice in place, with row stride C: no head-split
+//      copies. hd is zero-padded to a multiple of 16 (40 -> 48) inside shared
+//      memory only; the ragged last key tile is masked to -inf exactly.
 //
-//   K1 md_flash_fullc  replaces mikudance_tpu/kernels/flash_attention.py
-//      _flash_kernel_fullc_nt (:485). UNet spatial self-attention on (B, S, C)
-//      bf16 with the heads packed in C (8 heads of hd 40 at S=9216, hd 80 at
-//      S=2304). Each block reads head h's channel slice in place, with row
-//      stride C: no head-split copies. hd is zero-padded to a multiple of 16
-//      (40 -> 48) inside shared memory only.
-//   K2 md_flash_cross  replaces _cross_kernel_fullc (:598). Cross-attention
-//      from the UNet tokens to the 257 CLIP tokens: the same loop with
-//      kv_len != q_len; the ragged last key tile is masked to -inf exactly.
-//   K4 md_flash_wide   replaces _flash_kernel (:44), the streamed branch of
-//      flash_attention_padded. The VAE mid-block attention: one head of
-//      hd = 512 over S = 9216. A 64 x 512 fp32 accumulator does not fit a
-//      block, so the output's columns are split over blockIdx.z in slices of
-//      128: each block recomputes Q K^T over the full 512 and accumulates
-//      only its slice of P V.
-//
-// What bounds them on the card: at these shapes attention is tensor-core
-// work (S^2 * hd multiply-adds against S * hd bytes), so the limit is how
-// fast the tensor cores are fed. The design keeps every score on chip: a
-// block owns 64 query rows (16 per warp) and walks K/V tiles in a loop that
-// replaces the TPU's sequential grid axis, with the exact online softmax
-// (running max, fp32 running sum, fp32 accumulator). Products run on
-// nvcuda::wmma bf16 16x16x16 fragments with fp32 accumulation; the
-// accumulator lives in shared memory so the per-row rescale is plain code.
-// Not yet done (later work): wgmma, TMA / cp.async double buffering, keeping
-// the accumulator in registers. The TPU's self-score anchor with its +-100
-// log2 clamp and its transposed P V are not carried over.
+// What bounds it on the card: S x 257 scores a head against S hd bytes of Q
+// and O, so at these shapes bytes more than tensor-core work. The tile loop
+// (attn_tile_kernel) is the port's first: a block owns 64 query rows (16 per
+// warp) and walks K/V tiles with the exact online softmax (running max, fp32
+// running sum, fp32 accumulator). Products run on nvcuda::wmma bf16 16x16x16
+// fragments with fp32 accumulation; scores and the accumulator live in shared
+// memory so the per-row rescale is plain code. K1 and K4 have their own
+// register-resident kernels (flash_fullc.cu, flash_wide.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -53,47 +39,46 @@ constexpr float kLog2e = 1.4426950408889634f;
 // 16 rows at once, spread over the banks; the pads keep wmma's ldm rules.
 // Every region size is a multiple of 128 bytes, so every region and every
 // 16-row / 16-column fragment in it meets wmma's 32-byte alignment.
-template <int DQK, int DV, int BK>
+template <int D, int BK>
 struct Plan {
-  static constexpr int LDS = BK + 4, LDP = BK + 8, LDO = DV + 4;
-  static constexpr int q = kBlockQ * DQK * 2;        // Q tile, bf16
-  static constexpr int k = BK * DQK * 2;             // K tile, bf16
-  static constexpr int v = BK * DV * 2;              // V tile (column slice), bf16
+  static constexpr int LDS = BK + 4, LDP = BK + 8, LDO = D + 4;
+  static constexpr int q = kBlockQ * D * 2;          // Q tile, bf16
+  static constexpr int k = BK * D * 2;               // K tile, bf16
+  static constexpr int v = BK * D * 2;               // V tile, bf16
   static constexpr int s = kWarps * 16 * LDS * 4;    // scores, fp32, per warp
   static constexpr int p = kWarps * 16 * LDP * 2;    // probabilities, bf16, per warp
   static constexpr int o = kWarps * 16 * LDO * 4;    // output accumulator, fp32, per warp
   static constexpr int bytes = q + k + v + s + p + o;
-  static_assert(DQK % 16 == 0 && DV % 16 == 0 && BK % 32 == 0, "fragment multiples");
+  static_assert(D % 16 == 0 && BK % 32 == 0, "fragment multiples");
   static_assert(s % (kWarps * 128) == 0 && p % (kWarps * 128) == 0 && o % (kWarps * 128) == 0,
                 "per-warp regions stay 128-byte aligned");
 };
 
-// rows [row0, row0 + ROWS) x columns [col0, col0 + COLS) of a row-major bf16
-// matrix with row stride ld -> shared memory (row stride COLS). Rows >= nrows
-// and columns >= ncols read as zero. 16-byte loads: the caller guarantees
-// that ld, col0 and ncols are multiples of 8 and the base is 16-byte aligned.
+// rows [row0, row0 + ROWS) x columns [0, COLS) of a row-major bf16 matrix
+// with row stride ld -> shared memory (row stride COLS). Rows >= nrows and
+// columns >= ncols read as zero. 16-byte loads: the caller guarantees that ld
+// and ncols are multiples of 8 and the base is 16-byte aligned.
 template <int ROWS, int COLS>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int nrows,
-                                          int ld, int col0, int ncols) {
+                                          int ld, int ncols) {
   constexpr int kVec = COLS / 8;
   for (int i = threadIdx.x; i < ROWS * kVec; i += kThreads) {
     const int r = i / kVec, c = (i % kVec) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < nrows && c < ncols)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ld + col0 + c);
+      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * ld + c);
     *reinterpret_cast<uint4*>(dst + r * COLS + c) = val;
   }
 }
 
-// One block: 64 query rows of one (batch, head), output columns
-// [blockIdx.z * DV, blockIdx.z * DV + DV). DQK is the (padded) head width of
-// Q K^T, BK the key tile.
-template <int DQK, int DV, int BK>
+// One block: 64 query rows of one (batch, head). D is the head width padded
+// to a multiple of 16, BK the key tile.
+template <int D, int BK>
 __global__ void __launch_bounds__(kThreads)
 attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ o, int q_len, int kv_len,
                  int heads, int hd, int ld, float scale_log2) {
-  using L = Plan<DQK, DV, BK>;
+  using L = Plan<D, BK>;
   extern __shared__ __align__(128) unsigned char smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   bf16* q_s = reinterpret_cast<bf16*>(smem);
@@ -106,12 +91,11 @@ attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int q0 = blockIdx.x * kBlockQ;
   const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const int col_v = blockIdx.z * DV;
   const bf16* q_bh = q + (size_t)b * q_len * ld + h * hd;
   const bf16* k_bh = k + (size_t)b * kv_len * ld + h * hd;
   const bf16* v_bh = v + (size_t)b * kv_len * ld + h * hd;
 
-  load_tile<kBlockQ, DQK>(q_s, q_bh, q0, q_len, ld, 0, hd);
+  load_tile<kBlockQ, D>(q_s, q_bh, q0, q_len, ld, hd);
   for (int i = lane; i < 16 * LDO; i += 32) o_w[i] = 0.f;
 
   // Softmax ownership: two lanes per query row; lane `half` takes the
@@ -121,8 +105,8 @@ attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   for (int k0 = 0; k0 < kv_len; k0 += BK) {
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<BK, DQK>(k_s, k_bh, k0, kv_len, ld, 0, hd);
-    load_tile<BK, DV>(v_s, v_bh, k0, kv_len, ld, col_v, hd - col_v);
+    load_tile<BK, D>(k_s, k_bh, k0, kv_len, ld, hd);
+    load_tile<BK, D>(v_s, v_bh, k0, kv_len, ld, hd);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows (fp32 accumulate)
@@ -130,13 +114,13 @@ attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int n = 0; n < BK / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
 #pragma unroll 4
-    for (int d = 0; d < DQK; d += 16) {
+    for (int d = 0; d < D; d += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa;
-      wmma::load_matrix_sync(qa, q_s + warp * 16 * DQK + d, DQK);
+      wmma::load_matrix_sync(qa, q_s + warp * 16 * D + d, D);
 #pragma unroll
       for (int n = 0; n < BK / 16; ++n) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kb;
-        wmma::load_matrix_sync(kb, k_s + n * 16 * DQK + d, DQK);
+        wmma::load_matrix_sync(kb, k_s + n * 16 * D + d, D);
         wmma::mma_sync(acc[n], qa, kb, acc[n]);
       }
     }
@@ -172,21 +156,21 @@ attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     m = m_new;
     float* orow = o_w + row * LDO + half;
 #pragma unroll 8
-    for (int c = 0; c < DV; c += 2) orow[c] *= corr;
+    for (int c = 0; c < D; c += 2) orow[c] *= corr;
     __syncwarp();
 
-    // O += P V on this warp's rows and this block's column slice
+    // O += P V on this warp's rows
     wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa[BK / 16];
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) wmma::load_matrix_sync(pa[kk], p_w + kk * 16, LDP);
 #pragma unroll 2
-    for (int j = 0; j < DV / 16; ++j) {
+    for (int j = 0; j < D / 16; ++j) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc;
       wmma::load_matrix_sync(oacc, o_w + j * 16, LDO, wmma::mem_row_major);
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vb;
-        wmma::load_matrix_sync(vb, v_s + kk * 16 * DV + j * 16, DV);
+        wmma::load_matrix_sync(vb, v_s + kk * 16 * D + j * 16, D);
         wmma::mma_sync(oacc, pa[kk], vb, oacc);
       }
       wmma::store_matrix_sync(o_w + j * 16, oacc, LDO, wmma::mem_row_major);
@@ -198,20 +182,19 @@ attn_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qrow = q0 + warp * 16 + row;
   if (qrow < q_len) {
     const float inv = 1.f / l;
-    bf16* dst = o + ((size_t)b * q_len + qrow) * ld + h * hd + col_v;
-    const int ncols = min(DV, hd - col_v);
-    for (int c = half; c < ncols; c += 2) dst[c] = __float2bfloat16(o_w[row * LDO + c] * inv);
+    bf16* dst = o + ((size_t)b * q_len + qrow) * ld + h * hd;
+    for (int c = half; c < hd; c += 2) dst[c] = __float2bfloat16(o_w[row * LDO + c] * inv);
   }
 }
 
-template <int DQK, int DV, int BK>
+template <int D, int BK>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int batch,
                    int q_len, int kv_len, int heads, int hd, cudaStream_t stream) {
-  auto kern = attn_tile_kernel<DQK, DV, BK>;
-  const int smem = Plan<DQK, DV, BK>::bytes;
+  auto kern = attn_tile_kernel<D, BK>;
+  const int smem = Plan<D, BK>::bytes;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((q_len + kBlockQ - 1) / kBlockQ, batch * heads, (hd + DV - 1) / DV);
+  const dim3 grid((q_len + kBlockQ - 1) / kBlockQ, batch * heads);
   const float scale_log2 = kLog2e / sqrtf((float)hd);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
@@ -219,13 +202,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bat
   return cudaGetLastError();
 }
 
-// Packed heads (K1, K2): the main path's head widths, 40 (level 0, padded
-// to a tile width of 48 for Q, K and V alike) and 80 (level 1).
+// Packed heads: the main path's head widths, 40 (level 0, padded to a tile
+// width of 48 for Q, K and V alike) and 80 (level 1).
 cudaError_t launch_packed(const void* q, const void* k, const void* v, void* o, int batch,
                           int q_len, int kv_len, int heads, int hd, cudaStream_t s) {
   switch (hd) {
-    case 40: return launch<48, 48, 64>(q, k, v, o, batch, q_len, kv_len, heads, hd, s);
-    case 80: return launch<80, 80, 64>(q, k, v, o, batch, q_len, kv_len, heads, hd, s);
+    case 40: return launch<48, 64>(q, k, v, o, batch, q_len, kv_len, heads, hd, s);
+    case 80: return launch<80, 64>(q, k, v, o, batch, q_len, kv_len, heads, hd, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -234,24 +217,10 @@ cudaError_t launch_packed(const void* q, const void* k, const void* v, void* o, 
 
 extern "C" {
 
-int md_flash_fullc(const void* q, const void* k, const void* v, void* o, int batch, int seq,
-                   int heads, int hd, void* stream) {
-  return launch_packed(q, k, v, o, batch, seq, seq, heads, hd, static_cast<cudaStream_t>(stream));
-}
-
 int md_flash_cross(const void* q, const void* k, const void* v, void* o, int batch, int q_len,
                    int kv_len, int heads, int hd, void* stream) {
   return launch_packed(q, k, v, o, batch, q_len, kv_len, heads, hd,
                        static_cast<cudaStream_t>(stream));
-}
-
-// Wide heads (K4): the VAE's one head of 512; Q K^T over the full width,
-// P V in 128-column slices.
-int md_flash_wide(const void* q, const void* k, const void* v, void* o, int batch, int seq,
-                  int heads, int hd, void* stream) {
-  if (hd != 512) return cudaErrorInvalidValue;
-  return launch<512, 128, 32>(q, k, v, o, batch, seq, seq, heads, hd,
-                              static_cast<cudaStream_t>(stream));
 }
 
 const char* md_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -1,39 +1,41 @@
 """Attention dispatch and the flash kernels.
 
-Kernels (``csrc/flash_attention.cu``, K9 in ``csrc/flash_resident.cu``, K10
-and K11 in ``csrc/flash_anchor.cu``), each beside its plain PyTorch version:
+Kernels, each beside its plain PyTorch version:
 
-- K1 ``flash_attention_fullc``: packed-heads self-attention (UNet levels
-  with S >= 1024), replacing ``_flash_kernel_fullc_nt``.
-- K2 ``cross_attention``: S >= 1024 queries against <= 512 keys (the CLIP
-  context), replacing ``_cross_kernel_fullc``.
-- K4 ``flash_attention_wide``: the VAE mid-block's one head of width 512
-  (the route of every head width that is a multiple of 128) where one head's
-  K and V exceed ``RESIDENT_KV_BYTES``, replacing ``_flash_kernel``.
-- K9 ``flash_attention_resident``: the same heads below that size (S <= 3072
-  at width 512: every picture under 512^2), replacing
-  ``_flash_kernel_resident``.
+- K1 ``flash_attention_fullc`` (``csrc/flash_fullc.cu``): packed-heads
+  self-attention with the self-score anchor rounded to bf16 and the +-100
+  clamp in place of the running maximum (the UNet levels with S >= 1024
+  under the default switches), replacing ``_flash_kernel_fullc_nt``.
+- K2 ``cross_attention`` (``csrc/flash_attention.cu``): S >= 1024 queries
+  against <= 512 keys (the CLIP context), replacing ``_cross_kernel_fullc``.
+- K4 ``flash_attention_wide`` (``csrc/flash_wide.cu``): the VAE mid-block's
+  one head of width 512 (the route of every head width that is a multiple of
+  128) where one head's K and V exceed ``RESIDENT_KV_BYTES``, replacing
+  ``_flash_kernel``.
+- K9 ``flash_attention_resident`` (``csrc/flash_resident.cu``): the same
+  heads below that size (S <= 3072 at width 512: every picture under 512^2),
+  replacing ``_flash_kernel_resident``.
+- K12 ``flash_attention_fullc_t`` (``csrc/flash_fullc_t.cu``): K1's function
+  with the anchor folded into the Q K^T product and both products
+  transposed, replacing ``_flash_kernel_fullc_t``: K1's place above the
+  resident limit while only ``NEUTRAL_FULLC`` is off (the transposed
+  configuration: the 5184-token level of 576^2 training).
+- K10 / K11 ``flash_attention_fullc_anchored`` (``csrc/flash_anchor.cu``):
+  packed-heads self-attention with the self-score anchor in fp32 and the
+  +-100 clamp, replacing ``_flash_kernel_fullc_resident`` (K10, a batch
+  element's K and V under ``FULLC_RESIDENT_BYTES``: the 2304-token level)
+  and ``_flash_kernel_fullc_stream`` (K11, above it: the 9216-token level).
+  They take K1's place while ``TRANSPOSED_FULLC`` and ``NEUTRAL_FULLC`` are
+  off (the row-major configuration).
 
-- K12 ``flash_attention_fullc_t`` (``csrc/flash_fullc_t.cu``): packed-heads
-  self-attention with the anchor rounded to bf16 and folded into the Q K^T
-  product and both products transposed, replacing ``_flash_kernel_fullc_t``:
-  K1's place above the resident limit while only ``NEUTRAL_FULLC`` is off (the
-  transposed configuration: the 5184-token level of 576^2 training).
-- K10 / K11 ``flash_attention_fullc_anchored``: packed-heads self-attention
-  with the self-score anchor and the +-100 clamp in place of the running
-  maximum, replacing ``_flash_kernel_fullc_resident`` (K10, a batch element's
-  K and V under ``FULLC_RESIDENT_BYTES``: the 2304-token level) and
-  ``_flash_kernel_fullc_stream`` (K11, above it: the 9216-token level). They
-  take K1's place while ``TRANSPOSED_FULLC`` and ``NEUTRAL_FULLC`` are off
-  (the row-major configuration).
-
-The plain version of K1, K2, K4 and K9 is ``dot_product_attention`` (the JAX
+The plain version of K2, K4 and K9 is ``dot_product_attention`` (the JAX
 package's ``models/layers.py:60`` math: fp32 scores and softmax, weights cast
 to v's dtype), processed in chunks of the batch x head dimension so the
-score tensor stays bounded; that of K10 and K11 is ``anchored_attention``,
-which is the same function only while the clamp does not bite; that of K12
-is ``anchored_attention`` with the anchor rounded to bf16 before it is
-subtracted.
+score tensor stays bounded. That of K10 and K11 is ``anchored_attention``;
+that of K1 and K12 is ``anchored_attention_t``, ``anchored_attention`` with the
+anchor rounded to bf16 before it is subtracted (the JAX package calls its
+two kernels bit-identical, ``flash_attention.py:778-783``). The anchored
+functions equal the softmax only while the clamp does not bite.
 
 Every wrapper is differentiable (``_autograd.differentiable``): the backward
 of all of them is the chunked dense recompute of the exact softmax
@@ -42,7 +44,8 @@ of all of them is the chunked dense recompute of the exact softmax
 Dispatch is by the tensor's device alone: a CPU tensor takes the plain
 version; a CUDA tensor launches the kernel or raises. ``attention`` routes
 shapes as the JAX dispatcher does on its TPU (``flash_attention.py:945-963``,
-with ``flash_attention_padded``'s choice between its two kernels, :690).
+with its block rule ``pick_blocks`` / ``_use_flash`` and
+``flash_attention_padded``'s choice between its two kernels, :690).
 """
 
 from __future__ import annotations
@@ -56,11 +59,13 @@ from ._autograd import differentiable, flash_vjp
 from ._build import CudaKernel
 from .temporal_attention import MAX_FRAMES, small_sequence_attention, temporal_attention
 
-_SRC = "mikudance_tpu_torch/csrc/flash_attention.cu"
 _TPU = "mikudance_tpu/kernels/flash_attention.py"
-K1 = CudaKernel("K1 flash_attention_fullc", "md_flash_fullc", _SRC, f"{_TPU}:485")
-K2 = CudaKernel("K2 cross_attention", "md_flash_cross", _SRC, f"{_TPU}:598")
-K4 = CudaKernel("K4 flash_attention_wide", "md_flash_wide", _SRC, f"{_TPU}:44")
+K1 = CudaKernel("K1 flash_attention_fullc", "md_flash_fullc",
+                "mikudance_tpu_torch/csrc/flash_fullc.cu", f"{_TPU}:485")
+K2 = CudaKernel("K2 cross_attention", "md_flash_cross",
+                "mikudance_tpu_torch/csrc/flash_attention.cu", f"{_TPU}:598")
+K4 = CudaKernel("K4 flash_attention_wide", "md_flash_wide",
+                "mikudance_tpu_torch/csrc/flash_wide.cu", f"{_TPU}:44")
 K9 = CudaKernel("K9 flash_attention_resident", "md_flash_resident",
                 "mikudance_tpu_torch/csrc/flash_resident.cu", f"{_TPU}:85")
 _SRC_ANCHOR = "mikudance_tpu_torch/csrc/flash_anchor.cu"
@@ -98,6 +103,10 @@ WIDE_HEAD_DIMS = (512,)
 RESIDENT_KV_BYTES = 6 * 1024 * 1024
 # Batches from which sequences of <= MAX_FRAMES tokens go to K13.
 SMALL_SEQUENCE_MIN_BATCH = 64
+# The JAX package's (q_block, k_block) table for its TPU
+# (``flash_attention.py:900``). The port's kernels use none of these sizes:
+# with ``pick_blocks`` they only decide which shapes take a flash route.
+TUNED_BLOCKS = {9216: (512, 1024), 2304: (384, 768)}
 
 
 def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -151,7 +160,7 @@ def anchored_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``p = bf16(exp2(clip(s - off, -100, 100)))`` and ``(p @ v) / sum(p)`` with
     both sums in fp32 over the rounded p. Equal to the softmax while no score
     leaves the clamp; not beyond. ``round_anchor`` rounds ``off`` to bf16 before
-    the subtraction, which is K12's function (``anchored_attention_t``)."""
+    the subtraction, which is K1's and K12's function (``anchored_attention_t``)."""
     B, S, C = q.shape
     hd = C // heads
     vh = v.reshape(B, v.shape[1], heads, hd).transpose(1, 2).reshape(B * heads, -1, hd)
@@ -165,11 +174,12 @@ def anchored_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def anchored_attention_t(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          heads: int) -> torch.Tensor:
-    """The plain version of K12: what the JAX package's ``_flash_kernel_fullc_t``
-    computes. ``anchored_attention`` with the anchor rounded to bf16, as it is
-    when it rides the Q K^T product as one more bf16 column. The rounding is a
-    factor on a whole row of p that cancels in ``acc / l`` until the clamp
-    bites; from there K12 and K10 / K11 clip different scores."""
+    """The plain version of K1 and K12: what the JAX package's
+    ``_flash_kernel_fullc_nt`` and ``_flash_kernel_fullc_t`` compute.
+    ``anchored_attention`` with the anchor rounded to bf16, as it is when it
+    rides the Q K^T product as one more bf16 column. The rounding is a factor
+    on a whole row of p that cancels in ``acc / l`` until the clamp bites;
+    from there K1 / K12 and K10 / K11 clip different scores."""
     return anchored_attention(q, k, v, heads, round_anchor=True)
 
 
@@ -177,6 +187,39 @@ def anchor_excursion(q: torch.Tensor, k: torch.Tensor, heads: int) -> float:
     """The largest ``|s - off|`` of the anchored scores, in log2 units: past
     ``EXP_CLAMP`` the clamp bites and K10 / K11 leave the exact softmax."""
     return max((s - off).abs().max().item() for _, s, off in _anchored_chunks(q, k, heads))
+
+
+def _largest_divisor(S: int, cap: int, mult: int):
+    """Largest divisor of S that is <= cap and a multiple of ``mult``, or None."""
+    top = min(cap, S)
+    for b in range(top - top % mult, mult - 1, -mult):
+        if S % b == 0:
+            return b
+    return None
+
+
+def pick_blocks(S: int):
+    """The JAX package's ``pick_blocks`` (``flash_attention.py:906``):
+    (q_block, k_block) dividing S, from the table, then the 128-ladder, then
+    any multiple of 16; None where nothing divides."""
+    if S in TUNED_BLOCKS:
+        return TUNED_BLOCKS[S]
+    q_block = next((b for b in (512, 256, 128) if S % b == 0), None)
+    k_block = next((b for b in (1024, 512, 256, 128) if S % b == 0), None)
+    if q_block is None:
+        q_block = _largest_divisor(S, 512, 16)
+    if k_block is None:
+        k_block = _largest_divisor(S, 1024, 16)
+    return q_block, k_block
+
+
+def _use_flash(S_q: int, S_kv: int) -> bool:
+    """The JAX package's ``_use_flash`` (``flash_attention.py:922``): long
+    self-attention whose blocks exist, with q_block >= 64."""
+    if S_q != S_kv or S_q < 1024:
+        return False
+    qb, kb = pick_blocks(S_q)
+    return qb is not None and kb is not None and qb >= 64
 
 
 def _lane_padded_bytes(S: int, C: int) -> int:
@@ -240,9 +283,11 @@ def _differentiable(fn):
 
 @_differentiable
 def flash_attention_fullc(q, k, v, heads: int) -> torch.Tensor:
-    """K1: packed-heads self-attention, q/k/v (B, S, C)."""
+    """K1: the counterpart of the JAX package's ``flash_attention_fullc_nt``
+    (``flash_attention.py:546``): packed-heads self-attention with the anchor
+    rounded to bf16 (``anchored_attention_t``), q/k/v (B, S, C); any S."""
     if q.device.type == "cpu":
-        return dot_product_attention(q, k, v, heads)
+        return anchored_attention_t(q, k, v, heads)
     hd = _check_cuda("flash_attention_fullc", q, k, v, heads, PACKED_HEAD_DIMS)
     if k.shape[1] != q.shape[1]:
         raise ValueError("flash_attention_fullc: self-attention needs S_kv == S")
@@ -262,8 +307,6 @@ def flash_anchor_resident(q, k, v, heads: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return anchored_attention(q, k, v, heads)
     hd = _check_anchored("flash_anchor_resident", q, k, v, heads)
-    if hd == 40 and heads % 2:  # heads of 40 are read in aligned pairs
-        raise ValueError("flash_anchor_resident: head width 40 needs an even number of heads")
     if any(t.data_ptr() % 32 for t in (q, k, v)):  # fragment loads from global memory
         raise ValueError("flash_anchor_resident: q, k, v must start on a 32-byte boundary")
     return _launch(K10, q, k, v, q.shape[0], q.shape[1], heads, hd)
@@ -348,15 +391,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> 
 
     - 4-D (B, T, P, C) -> K3, temporal attention across frames;
     - 3-D, S_q = S_kv <= 32 and B >= 64 -> K13, many short sequences;
-    - S_q = S_kv >= 1024, head width not a multiple of 128 -> K1 while
-      ``TRANSPOSED_FULLC`` and ``NEUTRAL_FULLC`` are on (the default); K10 or
-      K11 by ``fullc_resident`` while both are off; with only
-      ``TRANSPOSED_FULLC`` on, K10 under the resident limit and K12 above it;
-    - S_q = S_kv >= 1024, head width a multiple of 128 -> K9 while one
-      head's K and V fit ``RESIDENT_KV_BYTES``, else K4;
-    - S_q >= 1024 against S_kv <= 512 keys -> K2;
-    - anything else (the 576- and 144-token UNet levels, tiny shapes) ->
-      the plain math, which is what the JAX package leaves to XLA.
+    - S_q = S_kv where ``_use_flash`` holds (S >= 1024 and ``pick_blocks``
+      finds blocks with q_block >= 64), head width not a multiple of 128 ->
+      K1 while ``TRANSPOSED_FULLC`` and ``NEUTRAL_FULLC`` are on (the
+      default); K10 or K11 by ``fullc_resident`` while both are off; with
+      only ``TRANSPOSED_FULLC`` on, K10 under the resident limit and K12
+      above it;
+    - the same shapes, head width a multiple of 128 -> K9 while one head's K
+      and V fit ``RESIDENT_KV_BYTES``, else K4;
+    - S_q >= 1024 against S_kv <= 512 keys, where ``pick_blocks(S_q)`` gives
+      q_block >= 64 -> K2;
+    - anything else (the 576- and 144-token UNet levels, S with no blocks
+      such as 1156 = 34^2, tiny shapes) -> the plain math, which is what the
+      JAX package leaves to XLA.
     """
     if q.ndim == 4:
         return temporal_attention(q, k, v, heads)
@@ -364,7 +411,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> 
     hd = q.shape[-1] // heads
     if S_q == S_kv and S_q <= MAX_FRAMES and q.shape[0] >= SMALL_SEQUENCE_MIN_BATCH:
         return small_sequence_attention(q, k, v, heads)
-    if S_q == S_kv and S_q >= 1024:
+    if _use_flash(S_q, S_kv):
         if hd % 128:
             if NEUTRAL_FULLC and TRANSPOSED_FULLC:
                 return flash_attention_fullc(q, k, v, heads)
@@ -375,6 +422,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> 
             return flash_attention_resident(q, k, v, heads)
         return flash_attention_wide(q, k, v, heads)
     if S_q >= 1024 and S_kv <= 512:
-        return cross_attention(q, k, v, heads)
+        q_block = pick_blocks(S_q)[0]
+        if q_block is not None and q_block >= 64:
+            return cross_attention(q, k, v, heads)
     return dot_product_attention(q, k, v, heads)
 

@@ -69,15 +69,34 @@ def check(got: torch.Tensor, want) -> None:
                                atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("hd,heads", [(40, 4), (80, 2)])
-def test_k1_plain_matches_pallas_fullc_nt(hd, heads, jx):
+@pytest.mark.parametrize("hd,heads,q_scale", [
+    pytest.param(40, 4, 1.0, id="40-4"), pytest.param(80, 2, 1.0, id="80-2"),
+    pytest.param(40, 3, 1.0, id="40-3"),                  # an odd number of heads of 40
+    pytest.param(40, 4, 3.0, id="40-4-clamp"), pytest.param(80, 2, 3.0, id="80-2-clamp"),
+    pytest.param(40, 3, 3.0, id="40-3-clamp")])
+def test_k1_plain_matches_pallas_fullc_nt(hd, heads, q_scale, jx):
+    """K1's route on the CPU is ``anchored_attention_t``, what the TPU kernel
+    computes: with q three times as large the +-100 clamp bites, and there the
+    exact softmax (the old K1) is another function."""
     B, S, C = 2, 512, hd * heads
-    q, k, v = qkv(hd, (B, S, C), (B, S, C), (B, S, C))
+    q, k, v = qkv(hd + heads, (B, S, C), (B, S, C), (B, S, C))
+    q *= q_scale
     want = jx.fa.flash_attention_fullc_nt(
         jx.jnp.asarray(q), jx.jnp.asarray(k), jx.jnp.asarray(v), heads, 1.0 / np.sqrt(hd),
         q_block=128, k_block=128, interpret=True)
-    check(pfa.flash_attention_fullc(torch.from_numpy(q), torch.from_numpy(k),
-                                    torch.from_numpy(v), heads), want)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = pfa.flash_attention_fullc(tq, tk, tv, heads)
+    check(got, want)
+    torch.testing.assert_close(got, pfa.anchored_attention_t(tq, tk, tv, heads), rtol=0, atol=0)
+    exact = pfa.dot_product_attention(tq, tk, tv, heads).numpy()
+    want = np.asarray(want, np.float32)
+    apart = np.linalg.norm(exact - want) / np.linalg.norm(want)
+    bites = pfa.anchor_excursion(tq, tk, heads) > pfa.EXP_CLAMP
+    assert bites == (q_scale > 1.0)
+    if bites:
+        assert apart > 0.1 and np.abs(exact - want).max() > 0.5
+    else:
+        assert apart < 2e-2
 
 
 def test_k2_plain_matches_pallas_cross(jx):
@@ -219,6 +238,17 @@ def test_k5_statistics_plan_covers_every_row(images, rows, channels, vec):
         assert images * splits * chunks >= 512
 
 
+def test_block_rule_matches_jax(jx):
+    """The port's ``pick_blocks`` / ``_use_flash`` are the JAX package's: the
+    same blocks and the same flash-or-dense decision for every S from 1 to
+    12000."""
+    for S in range(1, 12001):
+        assert pfa.pick_blocks(S) == jx.fa.pick_blocks(S), S
+        assert pfa._use_flash(S, S) == jx.fa._use_flash(S, S), S
+    assert not pfa._use_flash(2304, 257) and not jx.fa._use_flash(2304, 257)
+    assert pfa.TUNED_BLOCKS == jx.fa.TUNED_BLOCKS
+
+
 def test_plain_chunking_is_exact(monkeypatch):
     """The plain versions' chunking over batch x heads and positions changes
     no value."""
@@ -258,6 +288,18 @@ def test_plain_chunking_is_exact(monkeypatch):
     # packed heads at other sizes: K1 under the default switches, never K10 / K11
     (((8, 1024, 320),) * 3, 8, "flash_attention_fullc"),          # 256^2, level 0
     (((8, 4096, 640),) * 3, 8, "flash_attention_fullc"),          # 1024^2, level 1
+    # the JAX block rule (pick_blocks / _use_flash): S = 34^2 = 1156 has no
+    # block that is a multiple of 16, S = 1072 = 16 x 67 only q_block 16 < 64
+    (((16, 1156, 320),) * 3, 8, "dot_product_attention"),         # 272^2, level 0
+    (((8, 1156, 512),) * 3, 1, "dot_product_attention"),          # its VAE mid-block
+    (((16, 1156, 320), (16, 257, 320), (16, 257, 320)), 8, "dot_product_attention"),
+    (((16, 1072, 320),) * 3, 8, "dot_product_attention"),
+    (((8, 1072, 512),) * 3, 1, "dot_product_attention"),
+    (((16, 1072, 320), (16, 257, 320), (16, 257, 320)), 8, "dot_product_attention"),
+    (((20, 5184, 320),) * 3, 8, "flash_attention_fullc"),         # 576^2 training, level 0
+    (((20, 1296, 640),) * 3, 8, "flash_attention_fullc"),         # and level 1
+    (((20, 5184, 320), (20, 257, 320), (20, 257, 320)), 8, "cross_attention"),
+    (((4, 5184, 512),) * 3, 1, "flash_attention_wide"),           # its VAE mid-block
 ])
 def test_dispatch_rule(shape, heads, route, monkeypatch):
     """``attention`` picks the route the JAX dispatcher picks for each shape
@@ -366,7 +408,7 @@ def test_cpu_tensors_never_launch():
 
     q, ctx = r(1, 1024, 16), r(1, 257, 16)
     for out, want in (
-        (pfa.attention(q, q, q, 2), pfa.dot_product_attention(q, q, q, 2)),          # K1 route
+        (pfa.attention(q, q, q, 2), pfa.anchored_attention_t(q, q, q, 2)),           # K1 route
         (pfa.attention(q, ctx, ctx, 2), pfa.dot_product_attention(q, ctx, ctx, 2)),  # K2 route
         (pfa.attention(r(1, 1024, 128), *[r(1, 1024, 128)] * 2, 1), None),           # K9 route
         (pfa.flash_attention_wide(r(1, 64, 128), *[r(1, 64, 128)] * 2, 1), None),    # K4
@@ -644,20 +686,25 @@ def test_norm_kernel_matches_plain_on_card(case, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["K1-hd40", "K1-hd80", "K2", "K3", "K3-one-frame", "K3-30-frames",
-                                  "K4", "K9", "K9-ragged", "K9-two-heads", "K13-hd40",
+@pytest.mark.parametrize("case", ["K1-hd40", "K1-hd80", "K1-hd40-3-heads", "K1-clamp-hd40",
+                                  "K1-clamp-hd80", "K2", "K3", "K3-one-frame", "K3-30-frames",
+                                  "K4", "K4-5184", "K9", "K9-ragged", "K9-two-heads", "K13-hd40",
                                   "K13-hd80", "K13-hd160-30-tokens", "K13-one-token"])
 def test_kernel_matches_plain_on_card(case, cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
 
-    def r(*s):
-        return torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+    def r(*s, scale=1.0):
+        return (torch.randn(s, generator=g, device=cuda) * scale).to(torch.bfloat16)
 
     kern = case.split("-")[0]
-    if kern == "K1":
-        hd = int(case[-2:])
-        args, fn, plain = [r(2, 1100, 8 * hd) for _ in range(3)] + [8], \
-            pfa.flash_attention_fullc, pfa.dot_product_attention
+    if kern == "K1":  # K1 is held to the TPU kernel's function, the clamp included
+        hd = 40 if "hd40" in case else 80
+        heads = 3 if case.endswith("3-heads") else 8
+        args, fn, plain = [r(2, 1100, heads * hd, scale=3.0 if "clamp" in case else 1.0),
+                           r(2, 1100, heads * hd), r(2, 1100, heads * hd), heads], \
+            pfa.flash_attention_fullc, pfa.anchored_attention_t
+        bites = pfa.anchor_excursion(args[0], args[1], heads) > pfa.EXP_CLAMP
+        assert bites == ("clamp" in case)
     elif kern == "K2":
         args, fn, plain = [r(2, 1100, 320), r(2, 257, 320), r(2, 257, 320), 8], \
             pfa.cross_attention, pfa.dot_product_attention
@@ -674,8 +721,9 @@ def test_kernel_matches_plain_on_card(case, cuda):
                    "K13-hd160-30-tokens": (64, 30, 1280), "K13-one-token": (64, 1, 320)}[case]
         args, fn, plain = [r(N, T, C) for _ in range(3)] + [8], \
             pta.small_sequence_attention, pta.small_sequence_attention_plain
-    else:
-        args, fn, plain = [r(2, 1100, 512) for _ in range(3)] + [1], \
+    else:  # 5184: the VAE mid-block at 576^2, four pictures of a training batch
+        S = 5184 if case == "K4-5184" else 1100
+        args, fn, plain = [r(2, S, 512) for _ in range(3)] + [1], \
             pfa.flash_attention_wide, pfa.dot_product_attention
     got = fn(*args)
     torch.cuda.synchronize()
@@ -751,16 +799,17 @@ def test_conv_wrapper_refuses_what_the_kernel_does_not_take(case, match):
     ("flash_anchor_resident", "device", "unsupported device"),
     ("flash_anchor_resident", "width", "head width"),
     ("flash_anchor_resident", "cross", "S_kv == S"),
-    ("flash_anchor_resident", "odd-heads", "even number of heads"),
+    ("flash_anchor_resident", "odd-heads", None),  # taken: the last head of 40 is staged
     ("flash_anchor_resident", "offset", "32-byte"),
     ("flash_anchor_stream", "device", "unsupported device"),
     ("flash_anchor_stream", "dtype", "bf16"),
     ("flash_anchor_stream", "cross", "S_kv == S"),
 ])
 def test_anchored_wrappers_refuse_what_the_kernels_do_not_take(fn, case, match, monkeypatch):
-    """K10 and K11 take bf16 self-attention at head widths 40 and 80; K10, which
-    loads fragments from global memory in 80-channel windows, also needs
-    32-byte alignment and heads of 40 in pairs."""
+    """K10 and K11 take bf16 self-attention at head widths 40 and 80, any head
+    count; K10, which loads fragments from global memory in 80-channel
+    windows, also needs 32-byte alignment. ``match`` None: the wrapper takes
+    the operands and launches."""
     q = k = v = _meta(2, 1024, 320)
     heads = 8
     if case == "width":
@@ -778,6 +827,10 @@ def test_anchored_wrappers_refuse_what_the_kernels_do_not_take(fn, case, match, 
         monkeypatch.setattr(pfa, "_check_cuda", lambda name, *a: pfa._check_operands(name, *a))
     launched = []
     monkeypatch.setattr(pfa, "_launch", lambda *a: launched.append(a))
+    if match is None:
+        getattr(pfa, fn)(q, k, v, heads)
+        assert len(launched) == 1 and launched[0][-2:] == (heads, 40)
+        return
     with pytest.raises(ValueError, match=match):
         getattr(pfa, fn)(q, k, v, heads)
     assert not launched
@@ -786,7 +839,8 @@ def test_anchored_wrappers_refuse_what_the_kernels_do_not_take(fn, case, match, 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
     "K7-bias", "K7-residual-ragged", "K7-plain", "K7-fp32-bias-wide", "K8-320", "K8-w24-to-4",
-    "K8-cin2560", "K8-one-row", "K10-hd40", "K10-hd80", "K10-ragged", "K10-clamp", "K11-hd40",
+    "K8-cin2560", "K8-one-row", "K10-hd40", "K10-hd80", "K10-ragged", "K10-clamp",
+    "K10-hd40-3-heads", "K10-hd40-3-heads-ragged", "K11-hd40",
     "K11-hd80", "K11-ragged", "K11-clamp", "K12-hd40", "K12-hd80", "K12-ragged", "K12-clamp"])
 def test_row_major_kernel_matches_plain_on_card(case, cuda):
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -815,14 +869,16 @@ def test_row_major_kernel_matches_plain_on_card(case, cuda):
     else:
         hd = 80 if case.endswith("hd80") else 40
         S = 1091 if case.endswith("ragged") else 1152
-        q, k, v = r(2, S, 8 * hd, scale=3.0 if case.endswith("clamp") else 1.0), \
-            r(2, S, 8 * hd), r(2, S, 8 * hd)
+        heads = 3 if "3-heads" in case else 8  # an odd count: the last head of 40 is alone
+        C = heads * hd
+        q, k, v = r(2, S, C, scale=3.0 if case.endswith("clamp") else 1.0), r(2, S, C), r(2, S, C)
         fn, counter = {"K10": (pfa.flash_anchor_resident, pfa.K10),
                        "K11": (pfa.flash_anchor_stream, pfa.K11),
                        "K12": (pfa.flash_attention_fullc_t, pfa.K12)}[kern]
-        got = lambda: fn(q, k, v, 8)  # noqa: E731
-        want = (pfa.anchored_attention_t if kern == "K12" else pfa.anchored_attention)(q, k, v, 8)
-        assert (pfa.anchor_excursion(q, k, 8) > pfa.EXP_CLAMP) == case.endswith("clamp")
+        got = lambda: fn(q, k, v, heads)  # noqa: E731
+        want = (pfa.anchored_attention_t if kern == "K12" else pfa.anchored_attention)(q, k, v,
+                                                                                       heads)
+        assert (pfa.anchor_excursion(q, k, heads) > pfa.EXP_CLAMP) == case.endswith("clamp")
     before = counter.launches
     out = got()
     torch.cuda.synchronize()
@@ -882,6 +938,7 @@ def test_backward_through_each_wrapper_on_card(case, cuda):
     def qkv(S, C, Skv=None):
         return [r(2, S, C), r(2, Skv or S, C), r(2, Skv or S, C)]
 
+    forward = None  # the forward's plain version where it is not the backward's
     if case in ("K1", "K10", "K11", "K12"):
         fn, counter = {"K1": (pfa.flash_attention_fullc, pfa.K1),
                        "K10": (pfa.flash_anchor_resident, pfa.K10),
@@ -889,6 +946,8 @@ def test_backward_through_each_wrapper_on_card(case, cuda):
                        "K12": (pfa.flash_attention_fullc_t, pfa.K12)}[case]
         ins, call = qkv(1091, 320), lambda a, b, c: fn(a, b, c, 8)
         plain = lambda a, b, c: pfa.dot_product_attention(a, b, c, 8)  # noqa: E731
+        if case == "K1":  # the TPU kernel's forward, the exact softmax's backward
+            forward = lambda a, b, c: pfa.anchored_attention_t(a, b, c, 8)  # noqa: E731
     elif case == "K2":
         ins, counter = qkv(1100, 320, 257), pfa.K2
         call = lambda a, b, c: pfa.cross_attention(a, b, c, 8)  # noqa: E731
@@ -924,6 +983,10 @@ def test_backward_through_each_wrapper_on_card(case, cuda):
     before = counter.launches
     out = call(*ins)
     assert counter.launches == before + 1 and out.grad_fn is None  # nothing recorded
+    if forward is not None:
+        want = forward(*ins).float()
+        torch.testing.assert_close(out.float(), want, atol=ATOL, rtol=RTOL)
+        assert ((out.float() - want).norm() / want.norm()).item() < 1e-2
     live = [t.clone().requires_grad_(i != 1) for i, t in enumerate(ins)]  # input 1 frozen
     before = counter.launches
     out = call(*live)

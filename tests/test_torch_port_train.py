@@ -588,7 +588,8 @@ def test_wrapper_backward_matches_plain_and_jax(case):
     cot = np.random.default_rng(5).normal(size=tuple(out.shape)).astype(np.float32)
     got_out, got = _grads(fn, ins, cot)
     want_out, want = _grads(plain, ins, cot)
-    anchored = case in ("K10", "K11", "K12")  # forward: the anchored function, not the softmax
+    # forward: the anchored function, not the softmax
+    anchored = case in ("K1", "K10", "K11", "K12")
     np.testing.assert_allclose(got_out, want_out if not anchored else got_out, atol=1e-5)
     assert len(got) == len(want) == sum(a is not None for a in ins)
     for a, b in zip(got, want):
