@@ -26,7 +26,8 @@ Phases, in order, one line each; any failure exits non-zero:
    K1 is held to ``anchored_attention_t`` (the TPU kernel's anchor and
    clamp), also where the clamp bites and the exact softmax is another
    function, and to K12 on the same inputs, since the two kernels compute
-   one function; its log line also gives the exp2 floor;
+   one function, as K10 is to K11; the anchored kernels' log lines also give
+   the exp2 floor;
 4. request A: ``VideoPipeline.__call__`` at the headline geometry (16 uint8
    frames at 768^2, SD1.5 widths, context 30/8, CFG 3.5, 20 DDIM steps,
    absent face/hand streams, ready-made CLIP tokens and zero flow, SD-VAE
@@ -84,7 +85,8 @@ Phases, in order, one line each; any failure exits non-zero:
 
 The kernel counts are set to 0 just before each request and read just after;
 K1's and K4's must equal the counts the smoke read before the dispatcher
-took the JAX block rule (``K1_K4_LAUNCHES``).
+took the JAX block rule (``K1_K4_LAUNCHES``), K2's and K10's those read
+before the two were rebuilt (``K2_K10_LAUNCHES``).
 It prints the kernel record (one JSON object; ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` at each kernel's first shape; ``launches``
 from request B, for K9 and K13 from request D, for K7, K8, K10 and K11 from
@@ -188,6 +190,13 @@ K1_K4_LAUNCHES = {"request A": (210, 7), "request B": (210, 4), "image request":
                   "request C, cached-grouped": (90, 16), "request D": (25, 0),
                   "request F (default)": (111, 63), "request F (transposed)": (0, 63),
                   "stage-1 steps": (40, 6)}
+# Launches of K2 and K10 on each path as the smoke read them before the two
+# kernels were rebuilt (PERF.md section 6): the rebuild changes no route.
+K2_K10_LAUNCHES = {"request A": (210, 0), "request B": (210, 0), "image request": (210, 0),
+                   "request C, per-step": (180, 0), "request C, cached_q8": (130, 0),
+                   "request C, cached-grouped": (90, 0), "request D": (25, 0),
+                   "request E": (None, 25), "request F (default)": (111, 0),
+                   "request F (transposed)": (111, 60), "stage-1 steps": (40, 0)}
 
 
 def log(msg: str) -> None:
@@ -433,6 +442,11 @@ def attention_cases(dev, only=()):
          [(32, 9216, 320), (32, 257, 320), (32, 257, 320)], 8),
         (fa.K2, fa.cross_attention, fa.dot_product_attention,
          [(32, 2304, 640), (32, 257, 640), (32, 257, 640)], 8),
+        # request F's levels: 20 frames at 576^2
+        (fa.K2, fa.cross_attention, fa.dot_product_attention,
+         [(20, 5184, 320), (20, 257, 320), (20, 257, 320)], 8),
+        (fa.K2, fa.cross_attention, fa.dot_product_attention,
+         [(20, 1296, 640), (20, 257, 640), (20, 257, 640)], 8),
         (ta.K3, ta.temporal_attention, ta.temporal_attention_plain, [(2, 16, 9216, 320)] * 3, 8),
         (ta.K3, ta.temporal_attention, ta.temporal_attention_plain, [(2, 16, 2304, 640)] * 3, 8),
         (ta.K3, ta.temporal_attention, ta.temporal_attention_plain, [(2, 16, 576, 1280)] * 3, 8),
@@ -555,6 +569,8 @@ def anchored_cases(dev, only=()):
     cases = [(fa.K10, fa.flash_anchor_resident, level1, 1.0),
              (fa.K10, fa.flash_anchor_resident, level0, 1.0),
              (fa.K10, fa.flash_anchor_resident, (8, 2304, 640), 3.0),
+             # the transposed trainer's level 1 (request F, 20 frames at 576^2)
+             (fa.K10, fa.flash_anchor_resident, (20, 1296, 640), 1.0),
              (fa.K11, fa.flash_anchor_stream, level0, 1.0),
              (fa.K11, fa.flash_anchor_stream, level1, 1.0),
              (fa.K11, fa.flash_anchor_stream, (8, 2304, 320), 3.0),
@@ -581,7 +597,8 @@ def anchored_cases(dev, only=()):
               f"{kern.name} {shape}: largest |s - off| {excursion:.1f} with q x {q_scale}")
         plain = fa.anchored_attention_t if kern is fa.K12 else fa.anchored_attention
         what = (f"{kern.name} q{shape} heads {heads} q x {q_scale} (largest |s - off| "
-                f"{excursion:.1f}")
+                f"{excursion:.1f}; exp2 floor "
+                f"{exp2_floor_ms(shape[0] * heads * shape[1] ** 2):.3f} ms")
         if kern is fa.K12 and q_scale > 1.0:
             # the anchor rounded to bf16 moves which scores the clamp clips:
             # here K12's function is no longer K10 / K11's
@@ -877,6 +894,45 @@ def check_k1_against_k12(dev) -> None:
         del q, k, v, k1
 
 
+def check_k10_against_k11(dev) -> None:
+    """K10 and K11 compute one function (``anchored_attention``): both kernels
+    on the same inputs, at the 2304-token level and where the clamp bites,
+    held to each other under the relative-L2 limit; K11 with the softmax
+    scale off by 9% is the control."""
+    from mikudance_tpu_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    for shape, q_scale in (((32, 2304, 640), 1.0), ((8, 2304, 640), 3.0)):
+        q, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+        q, k, v = (q * q_scale).to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
+        check((fa.anchor_excursion(q[:1], k[:1], 8) > fa.EXP_CLAMP) == (q_scale > 1.0),
+              f"K10 against K11 {shape}: the clamp bites only with q x 3")
+        k10 = fa.flash_anchor_resident(q, k, v, 8)
+        rel = rel_l2(k10, fa.flash_anchor_stream(q, k, v, 8))
+        ctl = rel_l2(k10, fa.flash_anchor_stream(q * CONTROL_Q_SCALE, k, v, 8))
+        log(f"kernels: K10 against K11 on the same inputs q{shape} heads 8 q x {q_scale}: "
+            f"relative L2 {rel:.3e} (limit {REL_L2}; control {ctl:.3e})")
+        check(rel < REL_L2 < ctl, f"K10 against K11 {shape}: {rel:.3e}, control {ctl:.3e}")
+        del q, k, v, k10
+
+
+def ptxas_report(log_text: str, kernels) -> str:
+    """ptxas's registers and spills of each instantiation of the named kernels
+    (substrings of the mangled entry names); their shared memory is dynamic,
+    sized by each source's ``Plan``, and ptxas reports only static memory."""
+    lines, out, entry = log_text.splitlines(), [], None
+    for line in lines:
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            entry = next((k + name[name.index("ILi"):].split("E")[0].replace("ILi", "<") + ">"
+                          for k in kernels if k in name), None)
+        elif entry and ("spill" in line or "Used" in line):
+            out.append(f"{entry}: {line.split(':', 1)[-1].strip()}")
+            if "Used" in line:
+                entry = None
+    return "; ".join(out)
+
+
 def phase_kernels(dev, only=()):
     """Every kernel against its plain version at the paths' shapes. Returns
     the kernel record: per kernel the times at its first shape."""
@@ -886,6 +942,8 @@ def phase_kernels(dev, only=()):
 
     if wanted(fa.K1, only) or wanted(fa.K12, only):
         check_k1_against_k12(dev)
+    if wanted(fa.K10, only) or wanted(fa.K11, only):
+        check_k10_against_k11(dev)
     record = {}
     for kern, what, run, plain, control, library, flops, nbytes, peak, *rest in itertools.chain(
             attention_cases(dev, only), norm_cases(dev, only), anchored_cases(dev, only),
@@ -939,8 +997,8 @@ def phase_kernels(dev, only=()):
 PROFILE_CATEGORIES = [
     ("K1 hd 40 (S=9216 self)", ("flash_fullc_kernel<40>",)),
     ("K1 hd 80 (S=2304 self)", ("flash_fullc_kernel<80>",)),
-    ("K2 hd 40 (S=9216 cross)", ("attn_tile_kernel<48",)),
-    ("K2 hd 80 (S=2304 cross)", ("attn_tile_kernel<80",)),
+    ("K2 hd 40 (S=9216 cross)", ("flash_cross_kernel<40>",)),
+    ("K2 hd 80 (S=2304 cross)", ("flash_cross_kernel<80>",)),
     ("K4 hd 512 (VAE)", ("flash_wide_kernel",)),
     ("K3 temporal", ("temporal_kernel",)),
     ("K5 GroupNorm (statistics, finish, apply)", ("gn_stats_kernel", "gn_finish_kernel",
@@ -950,7 +1008,7 @@ PROFILE_CATEGORIES = [
     ("K8 conv3x3", ("conv3x3_kernel",)),
     ("K12 transposed anchored attention", ("fullc_t_kernel",)),
     ("K14 mega-block", ("mega_kernel",)),
-    ("K10 anchored attention, K/V from L2", ("anchor_resident_kernel",)),
+    ("K10 anchored attention, wgmma + TMA", ("anchor_wg_kernel",)),
     ("K11 anchored attention, K/V staged", ("anchor_stream_kernel",)),
     ("conv (cuDNN)", ("fprop", "conv", "implicit_gemm", "cudnn", "nhwc")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "Kernel2")),
@@ -1330,9 +1388,14 @@ def main() -> int:
             k.launches = 0
 
     def same_launches(what: str, counts: dict) -> None:
-        got = (counts[fa.K1.name], counts[fa.K4.name])
-        check(got == K1_K4_LAUNCHES[what],
-              f"{what}: K1 / K4 launched {got} times, {K1_K4_LAUNCHES[what]} before")
+        if what in K1_K4_LAUNCHES:
+            got = (counts[fa.K1.name], counts[fa.K4.name])
+            check(got == K1_K4_LAUNCHES[what],
+                  f"{what}: K1 / K4 launched {got} times, {K1_K4_LAUNCHES[what]} before")
+        want = K2_K10_LAUNCHES[what]
+        got = tuple(None if n is None else counts[k.name]
+                    for n, k in zip(want, (fa.K2, fa.K10)))
+        check(got == want, f"{what}: K2 / K10 launched {got} times, {want} before")
 
     def read_counts(what: str, expect=default_kernels, absent=row_major_only,
                     also_absent=off_the_sampler) -> dict:
@@ -1358,6 +1421,8 @@ def main() -> int:
     _build.load()
     log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s "
         f"(ptxas report: {lib.with_suffix('.log')})")
+    log("ptxas: " + ptxas_report(lib.with_suffix(".log").read_text(),
+                                 ("anchor_wg_kernel", "flash_cross_kernel")))
 
     cfg = PipelineConfig(width=W, height=H, num_inference_steps=STEPS, guidance_scale=3.5,
                          context=ContextConfig(frames=30, overlap=8))
@@ -1742,6 +1807,7 @@ def main() -> int:
             wall = time.perf_counter() - t0
             on_e = [k for k in at_768 if k is not fa.K1] + list(row_major_only)
             launches_e = read_counts("request E", on_e, absent=(fa.K1, fa.K9, ta.K13))
+            same_launches("request E", launches_e)
     finally:
         fa.flash_anchor_stream = stream
     check_video(frames, latents, T, "request E")

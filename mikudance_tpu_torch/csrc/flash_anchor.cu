@@ -1,45 +1,31 @@
-// Anchored packed-heads self-attention, hand-written for Hopper (sm_90a).
+// Anchored packed-heads self-attention with the keys streamed, hand-written
+// for Hopper (sm_90a).
 //
-//   K10 md_flash_anchor_resident  replaces mikudance_tpu/kernels/flash_attention.py
-//       _flash_kernel_fullc_resident (:158), the branch of flash_attention_fullc
-//       (:278) taken while a batch element's K and V stay under its byte limit
-//       (the 2304-token UNet level, 8 heads of 80).
-//   K11 md_flash_anchor_stream    replaces _flash_kernel_fullc_stream (:209),
-//       the branch above that limit (the 9216-token level, 8 heads of 40).
+//   K11 md_flash_anchor_stream    replaces mikudance_tpu/kernels/flash_attention.py
+//       _flash_kernel_fullc_stream (:209), the branch of flash_attention_fullc
+//       (:278) above its byte limit (the 9216-token level, 8 heads of 40).
+//       K10, the branch under it, is flash_anchor_wg.cu.
 //
-// Both compute, per head of (B, S, C) bf16 tensors with the heads packed in C:
+// It computes, per head of (B, S, C) bf16 tensors with the heads packed in C:
 //     q'  = q * (log2(e) / sqrt(hd))              fp32
 //     off = sum_d q'_d q_d                        fp32, the row's self-score
 //     s   = bf16(q') . k                          fp32 accumulation
 //     p   = bf16(exp2(clip(s - off, -100, 100)))
 //     o   = (sum_j p_j v_j) / (sum_j p_j)         both sums in fp32 over bf16 p
 // This is not the exact softmax once the clamp bites; it is what the TPU
-// kernels compute. There is no running maximum and so no rescale: the output
+// kernel computes. There is no running maximum and so no rescale: the output
 // accumulator stays in wmma fragments for the whole key loop and is divided
-// once at the end (K1 keeps it in shared memory for its per-tile rescale). The
-// denominator is a row sum of the rounded p in the same pass that writes p.
+// once at the end. The denominator is a row sum of the rounded p in the same
+// pass that writes p.
 //
-// What bounds them on the card: tensor-core work and the exponentials (S^2 hd
+// What bounds it on the card: tensor-core work and the exponentials (S^2 hd
 // multiply-adds against S hd bytes). A block of 8 warps owns 128 query rows of
 // one (batch, head), 16 a warp; one tile update (tile_update) takes a tile of
 // keys: S = Q K^T into fragments, through a per-warp fp32 scratch for the
-// exponentials (two lanes a row), P back as bf16 fragments, O += P V. The two
-// kernels differ as their originals do, in how K and V reach the tensor cores:
-//
-//   K10 loads K and V fragments straight from global memory: a batch element's
-//   K and V (5.9 MB at the 2304-token level) stay in the 50 MB L2 while its
-//   query blocks, adjacent in launch order, run. wmma wants 32-byte aligned
-//   fragments, which a head of 40 at an odd index is not: K10 always works on
-//   the aligned window of 80 channels that holds the head (the head itself at
-//   width 80, the head pair at width 40) with Q zero outside its own head, and
-//   writes its own head's columns only. A ragged last key tile is staged
-//   through shared memory, zero-filled. So is every key tile of the last head
-//   of 40 when the head count is odd: it has no partner, and its window would
-//   reach past the row's C channels. Its 40 channels are staged into columns
-//   0-39 of the tile, whose columns 40-79 are zeroed once.
-//   K11 stages key tiles through shared memory with cp.async, two stages, a
-//   head of 40 padded to 48 columns there.
-// In both, keys past S get p = 0 exactly, and query rows past S are not written.
+// exponentials (two lanes a row), P back as bf16 fragments, O += P V. Key
+// tiles are staged through shared memory with cp.async, two stages, a head of
+// 40 padded to 48 columns there. Keys past S get p = 0 exactly, and query rows
+// past S are not written.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -224,70 +210,6 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int row0,
   }
 }
 
-// K10. HD is the head width (40 or 80); the tile is the aligned 80-channel
-// window that holds the head.
-template <int HD>
-__global__ void __launch_bounds__(kThreads, 2)
-anchor_resident_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ o, int seq, int heads,
-                       int ld, float scale_log2) {
-  constexpr int D = 80, BK = 64;
-  using L = Plan<D, BK>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int warp = threadIdx.x / 32;
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  float* s_w = reinterpret_cast<float*>(smem + L::q) + warp * 16 * L::LDS;
-  bf16* p_w = reinterpret_cast<bf16*>(smem + L::q + L::s) + warp * 16 * L::LDP;
-  bf16* kt_s = reinterpret_cast<bf16*>(smem + L::q + L::s + L::p);  // the ragged tail
-  bf16* vt_s = kt_s + BK * L::LD;
-
-  const int q0 = blockIdx.x * kBlockQ;
-  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const int win = h * HD / D * D, woff = h * HD - win;
-  const size_t batch = static_cast<size_t>(b) * seq * ld;
-  // the unpaired last head of 40 (woff = 0): every tile staged, 40 columns
-  const bool lone = HD == 40 && heads % 2 == 1 && h == heads - 1;
-  if (lone) {
-    for (int i = threadIdx.x; i < 2 * BK * L::LD / 8; i += kThreads)
-      reinterpret_cast<uint4*>(kt_s)[i] = make_uint4(0u, 0u, 0u, 0u);
-  }
-  const float off = prepare_q<HD, D>(q_s, q + batch + h * HD, q0, seq, ld, woff, scale_log2);
-  const bf16* k_w = k + batch + win;
-  const bf16* v_w = v + batch + win;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(oacc[j], 0.f);
-  float l = 0.f;
-  const bf16* q_w = q_s + warp * 16 * L::LD;
-  const int full = lone ? 0 : seq / BK, rem = lone ? 0 : seq % BK;
-  for (int t = 0; lone && t * BK < seq; ++t) {
-    __syncthreads();  // every warp is done with the previous tile
-    stage_rows<BK, 40, L::LD>(kt_s, k_w, t * BK, seq, ld);
-    stage_rows<BK, 40, L::LD>(vt_s, v_w, t * BK, seq, ld);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    tile_update<D, BK>(q_w, kt_s, L::LD, vt_s, L::LD, s_w, p_w, off, min(BK, seq - t * BK), oacc,
-                       l);
-  }
-  for (int t = 0; t < full; ++t) {
-    const size_t at = static_cast<size_t>(t) * BK * ld;
-    tile_update<D, BK>(q_w, k_w + at, ld, v_w + at, ld, s_w, p_w, off, BK, oacc, l);
-  }
-  if (rem) {
-    stage_rows<BK, D, L::LD>(kt_s, k_w, full * BK, seq, ld);
-    stage_rows<BK, D, L::LD>(vt_s, v_w, full * BK, seq, ld);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    tile_update<D, BK>(q_w, kt_s, L::LD, vt_s, L::LD, s_w, p_w, off, rem, oacc, l);
-  }
-  const int row0 = q0 + warp * 16;
-  write_out<D, L::LDS>(oacc, l, s_w, o + batch + static_cast<size_t>(row0) * ld + win, ld,
-                       seq - row0, woff, woff + HD);
-}
-
 // K11. HD is the head width, D its tile width (40 -> 48, 80 -> 80).
 template <int HD, int D, int BK>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -357,10 +279,6 @@ cudaError_t launch(Kernel kern, int smem, const void* q, const void* k, const vo
 }
 
 template <int D, int BK>
-constexpr int resident_smem() {
-  return Plan<D, BK>::q + Plan<D, BK>::s + Plan<D, BK>::p + 2 * Plan<D, BK>::kv;
-}
-template <int D, int BK>
 constexpr int stream_smem() {
   return Plan<D, BK>::q + Plan<D, BK>::s + Plan<D, BK>::p + 4 * Plan<D, BK>::kv;
 }
@@ -369,23 +287,8 @@ constexpr int stream_smem() {
 
 extern "C" {
 
-// q, k, v, o: (batch, seq, heads * hd) bf16, contiguous, hd 40 or 80, any
-// head count. K10 needs 32-byte aligned tensors (fragments are loaded from
-// global memory in windows of 80 channels).
-int md_flash_anchor_resident(const void* q, const void* k, const void* v, void* o, int batch,
-                             int seq, int heads, int hd, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (seq < 1) return cudaErrorInvalidValue;
-  if (hd == 40)
-    return launch(anchor_resident_kernel<40>, resident_smem<80, 64>(), q, k, v, o, batch, seq,
-                  heads, hd, s);
-  if (hd == 80)
-    return launch(anchor_resident_kernel<80>, resident_smem<80, 64>(), q, k, v, o, batch, seq,
-                  heads, hd, s);
-  return cudaErrorInvalidValue;
-}
-
-// K11 needs 16-byte aligned tensors.
+// q, k, v, o: (batch, seq, heads * hd) bf16, contiguous, 16-byte aligned,
+// hd 40 or 80, any head count.
 int md_flash_anchor_stream(const void* q, const void* k, const void* v, void* o, int batch,
                            int seq, int heads, int hd, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);

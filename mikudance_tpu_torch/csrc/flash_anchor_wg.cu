@@ -1,0 +1,503 @@
+// Anchored packed-heads self-attention on Hopper's warpgroup tensor cores
+// (wgmma) with K and V fed by the Tensor Memory Accelerator (TMA),
+// hand-written for sm_90a.
+//
+//   K10 md_flash_anchor_resident  replaces mikudance_tpu/kernels/flash_attention.py
+//       _flash_kernel_fullc_resident (:158), the branch of flash_attention_fullc
+//       (:278) taken while a batch element's K and V stay under its byte limit
+//       (the 2304-token UNet level, 8 heads of 80; the 1296-token level of
+//       576^2 training in the transposed configuration).
+//
+// Per head of (B, S, C) bf16 tensors with the heads packed in C:
+//     q'  = q * (log2(e) / sqrt(hd))              fp32
+//     off = sum_d q'_d q_d                        fp32, not rounded
+//     s   = bf16(q') . k                          fp32 accumulation
+//     p   = bf16(exp2(clip(s - off, -100, 100)))
+//     o   = (sum_j p_j v_j) / (sum_j p_j)         both sums in fp32 over bf16 p
+// as the TPU kernel; there is no running maximum and so no rescale. K1 and
+// K12 compute the same with the anchor rounded to bf16; K11 is this function
+// with the keys streamed.
+//
+// What bounds it on the card: at a head of 80 the tensor cores. At
+// (32, 2304, 640) the 4 B S^2 C flops take 0.440 ms at the bf16 peak, the
+// S^2 B heads exponentials 0.325 ms on the special-function units; bytes are
+// far below either. mma.sync does not reach the tensor cores' full rate on
+// Hopper (K1's register loop stops at 1.5x cuDNN here); warpgroup MMA does.
+//
+// Design (FA3's shape). A block owns 128 query rows of one (batch, head):
+// two consumer warpgroups of 64 rows each and one producer warp.
+//   Q: each consumer thread loads its rows' pairs straight into the
+//   registers of wgmma's A fragment (the mma.sync m16n8k16 layout, one warp
+//   16 rows), scaled in fp32 and rounded to bf16; its share of each row's
+//   fp32 anchor comes from the same unrounded values, the quad reduces.
+//   K and V: tiles of 128 keys arrive by TMA in a ring of four stages with
+//   full / empty mbarriers. A tile is KS boxes of 128 keys x 16 channels
+//   (KS = 5 at hd 80; 3 at hd 40, padded to 48), 32-byte swizzled, read from
+//   a 3-D (C, S, B) tensor map at the head's channel offset, so rows past S
+//   and channels past C arrive as zeros, never as the next batch element's.
+//   A box of K is the K-major B operand of one k16 step of Q K^T; the boxes
+//   of V side by side are the N-major (transposed) B operand of P V.
+//   S = Q K^T: wgmma m64n128k16, A from registers, fp32 in registers. Then in
+//   registers: subtract the anchor, clamp, ex2.approx, round to bf16 pairs;
+//   each thread sums its rounded p in fp32. The accumulator layout of S is
+//   the A-fragment layout of P: O += P V is wgmma m64n80k16 (n48 at hd 40)
+//   with P as the register A operand and O in registers (40 fp32 a thread).
+//   Each product is waited for before its result is used; the two consumer
+//   warpgroups run unsynchronised, so one's exponentials can overlap the
+//   other's products. (Timed on the H100 and left out: tiles of 64 keys; S
+//   of the next tile issued before this tile's exponentials; FA3's ping-pong
+//   of the two warpgroups, which needs P V of one tile and S of the next in
+//   one group. Each was slower.)
+//   End: the quad reduces l once; O / l as bf16 leaves through a per-warp
+//   staging tile in 16-byte stores of the head's columns. Keys past S get
+//   p = 0 exactly; rows past S are not written.
+// Alignment is TMA's: 16-byte base and row stride (C a multiple of 8).
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <math.h>
+#include <stdint.h>
+
+#include "mma_sync.cuh"
+
+using namespace md_mma;
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int kConsumers = 2;                    // warpgroups of 64 query rows
+constexpr int kThreads = 128 * kConsumers + 32;  // and one producer warp
+constexpr int kBlockQ = 64 * kConsumers;         // query rows a block
+constexpr int kBK = 128;                         // keys a tile
+constexpr int kStages = 4;                       // K/V tiles in flight
+constexpr int kBox = kBK * 32;                   // bytes of a box: 128 keys x 16 channels
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kClamp = 100.f;
+
+// Shared-memory plan for a head width HD: KS boxes a K or V tile (16 KS
+// channels, zero or ignored past HD), an output staging tile of 16 rows a
+// consumer warp (rows padded by 8 bf16 against bank conflicts), the barriers.
+template <int HD>
+struct Plan {
+  static constexpr int KS = (HD + 15) / 16;
+  static constexpr int NO = 16 * KS;                      // columns of P V
+  static constexpr int LDO = NO + 8;
+  static constexpr int stage = 2 * KS * kBox;             // K boxes, then V boxes
+  static constexpr int out = kConsumers * 4 * 16 * LDO * 2;
+  static constexpr int bars = 2 * kStages * 8;            // full, empty
+  static constexpr int bytes = 1024 + kStages * stage + out + bars;  // + alignment slack
+  static_assert(HD % 8 == 0, "16-byte rows");
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// one box of the 3-D tensor map at (c0, c1, c2) -> shared memory, counted on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// until at most N committed groups of products are still running
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accesses of an accumulator across the
+// asynchronous products that own it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// A shared-memory matrix descriptor, 32-byte swizzle: start address, leading
+// and stride byte offsets (the fields hold them in 16-byte units).
+__device__ __forceinline__ uint64_t desc32(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 | static_cast<uint64_t>(3) << 62;
+}
+
+// d (64 x 80, fp32) = A (64 x 16, bf16, registers) B (16 x 80, bf16, a shared-memory
+// descriptor) + (accumulate ? d : 0); kTransB 1: B is N-major
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n80k16(float (&d)[40], const uint32_t (&a)[4],
+                                                 uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, %46;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(kTransB));
+}
+
+// d (64 x 48, fp32) = A (64 x 16, bf16, registers) B (16 x 48, bf16, a shared-memory
+// descriptor) + (accumulate ? d : 0); kTransB 1: B is N-major
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n48k16(float (&d)[24], const uint32_t (&a)[4],
+                                                 uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, %30;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(kTransB));
+}
+
+// d (64 x 128, fp32) = A (64 x 16, bf16, registers) B (16 x 128, bf16, a shared-memory
+// descriptor) + (accumulate ? d : 0); kTransB 1: B is N-major
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
+                                                  uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(kTransB));
+}
+
+// d += A B on the output width of a head: n80 at hd 80, n48 at hd 40
+template <int NO>
+__device__ __forceinline__ void wgmma_out(float (&d)[NO / 2], const uint32_t (&a)[4],
+                                          uint64_t desc_b) {
+  if constexpr (NO == 80) wgmma_m64n80k16<1>(d, a, desc_b, 1);
+  else wgmma_m64n48k16<1>(d, a, desc_b, 1);
+}
+
+// What a consumer's tile update reads besides its registers.
+struct Tiles {
+  uint32_t base, full0, empty0;  // the ring and its barriers (shared addresses)
+  int seq;
+  float off0, off1;  // this lane's rows' anchors
+};
+
+// Key tile t of a consumer warpgroup: S = Q K^T, p = bf16(exp2(clip(s -
+// off))) as the A fragments of P V, O += P V, the stage handed back.
+template <int HD>
+__device__ __forceinline__ void tile_update(const Tiles& tl, int t,
+                                            const uint32_t (&qa)[Plan<HD>::KS][4],
+                                            float (&oacc)[Plan<HD>::NO / 2], float& l0,
+                                            float& l1) {
+  using L = Plan<HD>;
+  const int lane = threadIdx.x % 32, c2 = (lane % 4) * 2;
+  const int s = t % kStages;
+  const uint32_t kt = tl.base + s * L::stage, vt = kt + L::KS * kBox;
+  mbar_wait(tl.full0 + 8 * s, (t / kStages) & 1);
+
+  // S: one k16 step a box; K-major B, 8-key groups 256 bytes apart
+  float sacc[kBK / 2];  // the first step overwrites it
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < L::KS; ++kk)
+    wgmma_m64n128k16<0>(sacc, qa[kk], desc32(kt + kk * kBox, 16, 256), kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(sacc);
+
+  const int valid = tl.seq - t * kBK;  // real keys in this tile (>= kBK: all)
+  uint32_t p[kBK / 16][4];
+#pragma unroll
+  for (int i = 0; i < kBK / 8; ++i) {
+    float p0 = ex2(fminf(fmaxf(sacc[4 * i] - tl.off0, -kClamp), kClamp));
+    float p1 = ex2(fminf(fmaxf(sacc[4 * i + 1] - tl.off0, -kClamp), kClamp));
+    float p2 = ex2(fminf(fmaxf(sacc[4 * i + 2] - tl.off1, -kClamp), kClamp));
+    float p3 = ex2(fminf(fmaxf(sacc[4 * i + 3] - tl.off1, -kClamp), kClamp));
+    if (valid < kBK) {  // the ragged last tile
+      const int key = i * 8 + c2;
+      if (key >= valid) p0 = p2 = 0.f;
+      if (key + 1 >= valid) p1 = p3 = 0.f;
+    }
+    const uint32_t r0 = pack_bf16(p0, p1), r1 = pack_bf16(p2, p3);
+    l0 += bf16_lo(r0) + bf16_hi(r0);
+    l1 += bf16_lo(r1) + bf16_hi(r1);
+    p[i / 2][2 * (i % 2)] = r0;
+    p[i / 2][2 * (i % 2) + 1] = r1;
+  }
+
+  // O += P V: one k16 step a 16 keys; N-major B (the V boxes side by side, a
+  // box apart; 8-key groups 256 bytes apart)
+  fence_regs(oacc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+    wgmma_out<L::NO>(oacc, p[kk], desc32(vt + kk * 512, kBox, 256));
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(oacc);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(tl.empty0 + 8 * s);  // this warp is done with the stage
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+anchor_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v, const bf16* __restrict__ q,
+                 bf16* __restrict__ o, int seq, int heads, float scale_log2) {
+  using L = Plan<HD>;
+  constexpr int KS = L::KS, NO = L::NO, LDO = L::LDO;
+  extern __shared__ unsigned char smem_raw[];
+  // TMA's swizzled boxes and wgmma's descriptors agree on 1024-byte alignment
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* out_s = reinterpret_cast<bf16*>(smem + kStages * L::stage);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + kStages * L::stage + L::out);
+  const uint32_t tiles_u32 = smem_addr(smem);
+  const uint32_t full0 = smem_addr(bars), empty0 = smem_addr(bars + kStages);
+
+  const int q0 = blockIdx.x * kBlockQ;
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const int ld = heads * HD;
+  const int n_tiles = (seq + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);                   // the producer's expect_tx
+      mbar_init(empty0 + 8 * s, 4 * kConsumers);     // one arrival a consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {  // the producer warp: one lane issues the copies
+    if (threadIdx.x % 32 == 0) {
+      for (int t = 0; t < n_tiles; ++t) {
+        const int s = t % kStages;
+        if (t >= kStages) mbar_wait(empty0 + 8 * s, (t / kStages - 1) & 1);
+        const uint32_t full = full0 + 8 * s, dst = tiles_u32 + s * L::stage;
+        mbar_expect_tx(full, L::stage);
+#pragma unroll
+        for (int j = 0; j < KS; ++j) {
+          tma_load(dst + j * kBox, &tm_k, full, h * HD + 16 * j, t * kBK, b);
+          tma_load(dst + (KS + j) * kBox, &tm_v, full, h * HD + 16 * j, t * kBK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer: warp w of warpgroup wg owns rows q0 + 64 wg + 16 w + [0, 16);
+  // this lane rows g and g + 8 of them
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, c2 = (lane % 4) * 2;
+  const int row0 = q0 + wg * 64 + warp * 16 + g, row1 = row0 + 8;
+  const size_t batch = static_cast<size_t>(b) * seq * ld;
+
+  // Q as the A fragments of Q K^T, and this lane's share of the anchors
+  uint32_t qa[KS][4];
+  float off0 = 0.f, off1 = 0.f;
+  {
+    const bf16* q_bh = q + batch + h * HD;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int col = kk * 16 + half * 8 + c2;
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int row = r ? row1 : row0;
+          float x0 = 0.f, x1 = 0.f;
+          if (col < HD && row < seq) {
+            const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
+                q_bh + static_cast<size_t>(row) * ld + col);
+            x0 = __low2float(x);
+            x1 = __high2float(x);
+          }
+          const float s0 = x0 * scale_log2, s1 = x1 * scale_log2;
+          (r ? off1 : off0) += s0 * x0 + s1 * x1;
+          qa[kk][2 * half + r] = pack_bf16(s0, s1);
+        }
+      }
+    }
+    off0 += __shfl_xor_sync(0xffffffffu, off0, 1);
+    off0 += __shfl_xor_sync(0xffffffffu, off0, 2);
+    off1 += __shfl_xor_sync(0xffffffffu, off1, 1);
+    off1 += __shfl_xor_sync(0xffffffffu, off1, 2);
+  }
+
+  float oacc[NO / 2];
+#pragma unroll
+  for (int i = 0; i < NO / 2; ++i) oacc[i] = 0.f;
+  const Tiles tl{tiles_u32, full0, empty0, seq, off0, off1};
+  float l0 = 0.f, l1 = 0.f;  // this lane's share of the row sums
+  for (int t = 0; t < n_tiles; ++t) tile_update<HD>(tl, t, qa, oacc, l0, l1);
+
+  // O / l -> bf16 through this warp's staging rows, then 16-byte stores
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  bf16* o_w = out_s + (wg * 4 + warp) * 16 * LDO;
+#pragma unroll
+  for (int n = 0; n < NO / 8; ++n) {
+    *reinterpret_cast<__nv_bfloat162*>(o_w + g * LDO + n * 8 + c2) =
+        __floats2bfloat162_rn(oacc[4 * n] * inv0, oacc[4 * n + 1] * inv0);
+    *reinterpret_cast<__nv_bfloat162*>(o_w + (g + 8) * LDO + n * 8 + c2) =
+        __floats2bfloat162_rn(oacc[4 * n + 2] * inv1, oacc[4 * n + 3] * inv1);
+  }
+  __syncwarp();
+  const int first = q0 + wg * 64 + warp * 16;
+  bf16* o_bh = o + batch + h * HD;
+  constexpr int kChunks = HD / 8;
+  for (int i = lane; i < 16 * kChunks; i += 32) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    if (first + r < seq)
+      *reinterpret_cast<uint4*>(o_bh + static_cast<size_t>(first + r) * ld + c) =
+          *reinterpret_cast<const uint4*>(o_w + r * LDO + c);
+  }
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime so that the library
+// needs no link against the driver
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// (C, S, B) bf16 at x: boxes of 16 channels x kBK rows, 32-byte swizzle,
+// zeros out of bounds
+bool tensor_map(CUtensorMap* map, const void* x, int batch, int seq, int channels) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(channels), static_cast<cuuint64_t>(seq),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(channels) * 2,
+                                 static_cast<cuuint64_t>(seq) * channels * 2};
+  const cuuint32_t box[3] = {16, kBK, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box,
+                step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int batch, int seq,
+                   int heads, cudaStream_t stream) {
+  auto kern = anchor_wg_kernel<HD>;
+  constexpr int smem = Plan<HD>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  CUtensorMap tm_k, tm_v;
+  if (!tensor_map(&tm_k, k, batch, seq, heads * HD) ||
+      !tensor_map(&tm_v, v, batch, seq, heads * HD))
+    return cudaErrorInvalidValue;
+  const dim3 grid((seq + kBlockQ - 1) / kBlockQ, batch * heads);
+  kern<<<grid, kThreads, smem, stream>>>(tm_k, tm_v, static_cast<const bf16*>(q),
+                                         static_cast<bf16*>(o), seq, heads,
+                                         kLog2e / sqrtf(static_cast<float>(HD)));
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, k, v, o: (batch, seq, heads * hd) bf16, contiguous, 16-byte aligned
+// (TMA's rule for the base and the row stride), hd 40 or 80, any head count,
+// any seq >= 1.
+int md_flash_anchor_resident(const void* q, const void* k, const void* v, void* o, int batch,
+                             int seq, int heads, int hd, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (seq < 1) return cudaErrorInvalidValue;
+  switch (hd) {
+    case 40: return launch<40>(q, k, v, o, batch, seq, heads, s);
+    case 80: return launch<80>(q, k, v, o, batch, seq, heads, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

@@ -6,8 +6,9 @@ Kernels, each beside its plain PyTorch version:
   self-attention with the self-score anchor rounded to bf16 and the +-100
   clamp in place of the running maximum (the UNet levels with S >= 1024
   under the default switches), replacing ``_flash_kernel_fullc_nt``.
-- K2 ``cross_attention`` (``csrc/flash_attention.cu``): S >= 1024 queries
-  against <= 512 keys (the CLIP context), replacing ``_cross_kernel_fullc``.
+- K2 ``cross_attention`` (``csrc/flash_cross.cu``): S >= 1024 queries
+  against <= 512 keys (the CLIP context, held in shared memory), replacing
+  ``_cross_kernel_fullc``.
 - K4 ``flash_attention_wide`` (``csrc/flash_wide.cu``): the VAE mid-block's
   one head of width 512 (the route of every head width that is a multiple of
   128) where one head's K and V exceed ``RESIDENT_KV_BYTES``, replacing
@@ -20,11 +21,13 @@ Kernels, each beside its plain PyTorch version:
   transposed, replacing ``_flash_kernel_fullc_t``: K1's place above the
   resident limit while only ``NEUTRAL_FULLC`` is off (the transposed
   configuration: the 5184-token level of 576^2 training).
-- K10 / K11 ``flash_attention_fullc_anchored`` (``csrc/flash_anchor.cu``):
-  packed-heads self-attention with the self-score anchor in fp32 and the
-  +-100 clamp, replacing ``_flash_kernel_fullc_resident`` (K10, a batch
-  element's K and V under ``FULLC_RESIDENT_BYTES``: the 2304-token level)
-  and ``_flash_kernel_fullc_stream`` (K11, above it: the 9216-token level).
+- K10 / K11 ``flash_attention_fullc_anchored`` (``csrc/flash_anchor_wg.cu``,
+  ``csrc/flash_anchor.cu``): packed-heads self-attention with the self-score
+  anchor in fp32 and the +-100 clamp, replacing
+  ``_flash_kernel_fullc_resident`` (K10, warpgroup MMA with TMA-fed K and V;
+  a batch element's K and V under ``FULLC_RESIDENT_BYTES``: the 2304-token
+  level) and ``_flash_kernel_fullc_stream`` (K11, above it: the 9216-token
+  level).
   They take K1's place while ``TRANSPOSED_FULLC`` and ``NEUTRAL_FULLC`` are
   off (the row-major configuration).
 
@@ -63,16 +66,15 @@ _TPU = "mikudance_tpu/kernels/flash_attention.py"
 K1 = CudaKernel("K1 flash_attention_fullc", "md_flash_fullc",
                 "mikudance_tpu_torch/csrc/flash_fullc.cu", f"{_TPU}:485")
 K2 = CudaKernel("K2 cross_attention", "md_flash_cross",
-                "mikudance_tpu_torch/csrc/flash_attention.cu", f"{_TPU}:598")
+                "mikudance_tpu_torch/csrc/flash_cross.cu", f"{_TPU}:598")
 K4 = CudaKernel("K4 flash_attention_wide", "md_flash_wide",
                 "mikudance_tpu_torch/csrc/flash_wide.cu", f"{_TPU}:44")
 K9 = CudaKernel("K9 flash_attention_resident", "md_flash_resident",
                 "mikudance_tpu_torch/csrc/flash_resident.cu", f"{_TPU}:85")
-_SRC_ANCHOR = "mikudance_tpu_torch/csrc/flash_anchor.cu"
-K10 = CudaKernel("K10 flash_anchor_resident", "md_flash_anchor_resident", _SRC_ANCHOR,
-                 f"{_TPU}:158")
-K11 = CudaKernel("K11 flash_anchor_stream", "md_flash_anchor_stream", _SRC_ANCHOR,
-                 f"{_TPU}:209")
+K10 = CudaKernel("K10 flash_anchor_resident", "md_flash_anchor_resident",
+                 "mikudance_tpu_torch/csrc/flash_anchor_wg.cu", f"{_TPU}:158")
+K11 = CudaKernel("K11 flash_anchor_stream", "md_flash_anchor_stream",
+                 "mikudance_tpu_torch/csrc/flash_anchor.cu", f"{_TPU}:209")
 K12 = CudaKernel("K12 flash_attention_fullc_t", "md_flash_fullc_t",
                  "mikudance_tpu_torch/csrc/flash_fullc_t.cu", f"{_TPU}:357")
 
@@ -93,6 +95,8 @@ LOG2E = 1.4426950408889634
 
 # Upper bound on the fp32 score bytes one chunk of the plain version holds.
 PLAIN_SCORE_BYTES = 1 << 30
+# Keys K2 holds in shared memory: the CLIP context's 257 and more.
+MAX_CROSS_KEYS = 512
 # Head widths the kernels take, the main path's (the CUDA source
 # instantiates only these): packed K1/K2 at UNet levels 0 and 1, wide K4 in
 # the VAE mid-block.
@@ -303,12 +307,12 @@ def _check_anchored(name: str, q, k, v, heads: int) -> int:
 
 @_differentiable
 def flash_anchor_resident(q, k, v, heads: int) -> torch.Tensor:
-    """K10: anchored packed-heads self-attention, K/V fragments from L2."""
+    """K10: anchored packed-heads self-attention, warpgroup MMA with K and V
+    brought by TMA (whose 16-byte rule on base and row stride
+    ``_check_operands`` holds)."""
     if q.device.type == "cpu":
         return anchored_attention(q, k, v, heads)
     hd = _check_anchored("flash_anchor_resident", q, k, v, heads)
-    if any(t.data_ptr() % 32 for t in (q, k, v)):  # fragment loads from global memory
-        raise ValueError("flash_anchor_resident: q, k, v must start on a 32-byte boundary")
     return _launch(K10, q, k, v, q.shape[0], q.shape[1], heads, hd)
 
 
@@ -348,10 +352,13 @@ def flash_attention_fullc_t(q, k, v, heads: int) -> torch.Tensor:
 
 @_differentiable
 def cross_attention(q, k, v, heads: int) -> torch.Tensor:
-    """K2: q (B, S, C) against a short k/v (B, S_kv, C)."""
+    """K2: q (B, S, C) against a short k/v (B, S_kv, C), 1 <= S_kv <= 512."""
     if q.device.type == "cpu":
         return dot_product_attention(q, k, v, heads)
     hd = _check_cuda("cross_attention", q, k, v, heads, PACKED_HEAD_DIMS)
+    if not 1 <= k.shape[1] <= MAX_CROSS_KEYS:
+        raise ValueError(f"cross_attention: S_kv = {k.shape[1]}, the kernel holds 1 to "
+                         f"{MAX_CROSS_KEYS} keys in shared memory")
     return _launch(K2, q, k, v, q.shape[0], q.shape[1], k.shape[1], heads, hd)
 
 
@@ -421,7 +428,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> 
         if resident_kv(S_kv, hd):
             return flash_attention_resident(q, k, v, heads)
         return flash_attention_wide(q, k, v, heads)
-    if S_q >= 1024 and S_kv <= 512:
+    if S_q >= 1024 and S_kv <= MAX_CROSS_KEYS:
         q_block = pick_blocks(S_q)[0]
         if q_block is not None and q_block >= 64:
             return cross_attention(q, k, v, heads)

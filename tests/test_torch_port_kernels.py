@@ -99,14 +99,35 @@ def test_k1_plain_matches_pallas_fullc_nt(hd, heads, q_scale, jx):
         assert apart < 2e-2
 
 
-def test_k2_plain_matches_pallas_cross(jx):
-    B, S, Skv, heads, hd = 2, 256, 257, 4, 40  # 257 CLIP tokens: ragged key tile
-    q, k, v = qkv(23, (B, S, heads * hd), (B, Skv, heads * hd), (B, Skv, heads * hd))
+@pytest.mark.parametrize("hd,Skv", [(40, 257), (80, 257), (40, 77)])
+def test_k2_plain_matches_pallas_cross(hd, Skv, jx):
+    """257 CLIP tokens (a ragged key tile for the TPU kernel and a 16-key tail
+    for the port's) and 77 (a text context), heads of 40 and 80."""
+    B, S, heads = 2, 256, 4
+    q, k, v = qkv(23 + hd + Skv, (B, S, heads * hd), (B, Skv, heads * hd), (B, Skv, heads * hd))
     want = jx.fa.flash_attention_cross(
         jx.jnp.asarray(q), jx.jnp.asarray(k), jx.jnp.asarray(v), heads, 1.0 / np.sqrt(hd),
         q_block=128, interpret=True)
     check(pfa.cross_attention(torch.from_numpy(q), torch.from_numpy(k),
                               torch.from_numpy(v), heads), want)
+
+
+def test_k10_plain_matches_pallas_fullc_resident_odd_heads(jx, monkeypatch):
+    """K10's plain version (``anchored_attention``) against
+    ``flash_attention_fullc(interpret=True)`` on its resident branch with 3
+    heads of 40: the last head has no partner, and its 48-channel box on the
+    card reaches past C."""
+    B, S, heads, hd = 2, 256, 3, 40
+    q, k, v = qkv(31, *[(B, S, heads * hd)] * 3)
+    monkeypatch.setattr(jx.fa, "_flash_kernel_fullc_stream", None)  # resident, or fail
+    jq, jk, jv = (jx.jnp.asarray(a, jx.jnp.bfloat16) for a in (q, k, v))
+    want = jx.fa.flash_attention_fullc(jq, jk, jv, heads, 1.0 / np.sqrt(hd), q_block=128,
+                                       k_block=128, interpret=True)
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    assert pfa.fullc_resident(S, heads * hd, heads)
+    got = pfa.flash_anchor_resident(tq, tk, tv, heads)
+    torch.testing.assert_close(got, pfa.anchored_attention(tq, tk, tv, heads), rtol=0, atol=0)
+    check(got, want)
 
 
 def test_k3_plain_matches_pallas_btpc(jx):
@@ -561,8 +582,9 @@ def test_build_runs_one_compiler_per_source_then_links(fail, tmp_path, monkeypat
     monkeypatch.setenv("PATH", "/usr/bin:/bin")  # no real nvcc ahead of the stand-in
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
-    assert {"flash_attention.cu", "flash_resident.cu", "temporal_attention.cu",
-            "small_attention.cu", "group_norm.cu", "layer_norm.cu"} <= set(sources)
+    assert {"flash_cross.cu", "flash_anchor_wg.cu", "flash_resident.cu",
+            "temporal_attention.cu", "small_attention.cu", "group_norm.cu",
+            "layer_norm.cu"} <= set(sources)
     if fail:
         with pytest.raises(RuntimeError, match=fail):
             _build.build()
@@ -687,7 +709,8 @@ def test_norm_kernel_matches_plain_on_card(case, cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["K1-hd40", "K1-hd80", "K1-hd40-3-heads", "K1-clamp-hd40",
-                                  "K1-clamp-hd80", "K2", "K3", "K3-one-frame", "K3-30-frames",
+                                  "K1-clamp-hd80", "K2", "K2-hd80", "K2-ragged", "K2-77-keys",
+                                  "K2-512-keys", "K3", "K3-one-frame", "K3-30-frames",
                                   "K4", "K4-5184", "K9", "K9-ragged", "K9-two-heads", "K13-hd40",
                                   "K13-hd80", "K13-hd160-30-tokens", "K13-one-token"])
 def test_kernel_matches_plain_on_card(case, cuda):
@@ -705,8 +728,11 @@ def test_kernel_matches_plain_on_card(case, cuda):
             pfa.flash_attention_fullc, pfa.anchored_attention_t
         bites = pfa.anchor_excursion(args[0], args[1], heads) > pfa.EXP_CLAMP
         assert bites == ("clamp" in case)
-    elif kern == "K2":
-        args, fn, plain = [r(2, 1100, 320), r(2, 257, 320), r(2, 257, 320), 8], \
+    elif kern == "K2":  # the CLIP context, a text context, the most keys K2 holds
+        C = 640 if case == "K2-hd80" else 320
+        S = 1091 if case == "K2-ragged" else 1100
+        S_kv = {"K2-77-keys": 77, "K2-512-keys": 512}.get(case, 257)
+        args, fn, plain = [r(2, S, C), r(2, S_kv, C), r(2, S_kv, C), 8], \
             pfa.cross_attention, pfa.dot_product_attention
     elif kern == "K3":  # one frame: a motion-module denoiser at T = 1
         frames = {"K3-one-frame": 1, "K3-30-frames": 30}.get(case, 16)
@@ -735,6 +761,38 @@ def test_kernel_matches_plain_on_card(case, cuda):
 
 
 # ------------------------- the row-major configuration's kernels: refusals, card
+
+@pytest.mark.parametrize("case,match", [
+    ("device", "unsupported device"), ("dtype", "bf16"), ("width", "head width"),
+    ("many-keys", "S_kv = 513"), ("no-keys", "S_kv = 0"), ("fits", None),
+])
+def test_cross_wrapper_refuses_what_the_kernel_does_not_take(case, match, monkeypatch):
+    """K2 takes bf16 heads of 40 or 80 against 1 to 512 keys, the most its
+    shared-memory plan holds; anything else raises before a launch. ``match``
+    None: the 512 keys are taken."""
+    q, k = _meta(2, 1024, 320), _meta(2, 257, 320)
+    if case == "dtype":
+        q = _meta(2, 1024, 320, dtype=torch.float32)
+    elif case == "width":
+        q, k = _meta(2, 1024, 384), _meta(2, 257, 384)  # heads of 48
+    elif case == "many-keys":
+        k = _meta(2, 513, 320)
+    elif case == "no-keys":
+        k = _meta(2, 0, 320)
+    elif case == "fits":
+        k = _meta(2, 512, 320)
+    if case != "device":  # let the meta tensors past the device check
+        monkeypatch.setattr(pfa, "_check_cuda", lambda name, *a: pfa._check_operands(name, *a))
+    launched = []
+    monkeypatch.setattr(pfa, "_launch", lambda *a: launched.append(a))
+    if match is None:
+        pfa.cross_attention(q, k, k, 8)
+        assert len(launched) == 1 and launched[0][-4:] == (1024, 512, 8, 40)
+        return
+    with pytest.raises(ValueError, match=match):
+        pfa.cross_attention(q, k, k, 8)
+    assert not launched
+
 
 @pytest.mark.parametrize("case,match", [
     ("device", "unsupported device"), ("dtype", "bf16"), ("width", "multiples of the 8"),
@@ -800,16 +858,16 @@ def test_conv_wrapper_refuses_what_the_kernel_does_not_take(case, match):
     ("flash_anchor_resident", "width", "head width"),
     ("flash_anchor_resident", "cross", "S_kv == S"),
     ("flash_anchor_resident", "odd-heads", None),  # taken: the last head of 40 is staged
-    ("flash_anchor_resident", "offset", "32-byte"),
+    ("flash_anchor_resident", "offset", "16-byte"),
+    ("flash_anchor_resident", "offset-16", None),  # TMA's rule: 16 bytes suffice
     ("flash_anchor_stream", "device", "unsupported device"),
     ("flash_anchor_stream", "dtype", "bf16"),
     ("flash_anchor_stream", "cross", "S_kv == S"),
 ])
 def test_anchored_wrappers_refuse_what_the_kernels_do_not_take(fn, case, match, monkeypatch):
     """K10 and K11 take bf16 self-attention at head widths 40 and 80, any head
-    count; K10, which loads fragments from global memory in 80-channel
-    windows, also needs 32-byte alignment. ``match`` None: the wrapper takes
-    the operands and launches."""
+    count, on a 16-byte aligned base (K10's TMA copies and K11's row loads
+    need it). ``match`` None: the wrapper takes the operands and launches."""
     q = k = v = _meta(2, 1024, 320)
     heads = 8
     if case == "width":
@@ -820,6 +878,8 @@ def test_anchored_wrappers_refuse_what_the_kernels_do_not_take(fn, case, match, 
         q = k = v = _meta(2, 1024, 120)
         heads = 3
     elif case == "offset":
+        q = k = v = _meta(1 + 1024 * 320)[1:].view(1, 1024, 320)
+    elif case == "offset-16":
         q = k = v = _meta(8 + 1024 * 320)[8:].view(1, 1024, 320)
     elif case == "dtype":
         q = _meta(2, 1024, 320, dtype=torch.float32)
@@ -840,7 +900,7 @@ def test_anchored_wrappers_refuse_what_the_kernels_do_not_take(fn, case, match, 
 @pytest.mark.parametrize("case", [
     "K7-bias", "K7-residual-ragged", "K7-plain", "K7-fp32-bias-wide", "K8-320", "K8-w24-to-4",
     "K8-cin2560", "K8-one-row", "K10-hd40", "K10-hd80", "K10-ragged", "K10-clamp",
-    "K10-hd40-3-heads", "K10-hd40-3-heads-ragged", "K11-hd40",
+    "K10-hd40-3-heads", "K10-hd40-3-heads-ragged", "K10-1296-hd80", "K11-hd40",
     "K11-hd80", "K11-ragged", "K11-clamp", "K12-hd40", "K12-hd80", "K12-ragged", "K12-clamp"])
 def test_row_major_kernel_matches_plain_on_card(case, cuda):
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -869,9 +929,11 @@ def test_row_major_kernel_matches_plain_on_card(case, cuda):
     else:
         hd = 80 if case.endswith("hd80") else 40
         S = 1091 if case.endswith("ragged") else 1152
+        B = 20 if "1296" in case else 2  # the transposed trainer's level 1
+        S = 1296 if "1296" in case else S
         heads = 3 if "3-heads" in case else 8  # an odd count: the last head of 40 is alone
         C = heads * hd
-        q, k, v = r(2, S, C, scale=3.0 if case.endswith("clamp") else 1.0), r(2, S, C), r(2, S, C)
+        q, k, v = r(B, S, C, scale=3.0 if case.endswith("clamp") else 1.0), r(B, S, C), r(B, S, C)
         fn, counter = {"K10": (pfa.flash_anchor_resident, pfa.K10),
                        "K11": (pfa.flash_anchor_stream, pfa.K11),
                        "K12": (pfa.flash_attention_fullc_t, pfa.K12)}[kern]
