@@ -25,9 +25,9 @@ Phases, in order, one line each; any failure exits non-zero:
    same function, and the least time the card could take (``bound_ms``).
    K1 is held to ``anchored_attention_t`` (the TPU kernel's anchor and
    clamp), also where the clamp bites and the exact softmax is another
-   function, and to K12 on the same inputs, since the two kernels compute
-   one function, as K10 is to K11; the anchored kernels' log lines also give
-   the exp2 floor;
+   function, and to K12 on the same inputs (both kernels timed in that line),
+   since the two kernels compute one function, as K10 is to K11 (at both
+   UNet levels); the anchored kernels' log lines also give the exp2 floor;
 4. request A: ``VideoPipeline.__call__`` at the headline geometry (16 uint8
    frames at 768^2, SD1.5 widths, context 30/8, CFG 3.5, 20 DDIM steps,
    absent face/hand streams, ready-made CLIP tokens and zero flow, SD-VAE
@@ -86,7 +86,8 @@ Phases, in order, one line each; any failure exits non-zero:
 The kernel counts are set to 0 just before each request and read just after;
 K1's and K4's must equal the counts the smoke read before the dispatcher
 took the JAX block rule (``K1_K4_LAUNCHES``), K2's and K10's those read
-before the two were rebuilt (``K2_K10_LAUNCHES``).
+before the two were rebuilt (``K2_K10_LAUNCHES``), K11's and K12's those read
+before the two moved onto K10's kernel (``K11_K12_LAUNCHES``).
 It prints the kernel record (one JSON object; ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` at each kernel's first shape; ``launches``
 from request B, for K9 and K13 from request D, for K7, K8, K10 and K11 from
@@ -197,6 +198,9 @@ K2_K10_LAUNCHES = {"request A": (210, 0), "request B": (210, 0), "image request"
                    "request C, cached-grouped": (90, 0), "request D": (25, 0),
                    "request E": (None, 25), "request F (default)": (111, 0),
                    "request F (transposed)": (111, 60), "stage-1 steps": (40, 0)}
+# Launches of K11 and K12 on each path as the smoke read them before the two
+# moved onto K10's kernel (PERF.md section 6); every other path launches neither.
+K11_K12_LAUNCHES = {"request E": (25, 0), "request F (transposed)": (0, 51)}
 
 
 def log(msg: str) -> None:
@@ -559,7 +563,10 @@ def norm_cases(dev, only=()):
 def anchored_cases(dev, only=()):
     """K10 and K11, each at both UNet levels (first the one the byte rule gives
     it) and on an input where the clamp bites: q three times as large, so
-    that many rows' scores all lie more than 100 log2 units under the anchor."""
+    that many rows' scores all lie more than 100 log2 units under the anchor;
+    K12 at the trainer's and the sampler's level 0, heads of 80, the clamp.
+    The three are one kernel (``csrc/flash_anchor_wg.cu``) under three entry
+    points."""
     import torch.nn.functional as F
 
     from mikudance_tpu_torch.kernels import flash_attention as fa
@@ -878,7 +885,8 @@ def check_k1_against_k12(dev) -> None:
     """K1 and K12 compute one function (``anchored_attention_t``): both kernels
     on the same inputs, at level 0 and where the clamp bites, held to each
     other under the relative-L2 limit; K12 with the softmax scale off by 9% is
-    the control."""
+    the control. Both kernels are timed on those inputs (median of 5), which
+    says whether K1's entry should launch K12's kernel."""
     from mikudance_tpu_torch.kernels import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(7)
@@ -888,21 +896,25 @@ def check_k1_against_k12(dev) -> None:
         k1 = fa.flash_attention_fullc(q, k, v, 8)
         rel = rel_l2(k1, fa.flash_attention_fullc_t(q, k, v, 8))
         ctl = rel_l2(k1, fa.flash_attention_fullc_t(q * CONTROL_Q_SCALE, k, v, 8))
+        ms_k1 = cuda_ms(lambda: fa.flash_attention_fullc(q, k, v, 8), 5)
+        ms_k12 = cuda_ms(lambda: fa.flash_attention_fullc_t(q, k, v, 8), 5)
         log(f"kernels: K1 against K12 on the same inputs q{shape} heads 8 q x {q_scale}: "
-            f"relative L2 {rel:.3e} (limit {REL_L2}; control {ctl:.3e})")
+            f"relative L2 {rel:.3e} (limit {REL_L2}; control {ctl:.3e}); K1 {ms_k1:.3f} ms, "
+            f"K12 {ms_k12:.3f} ms")
         check(rel < REL_L2 < ctl, f"K1 against K12 {shape}: {rel:.3e}, control {ctl:.3e}")
         del q, k, v, k1
 
 
 def check_k10_against_k11(dev) -> None:
     """K10 and K11 compute one function (``anchored_attention``): both kernels
-    on the same inputs, at the 2304-token level and where the clamp bites,
-    held to each other under the relative-L2 limit; K11 with the softmax
-    scale off by 9% is the control."""
+    on the same inputs, at the 2304-token level, at the 9216-token level (where
+    K11 runs) and where the clamp bites, held to each other under the
+    relative-L2 limit; K11 with the softmax scale off by 9% is the control."""
     from mikudance_tpu_torch.kernels import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(8)
-    for shape, q_scale in (((32, 2304, 640), 1.0), ((8, 2304, 640), 3.0)):
+    for shape, q_scale in (((32, 2304, 640), 1.0), ((32, 9216, 320), 1.0),
+                           ((8, 2304, 640), 3.0)):
         q, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
         q, k, v = (q * q_scale).to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
         check((fa.anchor_excursion(q[:1], k[:1], 8) > fa.EXP_CLAMP) == (q_scale > 1.0),
@@ -918,14 +930,18 @@ def check_k10_against_k11(dev) -> None:
 
 def ptxas_report(log_text: str, kernels) -> str:
     """ptxas's registers and spills of each instantiation of the named kernels
-    (substrings of the mangled entry names); their shared memory is dynamic,
-    sized by each source's ``Plan``, and ptxas reports only static memory."""
+    (substrings of the mangled entry names), with its integer template
+    arguments; their shared memory is dynamic, sized by each source's
+    ``Plan``, and ptxas reports only static memory."""
+    import re
+
     lines, out, entry = log_text.splitlines(), [], None
     for line in lines:
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            entry = next((k + name[name.index("ILi"):].split("E")[0].replace("ILi", "<") + ">"
-                          for k in kernels if k in name), None)
+            args = re.match(r"I((?:Li-?\d+E)+)E", name[name.find("ILi"):] if "ILi" in name else "")
+            targs = "<" + ", ".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">" if args else ""
+            entry = next((k + targs for k in kernels if k in name), None)
         elif entry and ("spill" in line or "Used" in line):
             out.append(f"{entry}: {line.split(':', 1)[-1].strip()}")
             if "Used" in line:
@@ -1006,10 +1022,12 @@ PROFILE_CATEGORIES = [
     ("K6 LayerNorm", ("ln_kernel",)),
     ("K7 linear (the chain's products)", ("linear_kernel",)),
     ("K8 conv3x3", ("conv3x3_kernel",)),
-    ("K12 transposed anchored attention", ("fullc_t_kernel",)),
+    # K10, K11 and K12 are one kernel; the tag in its template arguments parts them
+    ("K12 anchored attention, bf16 anchor", ("anchor_wg_kernel<40, 12>",
+                                             "anchor_wg_kernel<80, 12>")),
     ("K14 mega-block", ("mega_kernel",)),
-    ("K10 anchored attention, wgmma + TMA", ("anchor_wg_kernel",)),
-    ("K11 anchored attention, K/V staged", ("anchor_stream_kernel",)),
+    ("K10 anchored attention", ("anchor_wg_kernel<40, 10>", "anchor_wg_kernel<80, 10>")),
+    ("K11 anchored attention", ("anchor_wg_kernel<40, 11>", "anchor_wg_kernel<80, 11>")),
     ("conv (cuDNN)", ("fprop", "conv", "implicit_gemm", "cudnn", "nhwc")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "Kernel2")),
     ("softmax (plain attention)", ("softmax",)),
@@ -1396,6 +1414,9 @@ def main() -> int:
         got = tuple(None if n is None else counts[k.name]
                     for n, k in zip(want, (fa.K2, fa.K10)))
         check(got == want, f"{what}: K2 / K10 launched {got} times, {want} before")
+        want = K11_K12_LAUNCHES.get(what, (0, 0))
+        got = (counts[fa.K11.name], counts[fa.K12.name])
+        check(got == want, f"{what}: K11 / K12 launched {got} times, {want} before")
 
     def read_counts(what: str, expect=default_kernels, absent=row_major_only,
                     also_absent=off_the_sampler) -> dict:

@@ -16,20 +16,19 @@ Kernels, each beside its plain PyTorch version:
 - K9 ``flash_attention_resident`` (``csrc/flash_resident.cu``): the same
   heads below that size (S <= 3072 at width 512: every picture under 512^2),
   replacing ``_flash_kernel_resident``.
-- K12 ``flash_attention_fullc_t`` (``csrc/flash_fullc_t.cu``): K1's function
-  with the anchor folded into the Q K^T product and both products
-  transposed, replacing ``_flash_kernel_fullc_t``: K1's place above the
-  resident limit while only ``NEUTRAL_FULLC`` is off (the transposed
-  configuration: the 5184-token level of 576^2 training).
-- K10 / K11 ``flash_attention_fullc_anchored`` (``csrc/flash_anchor_wg.cu``,
-  ``csrc/flash_anchor.cu``): packed-heads self-attention with the self-score
-  anchor in fp32 and the +-100 clamp, replacing
-  ``_flash_kernel_fullc_resident`` (K10, warpgroup MMA with TMA-fed K and V;
-  a batch element's K and V under ``FULLC_RESIDENT_BYTES``: the 2304-token
-  level) and ``_flash_kernel_fullc_stream`` (K11, above it: the 9216-token
-  level).
-  They take K1's place while ``TRANSPOSED_FULLC`` and ``NEUTRAL_FULLC`` are
-  off (the row-major configuration).
+- K10 / K11 ``flash_attention_fullc_anchored`` and K12
+  ``flash_attention_fullc_t``, one warpgroup-MMA kernel with TMA-fed K and V
+  (``csrc/flash_anchor_wg.cu``) under three entry points and counters:
+  packed-heads self-attention with the self-score anchor and the +-100
+  clamp. K10 replaces ``_flash_kernel_fullc_resident`` (a batch element's K
+  and V under ``FULLC_RESIDENT_BYTES``: the 2304-token level) and K11
+  ``_flash_kernel_fullc_stream`` (above it: the 9216-token level), both with
+  the anchor in fp32; they take K1's place while ``TRANSPOSED_FULLC`` and
+  ``NEUTRAL_FULLC`` are off (the row-major configuration). K12 replaces
+  ``_flash_kernel_fullc_t``, K1's function (the anchor rounded to bf16, which
+  the TPU kernel folds into Q K^T): K1's place above the resident limit while
+  only ``NEUTRAL_FULLC`` is off (the transposed configuration: the 5184-token
+  level of 576^2 training).
 
 The plain version of K2, K4 and K9 is ``dot_product_attention`` (the JAX
 package's ``models/layers.py:60`` math: fp32 scores and softmax, weights cast
@@ -74,9 +73,9 @@ K9 = CudaKernel("K9 flash_attention_resident", "md_flash_resident",
 K10 = CudaKernel("K10 flash_anchor_resident", "md_flash_anchor_resident",
                  "mikudance_tpu_torch/csrc/flash_anchor_wg.cu", f"{_TPU}:158")
 K11 = CudaKernel("K11 flash_anchor_stream", "md_flash_anchor_stream",
-                 "mikudance_tpu_torch/csrc/flash_anchor.cu", f"{_TPU}:209")
+                 "mikudance_tpu_torch/csrc/flash_anchor_wg.cu", f"{_TPU}:209")
 K12 = CudaKernel("K12 flash_attention_fullc_t", "md_flash_fullc_t",
-                 "mikudance_tpu_torch/csrc/flash_fullc_t.cu", f"{_TPU}:357")
+                 "mikudance_tpu_torch/csrc/flash_anchor_wg.cu", f"{_TPU}:357")
 
 # The JAX package's routing switches for packed heads (head widths that are
 # no multiple of 128), with its defaults (``flash_attention.py:592,595``);
@@ -318,8 +317,8 @@ def flash_anchor_resident(q, k, v, heads: int) -> torch.Tensor:
 
 @_differentiable
 def flash_anchor_stream(q, k, v, heads: int) -> torch.Tensor:
-    """K11: anchored packed-heads self-attention, key tiles staged through
-    shared memory."""
+    """K11: K10's kernel under its own entry point and counter (the TPU's
+    streamed branch; TMA streams key tiles of any S here)."""
     if q.device.type == "cpu":
         return anchored_attention(q, k, v, heads)
     hd = _check_anchored("flash_anchor_stream", q, k, v, heads)
@@ -343,7 +342,8 @@ def flash_attention_fullc_anchored(q, k, v, heads: int) -> torch.Tensor:
 @_differentiable
 def flash_attention_fullc_t(q, k, v, heads: int) -> torch.Tensor:
     """K12: the counterpart of the JAX package's ``flash_attention_fullc_t``
-    (``flash_attention.py:436``), q/k/v (B, S, C) in and out; any S."""
+    (``flash_attention.py:436``), q/k/v (B, S, C) in and out; any S. K10's
+    kernel with the anchor rounded to bf16, under TMA's 16-byte rule."""
     if q.device.type == "cpu":
         return anchored_attention_t(q, k, v, heads)
     hd = _check_anchored("flash_attention_fullc_t", q, k, v, heads)

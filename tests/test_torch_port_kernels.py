@@ -860,14 +860,25 @@ def test_conv_wrapper_refuses_what_the_kernel_does_not_take(case, match):
     ("flash_anchor_resident", "odd-heads", None),  # taken: the last head of 40 is staged
     ("flash_anchor_resident", "offset", "16-byte"),
     ("flash_anchor_resident", "offset-16", None),  # TMA's rule: 16 bytes suffice
+    ("flash_anchor_resident", "dtype", "bf16"),
     ("flash_anchor_stream", "device", "unsupported device"),
     ("flash_anchor_stream", "dtype", "bf16"),
     ("flash_anchor_stream", "cross", "S_kv == S"),
+    ("flash_anchor_stream", "offset", "16-byte"),
+    ("flash_anchor_stream", "offset-16", None),
+    ("flash_anchor_stream", "odd-heads", None),
+    ("flash_attention_fullc_t", "device", "unsupported device"),
+    ("flash_attention_fullc_t", "dtype", "bf16"),
+    ("flash_attention_fullc_t", "cross", "S_kv == S"),
+    ("flash_attention_fullc_t", "offset", "16-byte"),
+    ("flash_attention_fullc_t", "offset-16", None),
+    ("flash_attention_fullc_t", "odd-heads", None),
 ])
 def test_anchored_wrappers_refuse_what_the_kernels_do_not_take(fn, case, match, monkeypatch):
-    """K10 and K11 take bf16 self-attention at head widths 40 and 80, any head
-    count, on a 16-byte aligned base (K10's TMA copies and K11's row loads
-    need it). ``match`` None: the wrapper takes the operands and launches."""
+    """K10, K11 and K12 (one kernel under three entry points) take bf16
+    self-attention at head widths 40 and 80, any head count, on a 16-byte
+    aligned base and row stride (TMA's rule for the K/V copies). ``match``
+    None: the wrapper takes the operands and launches."""
     q = k = v = _meta(2, 1024, 320)
     heads = 8
     if case == "width":
@@ -896,14 +907,37 @@ def test_anchored_wrappers_refuse_what_the_kernels_do_not_take(fn, case, match, 
     assert not launched
 
 
+@pytest.mark.parametrize("kern", ["K10", "K11", "K12"])
+def test_anchored_kernels_share_one_source_under_three_entry_points(kern):
+    """K10, K11 and K12 build from ``csrc/flash_anchor_wg.cu``, each under its
+    own C entry point (and so its own counter and device symbol), which no
+    other source defines."""
+    from mikudance_tpu_torch.kernels import _build
+
+    kernel = getattr(pfa, kern)
+    assert kernel.source == "mikudance_tpu_torch/csrc/flash_anchor_wg.cu"
+    symbols = {k.symbol for k in (pfa.K10, pfa.K11, pfa.K12)}
+    assert len(symbols) == 3 and kernel.symbol in _build.SIGNATURES
+    assert _build.SIGNATURES[kernel.symbol] == _build.SIGNATURES["md_flash_anchor_resident"]
+    tag = kern[1:]
+    text = (_build.CSRC / "flash_anchor_wg.cu").read_text()
+    body = text[text.index(f"int {kernel.symbol}("):]
+    assert f"dispatch<{tag}>" in body[:body.index("}")]
+    defining = [p.name for p in _build.CSRC.glob("*.cu")
+                if f"int {kernel.symbol}(" in p.read_text()]
+    assert defining == ["flash_anchor_wg.cu"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
     "K7-bias", "K7-residual-ragged", "K7-plain", "K7-fp32-bias-wide", "K8-320", "K8-w24-to-4",
     "K8-cin2560", "K8-one-row", "K10-hd40", "K10-hd80", "K10-ragged", "K10-clamp",
     "K10-hd40-3-heads", "K10-hd40-3-heads-ragged", "K10-1296-hd80", "K11-hd40",
-    "K11-hd80", "K11-ragged", "K11-clamp", "K12-hd40", "K12-hd80", "K12-ragged", "K12-clamp"])
+    "K11-hd80", "K11-ragged", "K11-clamp", "K12-hd40", "K12-hd80", "K12-ragged", "K12-clamp",
+    "K11-9216-vs-K10", "K12-vs-K1", "K12-hd40-3-heads"])
 def test_row_major_kernel_matches_plain_on_card(case, cuda):
     g = torch.Generator(device=cuda).manual_seed(1)
+    twin = None  # another kernel of the same function, held to this one on the same inputs
 
     def r(*s, scale=1.0):
         return (torch.randn(s, generator=g, device=cuda) * scale).to(torch.bfloat16)
@@ -931,6 +965,8 @@ def test_row_major_kernel_matches_plain_on_card(case, cuda):
         S = 1091 if case.endswith("ragged") else 1152
         B = 20 if "1296" in case else 2  # the transposed trainer's level 1
         S = 1296 if "1296" in case else S
+        if "9216" in case:  # the row-major level 0, where K11 runs
+            B, S = 32, 9216
         heads = 3 if "3-heads" in case else 8  # an odd count: the last head of 40 is alone
         C = heads * hd
         q, k, v = r(B, S, C, scale=3.0 if case.endswith("clamp") else 1.0), r(B, S, C), r(B, S, C)
@@ -941,6 +977,8 @@ def test_row_major_kernel_matches_plain_on_card(case, cuda):
         want = (pfa.anchored_attention_t if kern == "K12" else pfa.anchored_attention)(q, k, v,
                                                                                        heads)
         assert (pfa.anchor_excursion(q, k, heads) > pfa.EXP_CLAMP) == case.endswith("clamp")
+        twin = {"K11-9216-vs-K10": pfa.flash_anchor_resident,
+                "K12-vs-K1": pfa.flash_attention_fullc}.get(case)
     before = counter.launches
     out = got()
     torch.cuda.synchronize()
@@ -948,6 +986,9 @@ def test_row_major_kernel_matches_plain_on_card(case, cuda):
     torch.testing.assert_close(out.float(), want.float(), atol=ATOL, rtol=RTOL)
     assert ((out.float() - want.float()).norm() / want.float().norm()).item() < 1e-2
     assert torch.equal(out, got())  # no atomics: the same bits every run
+    if twin is not None:
+        other = twin(q, k, v, heads).float()
+        assert ((out.float() - other).norm() / other.norm()).item() < 1e-3
 
 
 @pytest.mark.cuda
