@@ -64,7 +64,9 @@ Phases, in order, one line each; any failure exits non-zero:
     control (the bank K/V left out of the chain) must exceed; the largest
     ``|s - off|`` of one level-0 self-attention call says whether the +-100
     clamp of K10 / K11, which the default configuration does not have, was
-    idle. Then the small request of phase 9 once more inside ``row_major()``.
+    idle; K7's and K8's launches whose grid of output tiles is under one wave
+    of the card's multiprocessors are counted. Then the small request of
+    phase 9 once more inside ``row_major()``.
 13. request F, training: ``scripts.train_stage2.main`` on synthetic batches at
     the reference's geometry (20 frames at 576^2, batch 1, SD1.5 widths, MAN
     and motion modules on, bf16 with fp32 master copies, remat on), three
@@ -415,6 +417,28 @@ def exp2_floor_ms(n: int) -> float:
     return n / (EXP2_PER_CLOCK_SM * sms * max_sm_clock_hz()) * 1e3
 
 
+def gemm_tiles_k7(args) -> int:
+    """Output tiles (blocks) of one md_linear launch: x, w, bias, residual, y,
+    rows, cin, cout, bias_fp32, tile width, stream."""
+    return -(-args[5] // 128) * -(-args[7] // args[9])
+
+
+def gemm_tiles_k8(args) -> int:
+    """Output tiles (blocks) of one md_conv3x3 launch: x, packed weight,
+    bias, y, images, height, width, cin, cout, bias_fp32, tile width, box
+    width, box height, stream; a box is 128 pixels of ``nb`` images."""
+    n, h, w, cout, bn, wb, hb = *args[4:7], args[8], *args[10:13]
+    return -(-n // (128 // (wb * hb))) * (w // wb) * -(-h // hb) * -(-cout // bn)
+
+
+def grid_spy(launch, tiles, seen: list):
+    """``launch`` that first appends its grid's tile count to ``seen``."""
+    def spy(*args):
+        seen.append(tiles(args))
+        launch(*args)
+    return spy
+
+
 def wanted(kern, only) -> bool:
     """Whether ``only`` (kernel numbers such as "K9"; empty: all) names ``kern``."""
     return not only or kern.name.split(" ")[0] in only
@@ -629,7 +653,8 @@ def linear_cases(dev, only=()):
 
     g = torch.Generator(device=dev).manual_seed(3)
     shapes = ((294912, 320, 320, False), (294912, 320, 320, True), (294912, 320, 2560, False),
-              (294912, 1280, 320, True), (18432, 1280, 10240, False), (4321, 640, 640, True))
+              (294912, 1280, 320, True), (18432, 1280, 10240, False), (4321, 640, 640, True),
+              (4321, 640, 136, True))  # the last: tiles of 128, the second column tile masked
     for rows, cin, cout, with_res in shapes if wanted(lin.K7, only) else ():
         x = torch.randn((rows, cin), generator=g, device=dev).to(torch.bfloat16)
         w = (torch.randn((cout, cin), generator=g, device=dev) / math.sqrt(cin)).to(torch.bfloat16)
@@ -654,15 +679,17 @@ def linear_cases(dev, only=()):
 
 def conv_cases(dev, only=()):
     """K8 at convolutions of the UNets (down path, an up-path width change, the
-    widest up-path input) and of the VAE at 768^2; the control runs the plain
-    version with the taps transposed."""
+    widest up-path input), of the VAE at 768^2, and the widest up-path input
+    of one image (its 24 rows not a multiple of the box's 16); the control
+    runs the plain version with the taps transposed."""
     import torch.nn.functional as F
 
     from mikudance_tpu_torch.kernels import conv2d as cv
 
     g = torch.Generator(device=dev).manual_seed(4)
     shapes = (((32, 96, 96, 320), 320), ((32, 48, 48, 1280), 640), ((32, 24, 24, 2560), 1280),
-              ((8, 768, 768, 128), 128))
+              ((8, 768, 768, 128), 128),
+              ((1, 24, 24, 2560), 1280))  # 8 x 16 boxes, the last half-empty
     for shape, cout in shapes if wanted(cv.K8, only) else ():
         cin = shape[-1]
         x = torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
@@ -1443,7 +1470,8 @@ def main() -> int:
     log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s "
         f"(ptxas report: {lib.with_suffix('.log')})")
     log("ptxas: " + ptxas_report(lib.with_suffix(".log").read_text(),
-                                 ("anchor_wg_kernel", "flash_cross_kernel")))
+                                 ("anchor_wg_kernel", "flash_cross_kernel", "linear_kernel",
+                                  "conv3x3_kernel")))
 
     cfg = PipelineConfig(width=W, height=H, num_inference_steps=STEPS, guidance_scale=3.5,
                          context=ContextConfig(frames=30, overlap=8))
@@ -1819,6 +1847,9 @@ def main() -> int:
         return stream(q, k, v, heads)
 
     fa.flash_anchor_stream = spy
+    grids = {lin.K7.name: [], cv.K8.name: []}  # output tiles of each GEMM-core launch
+    for kern, tiles in ((lin.K7, gemm_tiles_k7), (cv.K8, gemm_tiles_k8)):
+        kern.launch = grid_spy(kern.launch, tiles, grids[kern.name])
     try:
         with row_major():
             reset_counts()
@@ -1831,6 +1862,13 @@ def main() -> int:
             same_launches("request E", launches_e)
     finally:
         fa.flash_anchor_stream = stream
+        del lin.K7.launch, cv.K8.launch
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    under_wave = {name: sum(t < sms for t in g) for name, g in grids.items()}
+    log("request E: K7 / K8 launches whose grid is under one wave of tiles ("
+        f"{sms} multiprocessors): " + ", ".join(
+            f"{name} {under_wave[name]} of {len(g)} (fewest tiles {min(g)})"
+            for name, g in grids.items()))
     check_video(frames, latents, T, "request E")
     excursion = fa.anchor_excursion(*seen.pop("qk"))
     rel_e = rel_l2(latents, lat_warm)

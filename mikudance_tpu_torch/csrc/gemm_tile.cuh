@@ -1,13 +1,14 @@
-// Shared pieces of the two GEMM-shaped kernels (K7 md_linear, K8 md_conv3x3),
-// hand-written for Hopper (sm_90a).
+// The mma.sync GEMM tile of the mega-block probe K14 (mega_block.cu),
+// hand-written for Hopper (sm_90a). K7 (md_linear) and K8 (md_conv3x3) were
+// built on it until they moved to the warpgroup core of gemm_wg.cuh; it stays
+// for K14 until K14 moves there too (ROADMAP S8).
 //
-// Both compute a (rows x K) by (K x columns) product in bf16 with fp32
-// accumulation and differ only in where a row of the left operand comes
-// from (a token row; a 3x3 neighbourhood gathered on the fly). What they
-// share lives here: the tile plan, the k loop over a ring of cp.async stages
-// (cp_async.cuh; a copy that is out of range writes zeros), the warp-level
-// product of one staged k-slice, and the epilogue (bias in fp32, one rounding
-// to bf16, optional residual added in bf16).
+// A (rows x K) by (K x columns) product in bf16 with fp32 accumulation, the
+// left operand's rows loaded by the caller. What lives here: the tile plan,
+// the k loop over a ring of cp.async stages (main_loop; cp_async.cuh, a copy
+// that is out of range writes zeros) and the warp-level product of one staged
+// k-slice (mma_stage). K14 writes its own epilogues through a 16 x 16 fp32
+// scratch of LDE-wide rows per warp.
 //
 // Tile plan: a block of 8 warps owns a 128 x 128 output tile; the k loop
 // walks slices of 32 through a ring of three shared-memory stages filled by
@@ -45,7 +46,7 @@ constexpr int WM = 64, WN = 32;                      // a warp's part of the til
 constexpr int kChunks = BK / 8;                      // 16-byte copies in a staged row
 constexpr int kCopyRows = kThreads / kChunks;        // rows the block copies at once
 constexpr int kCopies = BM / kCopyRows;              // copies a thread makes per operand tile
-constexpr int LDE = 20;                              // epilogue scratch row, fp32
+constexpr int LDE = 20;                              // K14's epilogue scratch row, fp32
 static_assert(BM == BN, "one loader shape for both operands");
 static_assert(kThreads % kChunks == 0 && BM % kCopyRows == 0, "the copies tile the stage");
 static_assert(kWarps == (BM / WM) * (BN / WN), "warps tile the block");
@@ -103,63 +104,6 @@ __device__ __forceinline__ void main_loop(Acc& acc, bf16* ring, int kt_count, in
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: the epilogue reuses it
-}
-
-__device__ __forceinline__ float bias_at(const void* bias, int bias_fp32, int n) {
-  if (bias == nullptr) return 0.f;
-  return bias_fp32 ? static_cast<const float*>(bias)[n]
-                   : __bfloat162float(static_cast<const bf16*>(bias)[n]);
-}
-
-// y[m, n] = bf16(acc + bias[n]) (+ residual[m, n], added in bf16) for this
-// warp's part of the tile whose first row / column are m0 / n0. Rows >= rows
-// and columns >= cols are dropped. Each fragment goes through a 16 x 16 fp32
-// scratch of the warp; two lanes a row, eight columns (one 16-byte store
-// when cols is a multiple of 8, which a residual requires) each.
-__device__ __forceinline__ void epilogue(Acc& acc, float* scratch_all, int wm, int wn,
-                                         long long m0, int n0, long long rows, int cols,
-                                         const void* bias, int bias_fp32, const bf16* residual,
-                                         bf16* y) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* scratch = scratch_all + warp * 16 * LDE;
-  const int row = lane / 2, c8 = (lane % 2) * 8;
-  const bool vec = cols % 8 == 0;
-#pragma unroll
-  for (int j = 0; j < WN / 16; ++j) {
-    const int n = n0 + wn * WN + j * 16 + c8;
-    float bv[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) bv[e] = n + e < cols ? bias_at(bias, bias_fp32, n + e) : 0.f;
-#pragma unroll
-    for (int i = 0; i < WM / 16; ++i) {
-      wmma::store_matrix_sync(scratch, acc.f[i][j], LDE, wmma::mem_row_major);
-      __syncwarp();
-      const long long m = m0 + wm * WM + i * 16 + row;
-      if (m < rows && n < cols) {
-        const float* src = scratch + row * LDE + c8;
-        const size_t at = static_cast<size_t>(m) * cols + n;
-        if (vec) {
-          __align__(16) __nv_bfloat162 out[4];
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            out[e] = __floats2bfloat162_rn(src[2 * e] + bv[2 * e], src[2 * e + 1] + bv[2 * e + 1]);
-          if (residual != nullptr) {
-            __align__(16) __nv_bfloat162 res[4];
-            *reinterpret_cast<uint4*>(res) = *reinterpret_cast<const uint4*>(residual + at);
-#pragma unroll
-            for (int e = 0; e < 4; ++e) out[e] = __hadd2(out[e], res[e]);
-          }
-          *reinterpret_cast<uint4*>(y + at) = *reinterpret_cast<const uint4*>(out);
-        } else {
-          // a column count off the vector (the 3- and 4-channel conv outputs,
-          // which take no residual): element by element
-          for (int e = 0; e < 8 && n + e < cols; ++e)
-            y[at + e] = __float2bfloat16(src[e] + bv[e]);
-        }
-      }
-      __syncwarp();
-    }
-  }
 }
 
 }  // namespace md_gemm

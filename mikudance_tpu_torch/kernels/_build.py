@@ -45,10 +45,11 @@ SIGNATURES = {
     "md_group_norm": (P, P, P, P, P, I, L, I, I, F, I, I, I, I, I, I, I, P),
     # x, weight, bias, y, rows, channels, eps, x_fp32, w_fp32, stream
     "md_layer_norm": (P, P, P, P, L, I, F, I, I, P),
-    # x, w, bias, residual, y, rows, cin, cout, bias_fp32, stream
-    "md_linear": (P, P, P, P, P, L, I, I, I, P),
-    # x, packed weight, bias, y, images, height, width, cin, cout, bias_fp32, stream
-    "md_conv3x3": (P, P, P, P, I, I, I, I, I, I, P),
+    # x, w, bias, residual, y, rows, cin, cout, bias_fp32, tile width, stream
+    "md_linear": (P, P, P, P, P, L, I, I, I, I, P),
+    # x, packed weight, bias, y, images, height, width, cin, cout, bias_fp32, tile width,
+    # box width, box height, stream
+    "md_conv3x3": (P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     # q, k, v, o, batch, seq, heads, head_dim, stream
     "md_flash_anchor_resident": (P, P, P, P, I, I, I, I, P),
     # q, k, v, o, batch, seq, heads, head_dim, stream

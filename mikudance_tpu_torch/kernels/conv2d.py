@@ -23,8 +23,13 @@ version; a CUDA tensor launches the kernel or raises. The wrapper is
 differentiable: the backward is the vector-Jacobian product of the plain
 version, as in the JAX package (``conv2d.py:146``), so the gradient lands on
 the OIHW ``weight`` it was given and never on the packed copy. The kernel
-takes bf16 contiguous NHWC ``x`` with ``Cin`` a multiple of 8, 16-byte aligned, a bf16
-weight and a bf16 or fp32 bias (or none).
+takes bf16 contiguous NHWC ``x`` with ``Cin`` and ``W`` multiples of 8,
+16-byte aligned, a bf16 weight and a bf16 or fp32 bias (or none).
+
+The kernel is K7's warpgroup GEMM core (``csrc/gemm_wg.cuh``) with the left
+operand of each tap one TMA box of a 4-D map over x; ``_gemm_plan.tile_plan``
+picks the output tile: a ``wb`` x ``hb`` rectangle of ``nb`` images by ``bn``
+channels.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from torch import nn
 
 from ._autograd import differentiable, plain_vjp
 from ._build import CudaKernel
+from ._gemm_plan import tile_plan
 
 K8 = CudaKernel(
     "K8 conv3x3_fused", "md_conv3x3",
@@ -94,6 +100,9 @@ def _check_operands(x, weight, bias, packed) -> None:
     if x.numel() == 0 or cin % 8:
         raise ValueError(f"conv3x3_fused: Cin {cin} must be a multiple of the 8-element "
                          "(16-byte) vector, and x not empty")
+    if x.shape[2] % 8:
+        raise ValueError(f"conv3x3_fused: image width {x.shape[2]} is not a multiple of 8 "
+                         "(the narrowest tile)")
     if tuple(packed.shape) != (3, 3, cout, cin):
         raise ValueError(f"conv3x3_fused: packed weight {tuple(packed.shape)} is not "
                          f"(3, 3, {cout}, {cin})")
@@ -129,9 +138,10 @@ def _conv3x3_fused(x, weight, bias, packed) -> torch.Tensor:
     _check_operands(x, weight, bias, packed)
     n, h, w, cin = x.shape
     cout = weight.shape[0]
+    plan = tile_plan(n, h, w, cout)
     y = torch.empty((n, h, w, cout), dtype=x.dtype, device=x.device)
     K8.launch(x.data_ptr(), packed.data_ptr(), None if bias is None else bias.data_ptr(),
               y.data_ptr(), n, h, w, cin, cout,
-              int(bias is not None and bias.dtype == torch.float32),
+              int(bias is not None and bias.dtype == torch.float32), plan.bn, plan.wb, plan.hb,
               torch.cuda.current_stream(x.device).cuda_stream)
     return y

@@ -8,7 +8,9 @@ that order). ``linear_plain`` is its plain PyTorch version. Its only caller
 is the transformer block's row-major chain (``models/layers.py``).
 
 ``w`` is an ``nn.Linear`` weight ``(Cout, Cin)``: W^T row-major, which the
-kernel reads in place as its column-major right operand.
+kernel reads in place as its K-major right operand. The kernel is the
+warpgroup GEMM core of ``csrc/gemm_wg.cuh`` (wgmma, operands by TMA), which
+K8 shares; ``_gemm_plan.column_tile`` is the tile width both launch it with.
 
 Dispatch is by the tensor's device alone: a CPU tensor goes to the plain
 version; a CUDA tensor launches the kernel or raises. The wrapper is
@@ -28,12 +30,16 @@ import torch
 
 from ._autograd import differentiable, plain_vjp
 from ._build import CudaKernel
+from ._gemm_plan import column_tile
 
 K7 = CudaKernel(
     "K7 fused_linear", "md_linear",
     source="mikudance_tpu_torch/csrc/linear.cu",
     replaces="mikudance_tpu/kernels/linear.py:48",
 )
+
+
+MAX_ROWS = 2 ** 31 - 1 - 128  # the last row tile starts at a 32-bit TMA coordinate
 
 
 def linear_plain(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
@@ -56,6 +62,9 @@ def _check_operands(x, w, b, residual) -> None:
     if cin % 8 or cout % 8:
         raise ValueError(f"fused_linear: Cin {cin} and Cout {cout} must be multiples of the "
                          "8-element (16-byte) vector")
+    if x.numel() // cin > MAX_ROWS:
+        raise ValueError(f"fused_linear: {x.numel() // cin} rows, more than TMA's 32-bit "
+                         f"coordinates reach ({MAX_ROWS})")
     operands = [("x", x, x.shape), ("w", w, w.shape)]
     if residual is not None:
         operands.append(("residual", residual, x.shape[:-1] + (cout,)))
@@ -91,5 +100,5 @@ def _fused_linear(x, w, b, residual) -> torch.Tensor:
     K7.launch(x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
               None if residual is None else residual.data_ptr(), y.data_ptr(),
               x.numel() // cin, cin, cout, int(b is not None and b.dtype == torch.float32),
-              torch.cuda.current_stream(x.device).cuda_stream)
+              column_tile(cout), torch.cuda.current_stream(x.device).cuda_stream)
     return y

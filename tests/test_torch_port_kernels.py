@@ -930,8 +930,9 @@ def test_anchored_kernels_share_one_source_under_three_entry_points(kern):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", [
-    "K7-bias", "K7-residual-ragged", "K7-plain", "K7-fp32-bias-wide", "K8-320", "K8-w24-to-4",
-    "K8-cin2560", "K8-one-row", "K10-hd40", "K10-hd80", "K10-ragged", "K10-clamp",
+    "K7-bias", "K7-residual-ragged", "K7-plain", "K7-fp32-bias-wide", "K7-tile128-residual",
+    "K7-tile160", "K7-cin32", "K8-320", "K8-w24-to-4", "K8-cin2560", "K8-one-row",
+    "K8-w96-to-480", "K8-w8-cin200-to-1280", "K8-w64-to-136", "K8-w24-cin32-to-512", "K10-hd40", "K10-hd80", "K10-ragged", "K10-clamp",
     "K10-hd40-3-heads", "K10-hd40-3-heads-ragged", "K10-1296-hd80", "K11-hd40",
     "K11-hd80", "K11-ragged", "K11-clamp", "K12-hd40", "K12-hd80", "K12-ragged", "K12-clamp",
     "K11-9216-vs-K10", "K12-vs-K1", "K12-hd40-3-heads"])
@@ -944,19 +945,38 @@ def test_row_major_kernel_matches_plain_on_card(case, cuda):
 
     kern = case.split("-")[0]
     if kern == "K7":
-        rows, cin, cout = {"K7-bias": (2, 515, 320, 640), "K7-residual-ragged": (1, 4321, 640, 320),
-                           "K7-plain": (3, 128, 1280, 1280),
-                           "K7-fp32-bias-wide": (1, 200, 320, 10240)}[case][1:]
+        # (rows, Cin, Cout) and the tile width _gemm_plan.column_tile gives:
+        # 320 ("plain": 133 row tiles, the last ragged; "bias",
+        # "residual-ragged", "fp32-bias-wide"), 256 ("cin32"), 160
+        # ("tile160") and 128 masked ("tile128-residual": the second column
+        # tile holds 8 columns); Cin 32 under one k block of 64, Cin 200 not
+        # a multiple of it
+        rows, cin, cout = {"K7-bias": (515, 320, 640), "K7-residual-ragged": (4321, 640, 320),
+                           "K7-plain": (17000, 1280, 1280),
+                           "K7-fp32-bias-wide": (200, 320, 10240),
+                           "K7-tile128-residual": (1000, 200, 136),
+                           "K7-tile160": (515, 320, 480), "K7-cin32": (17000, 32, 768)}[case]
         x, w = r(rows, cin), r(cout, cin, scale=cin ** -0.5)
         b = None if case == "K7-plain" else r(cout)
         if case == "K7-fp32-bias-wide":
             b = b.float()
-        res = r(rows, cout) if case == "K7-residual-ragged" else None
+        res = r(rows, cout) if "residual" in case else None
         counter, got = plin.K7, lambda: plin.fused_linear(x, w, b, res)
         want = plin.linear_plain(x, w, b, res)
     elif kern == "K8":
+        # boxes of Wb x Hb pixels x Nb images (_gemm_plan.tile_plan): 8 x 16
+        # x 1 (W 24, "320", "w24-to-4"; W 8, "cin2560"), 32 x 4 x 1 (W 96),
+        # 64 x 2 x 1 (W 64), each with H off a multiple of Hb; 8 x 2 x 8
+        # ("w8-cin200", "one-row") and 8 x 4 x 4 ("w24-cin32") span images. N > 1 almost throughout, so boxes at an
+        # image's border read zeros, not the next image. Tile widths 320
+        # ("w8-cin200", "320"), 256 ("w24-cin32"), 160 ("w96") and 128; Cout
+        # 4 is stored element by element.
         shape, cout = {"K8-320": ((3, 24, 24, 320), 320), "K8-w24-to-4": ((2, 10, 24, 64), 4),
-                       "K8-cin2560": ((1, 8, 8, 2560), 136), "K8-one-row": ((5, 1, 8, 32), 48)}[case]
+                       "K8-cin2560": ((1, 8, 8, 2560), 136), "K8-one-row": ((5, 1, 8, 32), 48),
+                       "K8-w96-to-480": ((3, 19, 96, 64), 480),
+                       "K8-w8-cin200-to-1280": ((24, 21, 8, 200), 1280),
+                       "K8-w64-to-136": ((3, 5, 64, 96), 136),
+                       "K8-w24-cin32-to-512": ((40, 20, 24, 32), 512)}[case]
         x, w, b = r(*shape), r(cout, shape[-1], 3, 3, scale=(9 * shape[-1]) ** -0.5), r(cout)
         counter, got = pcv.K8, lambda: pcv.conv3x3_fused(x, w, b)
         want = pcv.conv3x3_plain(x, w, b)
