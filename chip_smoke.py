@@ -7,6 +7,7 @@
     python3 chip_smoke.py --budgets   # peak memory, phase by phase, as the clip grows
     python3 chip_smoke.py --train     # phases 1-2, then requests F and G alone
     python3 chip_smoke.py --train --profile   # one request-F train step under the profiler
+    python3 chip_smoke.py --request-h   # phases 1-2, then request H alone
 
 Phases, in order, one line each; any failure exits non-zero:
 
@@ -25,9 +26,11 @@ Phases, in order, one line each; any failure exits non-zero:
    same function, and the least time the card could take (``bound_ms``).
    K1 is held to ``anchored_attention_t`` (the TPU kernel's anchor and
    clamp), also where the clamp bites and the exact softmax is another
-   function, and to K12 on the same inputs (both kernels timed in that line),
-   since the two kernels compute one function, as K10 is to K11 (at both
-   UNet levels); the anchored kernels' log lines also give the exp2 floor;
+   function, and to K12 on the same inputs, which must give the same bits
+   (two tags of one kernel; both timed in that line), as K10 is held to K11
+   (at each head width); the anchored kernels' log lines also give the exp2
+   floor. Heads of 160 (level 2 at 1024^2) have their cases for K1, K2 and
+   K10-K12;
 4. request A: ``VideoPipeline.__call__`` at the headline geometry (16 uint8
    frames at 768^2, SD1.5 widths, context 30/8, CFG 3.5, 20 DDIM steps,
    absent face/hand streams, ready-made CLIP tokens and zero flow, SD-VAE
@@ -67,7 +70,13 @@ Phases, in order, one line each; any failure exits non-zero:
     idle; K7's and K8's launches whose grid of output tiles is under one wave
     of the card's multiprocessors are counted. Then the small request of
     phase 9 once more inside ``row_major()``.
-13. request F, training: ``scripts.train_stage2.main`` on synthetic batches at
+13. request H, 1024^2: 16 frames, SD1.5 widths, CFG 3.5, 2 steps, the SD
+    decoder, in the default configuration (K1 and K2 at heads of 160, K4 at
+    the encoder's (8, 16384, 512), K5 at the VAE's 1024^2 maps) and inside
+    ``row_major()`` (K10 at heads of 160, K11 at 40 and 80, K8 at 1024^2), the
+    launches' shape arguments recorded; the row-major latents held to the
+    default ones as request E's are (control: the bank K/V left out);
+14. request F, training: ``scripts.train_stage2.main`` on synthetic batches at
     the reference's geometry (20 frames at 576^2, batch 1, SD1.5 widths, MAN
     and motion modules on, bf16 with fp32 master copies, remat on), three
     optimizer steps in the default configuration (K1) and three inside
@@ -81,7 +90,7 @@ Phases, in order, one line each; any failure exits non-zero:
     the kernels and with every wrapper forced to its plain version, loss and
     gradients held to one another (control: the conditioning dropped); then
     two ``train_stage1`` steps at 768^2 (batch cut from 8 to 1).
-14. request G: the mega-block probe K14 at (32, 2304, 640) in one launch
+15. request G: the mega-block probe K14 at (32, 2304, 640) in one launch
     against the port's ``TransformerBlock`` read path on the same weights,
     both timed (control: the bank K/V left out).
 
@@ -89,7 +98,8 @@ The kernel counts are set to 0 just before each request and read just after;
 K1's and K4's must equal the counts the smoke read before the dispatcher
 took the JAX block rule (``K1_K4_LAUNCHES``), K2's and K10's those read
 before the two were rebuilt (``K2_K10_LAUNCHES``), K11's and K12's those read
-before the two moved onto K10's kernel (``K11_K12_LAUNCHES``).
+before the two moved onto K10's kernel (``K11_K12_LAUNCHES``), request H's
+those read when it was added (``H_LAUNCHES``).
 It prints the kernel record (one JSON object; ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` at each kernel's first shape; ``launches``
 from request B, for K9 and K13 from request D, for K7, K8, K10 and K11 from
@@ -160,6 +170,14 @@ D_FRAMES, D_SIZE, D_STEPS = 40, 256, 4  # request D, the CLI-shaped long clip
 E_REL_L2 = SMALL_REL_L2
 E_DECODED_REL_L2 = SMALL_DECODED_REL_L2
 PROFILE_E_STEPS = 6
+# Request H: SD1.5's level 2 (1280 channels in 8 heads of 160) takes a flash
+# route from 1024 tokens, so 16 frames at 1024^2, 2 DDIM steps, the SD decoder
+H_SIZE, H_STEPS = 1024, 2
+# Launches of every kernel on request H in each configuration as the smoke
+# read them when the request was added (kernels not named: 0)
+H_LAUNCHES = {"request H": {"K1": 45, "K2": 45, "K3": 84, "K4": 7, "K5": 410, "K6": 270},
+              "request H (row-major)": {"K2": 45, "K3": 84, "K4": 7, "K5": 410, "K6": 270,
+                                        "K7": 256, "K8": 342, "K10": 15, "K11": 30}}
 # The card's published peaks (H100 SXM): device memory, dense bf16 tensor
 # cores, fp32 outside the tensor cores.
 PEAK_BYTES, PEAK_BF16, PEAK_FP32 = 3.35e12, 989e12, 67e12
@@ -431,12 +449,23 @@ def gemm_tiles_k8(args) -> int:
     return -(-n // (128 // (wb * hb))) * (w // wb) * -(-h // hb) * -(-cout // bn)
 
 
-def grid_spy(launch, tiles, seen: list):
-    """``launch`` that first appends its grid's tile count to ``seen``."""
+def launch_spy(launch, what, seen: list):
+    """``launch`` that first appends ``what(args)`` (its grid's tile count, its
+    shape arguments) to ``seen``."""
     def spy(*args):
-        seen.append(tiles(args))
+        seen.append(what(args))
         launch(*args)
     return spy
+
+
+# The shape arguments of an entry point's launch, after its pointers: (batch,
+# seq, heads, hd) of the self-attention kernels; (batch, q_len, kv_len, heads,
+# hd) of K2; (images, rows, channels) of K5; (images, height, width, cin,
+# cout) of K8.
+SHAPE_ARGS = {"md_flash_fullc": slice(4, 8), "md_flash_cross": slice(4, 9),
+              "md_flash_wide": slice(4, 8), "md_flash_anchor_resident": slice(4, 8),
+              "md_flash_anchor_stream": slice(4, 8), "md_group_norm": slice(5, 8),
+              "md_conv3x3": slice(4, 9)}
 
 
 def wanted(kern, only) -> bool:
@@ -466,6 +495,10 @@ def attention_cases(dev, only=()):
         (fa.K1, fa.flash_attention_fullc, fa.anchored_attention_t, [(32, 9216, 320)] * 3, 8),
         (fa.K1, fa.flash_attention_fullc, fa.anchored_attention_t, [(32, 2304, 640)] * 3, 8),
         (fa.K1, fa.flash_attention_fullc, fa.anchored_attention_t, [(8, 2304, 320)] * 3, 8, 3.0),
+        # level 2 at 1024^2 (heads of 160), where the clamp bites, and at 1280 x 832
+        (fa.K1, fa.flash_attention_fullc, fa.anchored_attention_t, [(32, 1024, 1280)] * 3, 8),
+        (fa.K1, fa.flash_attention_fullc, fa.anchored_attention_t, [(8, 1024, 1280)] * 3, 8, 3.0),
+        (fa.K1, fa.flash_attention_fullc, fa.anchored_attention_t, [(32, 1040, 1280)] * 3, 8),
         (fa.K2, fa.cross_attention, fa.dot_product_attention,
          [(32, 9216, 320), (32, 257, 320), (32, 257, 320)], 8),
         (fa.K2, fa.cross_attention, fa.dot_product_attention,
@@ -475,6 +508,14 @@ def attention_cases(dev, only=()):
          [(20, 5184, 320), (20, 257, 320), (20, 257, 320)], 8),
         (fa.K2, fa.cross_attention, fa.dot_product_attention,
          [(20, 1296, 640), (20, 257, 640), (20, 257, 640)], 8),
+        # heads of 160 (level 2 at 1024^2): the CLIP context in one chunk of
+        # keys, the most keys K2 takes (two chunks), a text context
+        (fa.K2, fa.cross_attention, fa.dot_product_attention,
+         [(32, 1024, 1280), (32, 257, 1280), (32, 257, 1280)], 8),
+        (fa.K2, fa.cross_attention, fa.dot_product_attention,
+         [(2, 1024, 1280), (2, 512, 1280), (2, 512, 1280)], 8),
+        (fa.K2, fa.cross_attention, fa.dot_product_attention,
+         [(32, 1024, 1280), (32, 77, 1280), (32, 77, 1280)], 8),
         (ta.K3, ta.temporal_attention, ta.temporal_attention_plain, [(2, 16, 9216, 320)] * 3, 8),
         (ta.K3, ta.temporal_attention, ta.temporal_attention_plain, [(2, 16, 2304, 640)] * 3, 8),
         (ta.K3, ta.temporal_attention, ta.temporal_attention_plain, [(2, 16, 576, 1280)] * 3, 8),
@@ -484,6 +525,8 @@ def attention_cases(dev, only=()):
         (ta.K3, ta.temporal_attention, ta.temporal_attention_plain, [(4, 30, 1024, 320)] * 3, 8),
         (fa.K4, fa.flash_attention_wide, fa.dot_product_attention, [(8, 9216, 512)] * 3, 1),
         (fa.K4, fa.flash_attention_wide, fa.dot_product_attention, [(4, 5184, 512)] * 3, 1),
+        # the VAE encoder's chunk of 8 frames at 1024^2 (request H)
+        (fa.K4, fa.flash_attention_wide, fa.dot_product_attention, [(8, 16384, 512)] * 3, 1),
         # the VAE mid-block under 512^2: 256^2, 384^2, the largest S K9 takes,
         # and a ragged S (a 33 x 35 latent map)
         (fa.K9, fa.flash_attention_resident, fa.dot_product_attention, [(8, 1024, 512)] * 3, 1),
@@ -612,9 +655,17 @@ def anchored_cases(dev, only=()):
              (fa.K12, fa.flash_attention_fullc_t, (20, 1296, 640), 1.0),
              (fa.K12, fa.flash_attention_fullc_t, (8, 2304, 320), 3.0),
              # K10 with an odd number of heads of 40: the last one has no partner
-             (fa.K10, fa.flash_anchor_resident, (8, 2304, 120), 1.0, 3)]
-    check(fa.fullc_resident(2304, 640, 8) and not fa.fullc_resident(9216, 320, 8),
-          "the byte rule gives K10 the 2304-token level and K11 the 9216-token level")
+             (fa.K10, fa.flash_anchor_resident, (8, 2304, 120), 1.0, 3),
+             # heads of 160: level 2 at 1024^2 (resident: K10 in the row-major
+             # configuration; K11 on the same shape), the transposed
+             # configuration's level 2 at 1280^2 (1600 tokens, above the limit)
+             (fa.K10, fa.flash_anchor_resident, (32, 1024, 1280), 1.0),
+             (fa.K11, fa.flash_anchor_stream, (32, 1024, 1280), 1.0),
+             (fa.K12, fa.flash_attention_fullc_t, (20, 1600, 1280), 1.0)]
+    check(fa.fullc_resident(2304, 640, 8) and not fa.fullc_resident(9216, 320, 8)
+          and fa.fullc_resident(1024, 1280, 8) and not fa.fullc_resident(1600, 1280, 8),
+          "the byte rule gives K10 the 2304- and 1024-token levels, K11 / K12 the 9216- and "
+          "1600-token levels")
     for kern, fn, shape, q_scale, *heads in cases:
         if not wanted(kern, only):
             continue
@@ -909,39 +960,43 @@ def flat(grads) -> torch.Tensor:
 
 
 def check_k1_against_k12(dev) -> None:
-    """K1 and K12 compute one function (``anchored_attention_t``): both kernels
-    on the same inputs, at level 0 and where the clamp bites, held to each
-    other under the relative-L2 limit; K12 with the softmax scale off by 9% is
-    the control. Both kernels are timed on those inputs (median of 5), which
-    says whether K1's entry should launch K12's kernel."""
+    """K1 and K12 compute one function (``anchored_attention_t``) and are two
+    tags of one kernel (``csrc/flash_anchor_wg.cu``): on the same inputs, at
+    each head width and where the clamp bites, their outputs must be
+    identical (relative L2 0); K12 with the softmax scale off by 9% is the
+    control, which must land above the relative-L2 limit. Both are timed on
+    those inputs (median of 5)."""
     from mikudance_tpu_torch.kernels import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(7)
-    for shape, q_scale in (((32, 9216, 320), 1.0), ((8, 2304, 320), 3.0)):
+    for shape, q_scale in (((32, 9216, 320), 1.0), ((8, 2304, 320), 3.0), ((32, 2304, 640), 1.0),
+                           ((32, 1024, 1280), 1.0)):
         q, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
         q, k, v = (q * q_scale).to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
-        k1 = fa.flash_attention_fullc(q, k, v, 8)
-        rel = rel_l2(k1, fa.flash_attention_fullc_t(q, k, v, 8))
+        k1, k12 = fa.flash_attention_fullc(q, k, v, 8), fa.flash_attention_fullc_t(q, k, v, 8)
+        rel = rel_l2(k1, k12)
         ctl = rel_l2(k1, fa.flash_attention_fullc_t(q * CONTROL_Q_SCALE, k, v, 8))
         ms_k1 = cuda_ms(lambda: fa.flash_attention_fullc(q, k, v, 8), 5)
         ms_k12 = cuda_ms(lambda: fa.flash_attention_fullc_t(q, k, v, 8), 5)
         log(f"kernels: K1 against K12 on the same inputs q{shape} heads 8 q x {q_scale}: "
-            f"relative L2 {rel:.3e} (limit {REL_L2}; control {ctl:.3e}); K1 {ms_k1:.3f} ms, "
-            f"K12 {ms_k12:.3f} ms")
-        check(rel < REL_L2 < ctl, f"K1 against K12 {shape}: {rel:.3e}, control {ctl:.3e}")
-        del q, k, v, k1
+            f"relative L2 {rel:.3e} (identical: {torch.equal(k1, k12)}; control {ctl:.3e}, "
+            f"limit {REL_L2}); K1 {ms_k1:.3f} ms, K12 {ms_k12:.3f} ms")
+        check(torch.equal(k1, k12) and ctl > REL_L2,
+              f"K1 against K12 {shape}: {rel:.3e}, control {ctl:.3e}")
+        del q, k, v, k1, k12
 
 
 def check_k10_against_k11(dev) -> None:
     """K10 and K11 compute one function (``anchored_attention``): both kernels
     on the same inputs, at the 2304-token level, at the 9216-token level (where
     K11 runs) and where the clamp bites, held to each other under the
-    relative-L2 limit; K11 with the softmax scale off by 9% is the control."""
+    relative-L2 limit, and at heads of 160 (level 2 at 1024^2); K11 with the
+    softmax scale off by 9% is the control."""
     from mikudance_tpu_torch.kernels import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(8)
     for shape, q_scale in (((32, 2304, 640), 1.0), ((32, 9216, 320), 1.0),
-                           ((8, 2304, 640), 3.0)):
+                           ((8, 2304, 640), 3.0), ((32, 1024, 1280), 1.0)):
         q, k, v = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
         q, k, v = (q * q_scale).to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16)
         check((fa.anchor_excursion(q[:1], k[:1], 8) > fa.EXP_CLAMP) == (q_scale > 1.0),
@@ -1038,23 +1093,30 @@ def phase_kernels(dev, only=()):
 
 # kernel-name substrings -> category, first match wins
 PROFILE_CATEGORIES = [
-    ("K1 hd 40 (S=9216 self)", ("flash_fullc_kernel<40>",)),
-    ("K1 hd 80 (S=2304 self)", ("flash_fullc_kernel<80>",)),
+    # K1, K10, K11 and K12 are one kernel, K4 and K9 another; the tag in the
+    # template arguments parts them
+    ("K1 hd 40 (S=9216 self)", ("anchor_wg_kernel<40, 1>",)),
+    ("K1 hd 80 (S=2304 self)", ("anchor_wg_kernel<80, 1>",)),
+    ("K1 hd 160 (S=1024 self)", ("anchor_wg_kernel<160, 1>",)),
     ("K2 hd 40 (S=9216 cross)", ("flash_cross_kernel<40>",)),
     ("K2 hd 80 (S=2304 cross)", ("flash_cross_kernel<80>",)),
-    ("K4 hd 512 (VAE)", ("flash_wide_kernel",)),
+    ("K2 hd 160 (S=1024 cross)", ("flash_cross_kernel<160>",)),
+    ("K4 hd 512 (VAE)", ("flash_wide_kernel<4>",)),
+    ("K9 hd 512 (VAE under 512^2)", ("flash_wide_kernel<9>",)),
     ("K3 temporal", ("temporal_kernel",)),
     ("K5 GroupNorm (statistics, finish, apply)", ("gn_stats_kernel", "gn_finish_kernel",
                                                   "gn_apply_kernel")),
     ("K6 LayerNorm", ("ln_kernel",)),
     ("K7 linear (the chain's products)", ("linear_kernel",)),
     ("K8 conv3x3", ("conv3x3_kernel",)),
-    # K10, K11 and K12 are one kernel; the tag in its template arguments parts them
     ("K12 anchored attention, bf16 anchor", ("anchor_wg_kernel<40, 12>",
-                                             "anchor_wg_kernel<80, 12>")),
+                                             "anchor_wg_kernel<80, 12>",
+                                             "anchor_wg_kernel<160, 12>")),
     ("K14 mega-block", ("mega_kernel",)),
-    ("K10 anchored attention", ("anchor_wg_kernel<40, 10>", "anchor_wg_kernel<80, 10>")),
-    ("K11 anchored attention", ("anchor_wg_kernel<40, 11>", "anchor_wg_kernel<80, 11>")),
+    ("K10 anchored attention", ("anchor_wg_kernel<40, 10>", "anchor_wg_kernel<80, 10>",
+                                "anchor_wg_kernel<160, 10>")),
+    ("K11 anchored attention", ("anchor_wg_kernel<40, 11>", "anchor_wg_kernel<80, 11>",
+                                "anchor_wg_kernel<160, 11>")),
     ("conv (cuDNN)", ("fprop", "conv", "implicit_gemm", "cudnn", "nhwc")),
     ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "Kernel2")),
     ("softmax (plain attention)", ("softmax",)),
@@ -1260,6 +1322,22 @@ def run_request(pipe, inputs, steps: int, decode: bool = True):
     return frames, seen[0], timer
 
 
+def row_major_without_bank(pipe, inputs, steps: int):
+    """The latents of a request inside ``row_major()`` with the bank K/V left
+    out of every transformer block's chain: the control that a comparison of
+    the row-major and the default configuration must reject."""
+    from mikudance_tpu_torch.kernels import row_major
+    from mikudance_tpu_torch.models import layers
+
+    chain = layers.TransformerBlock._chain
+    layers.TransformerBlock._chain = lambda self, x, ref_kv, ctx_kv: chain(self, x, None, ctx_kv)
+    try:
+        with row_major():
+            return run_request(pipe, inputs, steps, decode=False)[1]
+    finally:
+        layers.TransformerBlock._chain = chain
+
+
 def run_request_b(pipe, seed: int, steps: int):
     """The CLI-shaped request: camera matrices and depth -> flow on the card,
     reference picture -> CLIP tokens through the bundle's tower, then the
@@ -1397,6 +1475,8 @@ def main() -> int:
                     help="peak memory of one-step 768^2 requests as the clip grows")
     ap.add_argument("--kernels", metavar="K7,K8",
                     help="build, hold the named kernels to their plain versions, and stop")
+    ap.add_argument("--request-h", action="store_true",
+                    help="build, then request H (1024^2, both configurations) alone")
     args = ap.parse_args()
     # one card, the first visible one, fixed before CUDA initialises
     card = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0].strip()
@@ -1413,7 +1493,6 @@ def main() -> int:
     from mikudance_tpu_torch.kernels import layer_norm as ln
     from mikudance_tpu_torch.kernels import linear as lin
     from mikudance_tpu_torch.kernels import temporal_attention as ta
-    from mikudance_tpu_torch.models import layers
     from mikudance_tpu_torch.pipelines.image import ImagePipeline
     from mikudance_tpu_torch.pipelines.video import ModelBundle, VideoPipeline
 
@@ -1470,8 +1549,10 @@ def main() -> int:
     log(f"build: {lib.name} in {time.perf_counter() - t0:.1f} s "
         f"(ptxas report: {lib.with_suffix('.log')})")
     log("ptxas: " + ptxas_report(lib.with_suffix(".log").read_text(),
-                                 ("anchor_wg_kernel", "flash_cross_kernel", "linear_kernel",
-                                  "conv3x3_kernel")))
+                                 ("anchor_wg_kernel", "flash_cross_kernel", "flash_wide_kernel",
+                                  "linear_kernel", "conv3x3_kernel")))
+    log("kernels: " + "; ".join(f"{k.name} = {k.symbol} in {k.source}, replaces {k.replaces}"
+                                for k in kernels))
 
     cfg = PipelineConfig(width=W, height=H, num_inference_steps=STEPS, guidance_scale=3.5,
                          context=ContextConfig(frames=30, overlap=8))
@@ -1490,7 +1571,7 @@ def main() -> int:
     def training_phases():
         """Requests F and G; returns their launch counts (F transposed, F
         default, the stage-1 steps, G)."""
-        # 13. request F: the stage-2 trainer at the reference's geometry, a few
+        # 14. request F: the stage-2 trainer at the reference's geometry, a few
         # optimizer steps, in the transposed configuration and in the default one
         train_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                                  "chip_smoke")
@@ -1608,7 +1689,7 @@ def main() -> int:
         del state1
         torch.cuda.empty_cache()
 
-        # 14. request G: the mega-block probe against the block's read path
+        # 15. request G: the mega-block probe against the block's read path
         block, ins, w = mega_inputs(dev, MEGA_LEVELS[0], seed=6)
         read_path = block_read_path(block, *ins)
         reset_counts()
@@ -1634,6 +1715,87 @@ def main() -> int:
 
         return launches_f, launches_f_default, launches_s1, launches_g
 
+    def request_h(bundle):
+        """Request H: 16 frames at 1024^2 (SD1.5 widths, CFG 3.5, 2 steps, the SD
+        decoder), once in the default configuration and once inside
+        ``row_major()``, with the shape arguments of the launches of K1, K2,
+        K4, K5, K8, K10 and K11 recorded: heads of 160 at level 2 (1024
+        tokens) reach K1 and K2, or K10 in row-major; K4 takes the VAE
+        encoder's (8, 16384, 512); K5 and K8 the VAE's 1024^2 maps. The
+        row-major latents are held to the default ones as request E's are to
+        warm request A's (control: the bank K/V left out of the chain).
+        Returns the launches of both runs."""
+        pipe_h = VideoPipeline(bundle, PipelineConfig(
+            width=H_SIZE, height=H_SIZE, num_inference_steps=H_STEPS, guidance_scale=3.5,
+            context=ContextConfig(frames=30, overlap=8)))
+        inputs = make_inputs(9, T, H_SIZE, H_SIZE)
+        spied = (fa.K1, fa.K2, fa.K4, gn.K5, cv.K8, fa.K10, fa.K11)
+        on_default = list(at_768)
+        on_row_major = [k for k in at_768 if k is not fa.K1] + list(row_major_only)
+        runs = {}
+        for name, configuration, expect in (
+                ("request H", contextlib.nullcontext, on_default),
+                ("request H (row-major)", row_major, on_row_major)):
+            shapes = {k.name: [] for k in spied}
+            for k in spied:
+                k.launch = launch_spy(k.launch, lambda a, sl=SHAPE_ARGS[k.symbol]: tuple(a[sl]),
+                                      shapes[k.name])
+            try:
+                with configuration():
+                    reset_counts()
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    t0 = time.perf_counter()
+                    frames, latents, timer = run_request(pipe_h, inputs, H_STEPS)
+                    wall = time.perf_counter() - t0
+                    counts = read_counts(name, expect, absent=[
+                        k for k in kernels if k not in expect])
+            finally:
+                for k in spied:
+                    del k.launch
+            check_video(frames, latents, T, name, H_SIZE, H_SIZE)
+            shapes = {n: sorted(set(v)) for n, v in shapes.items()}
+            big_map = H_SIZE * H_SIZE
+            attn = {n: v for n, v in shapes.items() if n not in (gn.K5.name, cv.K8.name)}
+            log(f"{name}: {T}x{H_SIZE}x{H_SIZE} {H_STEPS} steps in {wall:.3f} s | "
+                f"{phase_text(timer)} | peak {max(timer.peaks.values()):.2f} GiB | launches "
+                f"{counts} | shapes {attn} | K5 at the {H_SIZE}^2 maps (images, rows, channels) "
+                f"{[x for x in shapes[gn.K5.name] if x[1] == big_map]} | K8 at the {H_SIZE}^2 "
+                f"maps (images, height, width, cin, cout) "
+                f"{[x for x in shapes[cv.K8.name] if x[1:3] == (H_SIZE, H_SIZE)]} | latents std "
+                f"{latents.std().item():.4f}")
+
+            def took(kern, index, value):
+                return any(x[index] == value for x in shapes[kern.name])
+
+            check(took(gn.K5, 1, big_map), f"{name}: K5 at the {H_SIZE}^2 maps")
+            if configuration is row_major:
+                check(took(fa.K10, 3, 160) and took(fa.K11, 3, 40) and took(fa.K11, 3, 80)
+                      and any(x[1:3] == (H_SIZE, H_SIZE) for x in shapes[cv.K8.name]),
+                      f"{name}: K10 at heads of 160, K11 at 40 and 80, K8 at {H_SIZE}^2")
+            else:
+                check(took(fa.K1, 3, 160) and took(fa.K1, 3, 40) and took(fa.K1, 3, 80)
+                      and took(fa.K2, 4, 160)
+                      and (8, (H_SIZE // 8) ** 2, 1, 512) in shapes[fa.K4.name],
+                      f"{name}: K1 at heads of 40, 80 and 160, K2 at 160, K4 at the encoder's "
+                      f"(8, {(H_SIZE // 8) ** 2}, 512)")
+            runs[name] = (frames, latents, counts)
+        (frames_d, lat_d, launches_h), (frames_r, lat_r, launches_h_rm) = runs.values()
+        lat_ctl = row_major_without_bank(pipe_h, inputs, H_STEPS)
+        rel, rel_ctl = rel_l2(lat_r, lat_d), rel_l2(lat_ctl, lat_d)
+        rel_frames = rel_l2(torch.from_numpy(frames_r), torch.from_numpy(frames_d))
+        log(f"request H, row-major against default, relative L2: latents {rel:.3e} (limit "
+            f"{E_REL_L2}; control without the bank K/V {rel_ctl:.3e}), decoded frames "
+            f"{rel_frames:.3e}")
+        check(rel < E_REL_L2 < rel_ctl, f"request H latents {rel:.3e} and the control "
+                                        f"{rel_ctl:.3e} on either side of {E_REL_L2}")
+        for name, (_, _, counts) in runs.items():
+            got = {k.name.split(" ")[0]: n for k in kernels if (n := counts[k.name])}
+            check(got == H_LAUNCHES.get(name), f"{name}: launches {got}, recorded "
+                                               f"{H_LAUNCHES.get(name)}")
+        del runs, frames_d, lat_d, frames_r, lat_r, lat_ctl, pipe_h
+        torch.cuda.empty_cache()
+        return launches_h, launches_h_rm
+
     if args.budgets:
         phase_budgets(build_bundle(0, dev), dev)
         return 0
@@ -1650,6 +1812,9 @@ def main() -> int:
 
     if args.train:
         training_phases()
+        return 0
+    if args.request_h:
+        request_h(build_bundle(0, dev))
         return 0
     if args.kernels:
         log((lib.with_suffix(".log")).read_text())
@@ -1849,7 +2014,7 @@ def main() -> int:
     fa.flash_anchor_stream = spy
     grids = {lin.K7.name: [], cv.K8.name: []}  # output tiles of each GEMM-core launch
     for kern, tiles in ((lin.K7, gemm_tiles_k7), (cv.K8, gemm_tiles_k8)):
-        kern.launch = grid_spy(kern.launch, tiles, grids[kern.name])
+        kern.launch = launch_spy(kern.launch, tiles, grids[kern.name])
     try:
         with row_major():
             reset_counts()
@@ -1873,13 +2038,7 @@ def main() -> int:
     excursion = fa.anchor_excursion(*seen.pop("qk"))
     rel_e = rel_l2(latents, lat_warm)
     rel_e_frames = rel_l2(torch.from_numpy(frames), torch.from_numpy(frames_warm))
-    chain = layers.TransformerBlock._chain
-    layers.TransformerBlock._chain = lambda self, x, ref_kv, ctx_kv: chain(self, x, None, ctx_kv)
-    try:  # the control: the chain without the bank K/V
-        with row_major():
-            _, lat_ctl, _ = run_request(pipe, make_inputs(1, T, H, W), WARM_STEPS, decode=False)
-    finally:
-        layers.TransformerBlock._chain = chain
+    lat_ctl = row_major_without_bank(pipe, make_inputs(1, T, H, W), WARM_STEPS)
     rel_e_ctl = rel_l2(lat_ctl, lat_warm)
     log(f"request E (row-major): {T}x{H}x{W} {WARM_STEPS} steps in {wall:.3f} s | "
         f"{phase_text(timer)} | peak {max(timer.peaks.values()):.2f} GiB | launches "
@@ -1912,8 +2071,13 @@ def main() -> int:
     check(rel < SMALL_REL_L2 and used == small_row_major,
           f"small row-major request: rel {rel}, kernels {used}")
 
-    # 13-14. requests F and G
-    del bundle, pipe, bundle_b, pipe_b, small_pipe, d_pipe, q8_pipe, lat_k, lat_p, lat_warm
+    # 13. request H: 1024^2, heads of 160, both configurations
+    del pipe, bundle_b, pipe_b, small_pipe, d_pipe, q8_pipe, lat_k, lat_p, lat_warm
+    torch.cuda.empty_cache()
+    launches_h, launches_h_rm = request_h(bundle)
+
+    # 14-15. requests F and G
+    del bundle
     torch.cuda.empty_cache()
     launches_f, launches_f_default, launches_s1, launches_g = training_phases()
 
@@ -1940,6 +2104,8 @@ def main() -> int:
         if rec["name"] == mb.K14.name:
             rec["launches"] = launches_g[rec["name"]]
         rec["launches_request_a"] = launches_a[rec["name"]]
+        rec["launches_request_h"] = launches_h[rec["name"]]
+        rec["launches_request_h_row_major"] = launches_h_rm[rec["name"]]
         rec["launches_image_request"] = launches_i[rec["name"]]
     kern_line = {"kernels": list(record.values())}
     print(json.dumps(kern_line))

@@ -1,10 +1,17 @@
 // Anchored packed-heads self-attention on Hopper's warpgroup tensor cores
 // (wgmma) with K and V fed by the Tensor Memory Accelerator (TMA),
-// hand-written for sm_90a. One kernel, three entry points, each its own
+// hand-written for sm_90a. One kernel, four entry points, each its own
 // instantiation (a kernel tag in the template arguments, so that a profile
 // tells them apart):
 //
-//   K10 md_flash_anchor_resident  replaces mikudance_tpu/kernels/flash_attention.py
+//   K1  md_flash_fullc            replaces mikudance_tpu/kernels/flash_attention.py
+//       _flash_kernel_fullc_nt (:485, entry flash_attention_fullc_nt :546): the
+//       route of the UNet's spatial self-attention under the default switches
+//       (8 heads of 40 at S = 9216, of 80 at 2304, of 160 at 1024 for 1024^2).
+//       Its function is K12's (the anchor rounded to bf16; the JAX package
+//       calls the two TPU kernels bit-identical), so it is K12's code under
+//       its own symbol and counter.
+//   K10 md_flash_anchor_resident  replaces
 //       _flash_kernel_fullc_resident (:158), the branch of flash_attention_fullc
 //       (:278) taken while a batch element's K and V stay under its byte limit
 //       (the 2304-token UNet level, 8 heads of 80; the 1296-token level of
@@ -21,7 +28,7 @@
 //
 // Per head of (B, S, C) bf16 tensors with the heads packed in C:
 //     q'  = q * (log2(e) / sqrt(hd))              fp32
-//     off = sum_d q'_d q_d                        fp32, not rounded (K12: bf16(off))
+//     off = sum_d q'_d q_d                        fp32, not rounded (K1, K12: bf16(off))
 //     s   = bf16(q') . k                          fp32 accumulation
 //     p   = bf16(exp2(clip(s - off, -100, 100)))
 //     o   = (sum_j p_j v_j) / (sum_j p_j)         both sums in fp32 over bf16 p
@@ -34,8 +41,9 @@
 // the tensor cores (~4.2 ms at (32, 9216, 320), 48 padded columns), the
 // exponentials (5.2 ms: one ex2 a score, 16 a clock an SM) and instruction
 // issue (~4 ms: subtraction, two-sided clamp, ex2, half a pack, and the row
-// sum a score). mma.sync does not reach the tensor cores' full rate on
-// Hopper; warpgroup MMA does.
+// sum a score). At a head of 160 the tensor cores again: at (32, 1024, 1280)
+// the flops take 0.174 ms, the exponentials 0.064 ms. mma.sync does not
+// reach the tensor cores' full rate on Hopper; warpgroup MMA does.
 //
 // Design (FA3's shape). A block owns 64 query rows a consumer warpgroup of
 // one (batch, head), plus a producer.
@@ -43,24 +51,35 @@
 //   registers of wgmma's A fragment (the mma.sync m16n8k16 layout, one warp
 //   16 rows), scaled in fp32 and rounded to bf16; its share of each row's
 //   fp32 anchor comes from the same unrounded values, the quad reduces.
-//   K and V: tiles of 128 keys arrive by TMA in a ring of four stages with
-//   full / empty mbarriers. A tile is KS boxes of 128 keys x 16 channels
-//   (KS = 5 at hd 80; 3 at hd 40, padded to 48), 32-byte swizzled, read from
-//   a 3-D (C, S, B) tensor map at the head's channel offset, so rows past S
-//   and channels past C arrive as zeros, never as the next batch element's.
+//   K and V: tiles of 128 keys arrive by TMA in a ring of four stages (two at
+//   hd 160) with full / empty mbarriers. A tile is KS boxes of 128 keys x 16
+//   channels (KS = 10 at hd 160, 5 at hd 80; 3 at hd 40, padded to 48),
+//   32-byte swizzled, read from a 3-D (C, S, B) tensor map at the head's
+//   channel offset, so rows past S and channels past C arrive as zeros, never
+//   as the next batch element's.
 //   A box of K is the K-major B operand of one k16 step of Q K^T; the boxes
 //   of V side by side are the N-major (transposed) B operand of P V.
 //   S = Q K^T: wgmma m64n128k16, A from registers, fp32 in registers. Then in
 //   registers: subtract the anchor, clamp, ex2.approx, round to bf16 pairs.
 //   The accumulator layout of S is the A-fragment layout of P: O += P V is
-//   wgmma m64n80k16 (hd 80) or m64n56k16 (hd 40) with P as the register A
-//   operand and O in registers. Each product is waited for before its result
-//   is used; the consumer warpgroups run unsynchronised, so one's
-//   exponentials can overlap the others' products.
+//   wgmma m64n160k16 (hd 160), m64n80k16 (hd 80) or m64n56k16 (hd 40) with P
+//   as the register A operand and O in registers. Each product is waited
+//   for before its result is used; the consumer warpgroups run
+//   unsynchronised, so one's exponentials can overlap the others' products.
 //   Heads of 80: two consumer warpgroups and a producer warp (288 threads),
 //   l summed from the packed p. (Timed on the H100 and left out: tiles of 64
 //   keys; S of the next tile issued before this tile's exponentials; FA3's
 //   ping-pong of the two warpgroups.)
+//   Heads of 160 (SD1.5's level 2, 1024 tokens at 1024^2): two consumer
+//   warpgroups, the anchor subtracted and l summed in registers as at hd 80
+//   (160 is ten whole k16 steps: no pad column for a ones lane). A stage of
+//   K and V is 80 KB, so two stages fit the 227 KB a block may have. S (64
+//   fp32 a thread), O (m64n160: 80), Q's A fragments (40) and P (32) need
+//   more than the 168 registers a thread gets when nine warps share an SM's
+//   four quadrants (ptxas spilled there), so the producer is a warpgroup that
+//   hands its registers to the consumers (setmaxnreg: 240). (Timed on the
+//   H100 and left out: tiles of 64 keys in four stages of 40 KB, slower at
+//   each of four shapes.)
 //   Heads of 40, shaped by the three floors (each move timed on the H100,
 //   PERF.md):
 //   - The row sum rides P V, as the TPU kernel's fuse_ones does at this
@@ -105,7 +124,6 @@ typedef __nv_bfloat16 bf16;
 namespace {
 
 constexpr int kBK = 128;          // keys a tile
-constexpr int kStages = 4;        // K/V tiles in flight
 constexpr int kBox = kBK * 32;    // bytes of a box: 128 keys x 16 channels
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kClamp = 100.f;
@@ -114,14 +132,16 @@ constexpr float kClamp = 100.f;
 // shared-memory plan. Heads of 40 take the three moves together: three
 // consumer warpgroups, the row sum and the anchor on the tensor cores against
 // a box of ones, a producer warpgroup that hands its registers to the
-// consumers; heads of 80 keep two consumers and a producer warp. A stage
-// holds KS boxes of K, KS of V (16 KS channels, zero or ignored past HD) and,
-// with the ones, a box of ones; then an output staging tile of 16 rows a
-// consumer warp (rows padded by 8 bf16 against bank conflicts); the barriers.
+// consumers; heads of 80 keep two consumers and a producer warp; heads of
+// 160 two consumers and a producer warpgroup. A stage holds KS boxes of K, KS
+// of V (16 KS channels, zero or ignored past HD) and, with the ones, a box of
+// ones; four stages, two where four do not fit (hd 160); then an output
+// staging tile of 16 rows a consumer warp (rows padded by 8 bf16 against bank
+// conflicts); the barriers.
 template <int HD>
 struct Plan {
   static constexpr bool ones = HD == 40;
-  static constexpr bool producer_wg = ones;
+  static constexpr bool producer_wg = ones || HD == 160;
   static constexpr int consumers = ones ? 3 : 2;    // warpgroups of 64 query rows
   // Registers are allocated per SM quadrant (16,384 each, one warp of every
   // warpgroup on each). With a producer warpgroup each of the consumers + 1
@@ -142,9 +162,11 @@ struct Plan {
   static constexpr int tx = 2 * KS * kBox;                // bytes TMA brings a stage
   static constexpr int stage = tx + (ones ? kBox : 0);    // K, V and ones boxes
   static constexpr int out = consumers * 4 * 16 * LDO * 2;
-  static constexpr int bars = 2 * kStages * 8;            // full, empty
-  static constexpr int bytes = 1024 + kStages * stage + out + bars;  // + alignment slack
+  static constexpr int stages = 1024 + 4 * stage + out + 64 <= 232448 ? 4 : 2;
+  static constexpr int bars = 2 * stages * 8;             // full, empty
+  static constexpr int bytes = 1024 + stages * stage + out + bars;  // + alignment slack
   static_assert(HD % 8 == 0, "16-byte rows");
+  static_assert(bytes <= 232448, "one block's shared memory");
 };
 
 // A shared-memory matrix descriptor, 32-byte swizzle: start address, leading
@@ -234,12 +256,49 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t 
         "n"(kTransB));
 }
 
-// d += A B on the width of P V: n80 at hd 80, n56 at hd 40 (48 V columns,
-// 8 of ones)
+// d (64 x 160, fp32) = A (64 x 16, bf16, registers) B (16 x 160, bf16, a shared-memory
+// descriptor) + (accumulate ? d : 0); kTransB 1: B is N-major
+template <int kTransB>
+__device__ __forceinline__ void wgmma_m64n160k16(float (&d)[80], const uint32_t (&a)[4],
+                                                 uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79"
+      "}, {%80, %81, %82, %83}, %84, p, 1, 1, %86;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),
+        "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate),
+        "n"(kTransB));
+}
+
+// d += A B on the width of P V: n160 at hd 160, n80 at hd 80, n56 at hd 40
+// (48 V columns, 8 of ones)
 template <int NO>
 __device__ __forceinline__ void wgmma_out(float (&d)[NO / 2], const uint32_t (&a)[4],
                                           uint64_t desc_b) {
-  if constexpr (NO == 80) wgmma_m64n80k16<1>(d, a, desc_b, 1);
+  if constexpr (NO == 160) wgmma_m64n160k16<1>(d, a, desc_b, 1);
+  else if constexpr (NO == 80) wgmma_m64n80k16<1>(d, a, desc_b, 1);
   else wgmma_m64n56k16<1>(d, a, desc_b, 1);
 }
 
@@ -261,6 +320,7 @@ __device__ __forceinline__ void tile_update(const Tiles& tl, int t,
                                             float (&oacc)[Plan<HD>::NO / 2], float& l0,
                                             float& l1) {
   using L = Plan<HD>;
+  constexpr int kStages = L::stages;
   const int lane = threadIdx.x % 32, c2 = (lane % 4) * 2;
   const int s = t % kStages;
   const uint32_t kt = tl.base + s * L::stage, vt = kt + L::KS * kBox;
@@ -318,8 +378,8 @@ __device__ __forceinline__ void tile_update(const Tiles& tl, int t,
   if (lane == 0) mbar_arrive(tl.empty0 + 8 * s);  // this warp is done with the stage
 }
 
-// kTag: the kernel number (10, 11, 12), so that each entry point has a device
-// symbol of its own; K12 rounds the anchor to bf16.
+// kTag: the kernel number (1, 10, 11, 12), so that each entry point has a
+// device symbol of its own; K1 and K12 round the anchor to bf16.
 template <int HD, int kTag>
 __global__ void __launch_bounds__(Plan<HD>::threads, 1)
 anchor_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
@@ -327,7 +387,8 @@ anchor_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
                  bf16* __restrict__ o, int seq, int heads, float scale_log2) {
   using L = Plan<HD>;
   constexpr int KS = L::KS, NO = L::NO, LDO = L::LDO, kConsumers = L::consumers;
-  constexpr bool kRoundAnchor = kTag == 12;
+  constexpr int kStages = L::stages;
+  constexpr bool kRoundAnchor = kTag == 1 || kTag == 12;
   extern __shared__ unsigned char smem_raw[];
   // TMA's swizzled boxes and wgmma's descriptors agree on 1024-byte alignment
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -511,6 +572,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int batch, in
   switch (hd) {
     case 40: return launch<40, kTag>(q, k, v, o, batch, seq, heads, s);
     case 80: return launch<80, kTag>(q, k, v, o, batch, seq, heads, s);
+    case 160: return launch<160, kTag>(q, k, v, o, batch, seq, heads, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -520,8 +582,15 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int batch, in
 extern "C" {
 
 // q, k, v, o: (batch, seq, heads * hd) bf16, contiguous, 16-byte aligned
-// (TMA's rule for the base and the row stride), hd 40 or 80, any head count,
-// any seq >= 1.
+// (TMA's rule for the base and the row stride), hd 40, 80 or 160, any head
+// count, any seq >= 1. The anchor rounded to bf16 (anchored_attention_t): K1's
+// counter and symbol.
+int md_flash_fullc(const void* q, const void* k, const void* v, void* o, int batch, int seq,
+                   int heads, int hd, void* stream) {
+  return dispatch<1>(q, k, v, o, batch, seq, heads, hd, stream);
+}
+
+// the same with the anchor in fp32 (anchored_attention): K10's
 int md_flash_anchor_resident(const void* q, const void* k, const void* v, void* o, int batch,
                              int seq, int heads, int hd, void* stream) {
   return dispatch<10>(q, k, v, o, batch, seq, heads, hd, stream);
@@ -533,7 +602,7 @@ int md_flash_anchor_stream(const void* q, const void* k, const void* v, void* o,
   return dispatch<11>(q, k, v, o, batch, seq, heads, hd, stream);
 }
 
-// the same with the anchor rounded to bf16 (anchored_attention_t)
+// K1's function, K12's counter and symbol
 int md_flash_fullc_t(const void* q, const void* k, const void* v, void* o, int batch, int seq,
                      int heads, int hd, void* stream) {
   return dispatch<12>(q, k, v, o, batch, seq, heads, hd, stream);

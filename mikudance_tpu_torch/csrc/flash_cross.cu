@@ -3,8 +3,9 @@
 //
 //   K2 md_flash_cross  replaces mikudance_tpu/kernels/flash_attention.py
 //      _cross_kernel_fullc (:598, entry flash_attention_cross :631): S queries
-//      (9216 and 2304 tokens at 768^2, 5184 and 1296 at 576^2) against the
-//      257 CLIP tokens, heads of 40 and 80 packed in C, the exact softmax.
+//      (9216 and 2304 tokens at 768^2, 5184 and 1296 at 576^2; 16384, 4096
+//      and 1024 at 1024^2) against the 257 CLIP tokens, heads of 40, 80 and
+//      160 packed in C, the exact softmax; any 1 to 512 keys.
 //
 // What bounds it on the card: S x 257 scores a head against S hd bytes of Q
 // and O. At (32, 9216, 320) the bytes (0.38 GB of Q and O) take 0.116 ms at
@@ -13,7 +14,8 @@
 // tensor flops, so mma.sync (mma_sync.cuh) serves and wgmma is not needed.
 //
 // Design. A block owns one (batch, head) and a contiguous range of query
-// tiles of 128 rows (16 a warp, 8 warps), enough blocks to fill the card. It
+// tiles of 16 rows a warp (8 warps, 128 rows; 4 warps, 64 rows at hd 160),
+// enough blocks to fill the card. It
 // loads that head's K and V once into shared memory by cp.async (16-byte
 // chunks of the head's channel slice, read in place at row stride C; keys
 // rounded up to a multiple of 16 with zero rows, a head of 40 padded to 48
@@ -30,7 +32,13 @@
 // p is rounded to bf16 before the division by the row sum (the sum in fp32
 // over the unrounded p); the TPU kernel divides first and then rounds. Both
 // orders are within the port's limits of the exact softmax. Scores, P and O
-// never touch shared memory. O / l leaves as bf16 through the warp's own rows
+// never touch shared memory.
+// Heads of 160: a Q tile of 128 rows is 43 KB a stage and 512 keys of K and V
+// 344 KB, over the 227 KB a block may have. So Q tiles are 64 rows (two
+// stages, 43 KB) and the keys are held in chunks of at most 272 (183 KB: the
+// CLIP context's 257 in one, loaded once a block as above). Past 272 keys
+// each query tile walks the chunks in turn, reloading each into the same
+// rows, and the online softmax's running maximum and sum carry across them. O / l leaves as bf16 through the warp's own rows
 // of its Q stage (free once the Q fragments are in registers), then 16-byte
 // stores along the rows.
 
@@ -51,10 +59,7 @@ typedef __nv_bfloat16 bf16;
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kBlockQ = 16 * kWarps;  // query rows a tile
-constexpr int kMaxKeys = 512;         // the context the shared-memory plan holds
+constexpr int kMaxKeys = 512;         // the context the kernel takes
 constexpr float kLog2e = 1.4426950408889634f;
 // blocks a launch aims at, in waves of the blocks the card holds at once:
 // fewer waves reload K and V less often, more even out the last wave
@@ -62,18 +67,24 @@ constexpr int kWaves = 3;
 
 // Shared-memory plan for a head width HD: Q K^T runs over KS slices of 16
 // channels (D = 16 KS columns, zero past HD); rows carry 8 bf16 of padding so
-// that the 8 rows an ldmatrix reads fall on distinct banks.
+// that the 8 rows an ldmatrix reads fall on distinct banks. K and V hold up to
+// `chunk` keys at a time: all 512 the kernel takes below hd 160.
 template <int HD>
 struct Plan {
+  static constexpr int warps = HD == 160 ? 4 : 8;
+  static constexpr int threads = 32 * warps;
+  static constexpr int block_q = 16 * warps;   // query rows a tile
+  static constexpr int chunk = HD == 160 ? 272 : kMaxKeys;
   static constexpr int KS = (HD + 15) / 16;
   static constexpr int D = 16 * KS;
   static constexpr int LD = D + 8;
   static constexpr int NT = HD / 8;            // n8 tiles of the output
-  static constexpr int q_tile = kBlockQ * LD;  // elements of one Q stage
+  static constexpr int q_tile = block_q * LD;  // elements of one Q stage
   static constexpr int q = 2 * q_tile * 2;     // the ring's two stages, bf16
   // K then V, keys rows each: bytes
   static int kv(int keys) { return 2 * keys * LD * 2; }
   static_assert(HD % 8 == 0 && (LD * 2) % 16 == 0, "16-byte chunks and ldmatrix rows");
+  static_assert(chunk % 16 == 0 && q + 2 * chunk * LD * 2 <= 232448, "one block's shared memory");
 };
 
 // rows [row0, row0 + rows) of a head slice (HD channels at src, row stride
@@ -82,7 +93,7 @@ template <int HD>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, int rows,
                                           int nrows, int ld) {
   constexpr int kChunks = HD / 8;
-  for (int i = threadIdx.x; i < rows * kChunks; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * kChunks; i += Plan<HD>::threads) {
     const int r = i / kChunks, c = (i % kChunks) * 8;
     const bool ok = row0 + r < nrows;
     cp_async16(dst + r * Plan<HD>::LD + c, ok ? src + static_cast<size_t>(row0 + r) * ld + c : src,
@@ -189,14 +200,16 @@ __device__ __forceinline__ void key_tile(Rows<Plan<HD>::NT>& st,
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads, HD == 40 ? 2 : 1)
+__global__ void __launch_bounds__(Plan<HD>::threads, HD == 40 ? 2 : 1)
 flash_cross_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, bf16* __restrict__ o, int q_len, int kv_len,
                    int heads, int tiles_per_block, float scale_log2) {
   using L = Plan<HD>;
-  constexpr int KS = L::KS, LD = L::LD, NT = L::NT;
+  constexpr int KS = L::KS, LD = L::LD, NT = L::NT, kBlockQ = L::block_q;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int keys = (kv_len + 15) / 16 * 16;  // rows of the K and V tiles
+  // rows of the K and V tiles: the keys rounded up to 16, at most a chunk
+  const int keys = min((kv_len + 15) / 16 * 16, L::chunk);
+  const int chunks = (kv_len + L::chunk - 1) / L::chunk;  // 1 below hd 160
   bf16* q_s = reinterpret_cast<bf16*>(smem);
   bf16* k_s = reinterpret_cast<bf16*>(smem + L::q);
   bf16* v_s = k_s + keys * LD;
@@ -216,24 +229,26 @@ flash_cross_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // of K and of both Q stages zeroed here once (they meet in Q K^T, and
   // 0 x garbage could be NaN)
   if constexpr (L::D > HD) {
-    for (int r = threadIdx.x; r < 2 * kBlockQ + keys; r += kThreads)
+    for (int r = threadIdx.x; r < 2 * kBlockQ + keys; r += L::threads)
       *reinterpret_cast<uint4*>(reinterpret_cast<bf16*>(smem) + r * LD + HD) =
           make_uint4(0u, 0u, 0u, 0u);
   }
-  // group 0: the head's K and V, and the first Q tile
-  load_rows<HD>(k_s, k_bh, 0, keys, kv_len, ld);
-  load_rows<HD>(v_s, v_bh, 0, keys, kv_len, ld);
+  // group 0: the first Q tile and, where one chunk holds every key, the
+  // head's K and V for all of the block's tiles
+  if (chunks == 1) {
+    load_rows<HD>(k_s, k_bh, 0, keys, kv_len, ld);
+    load_rows<HD>(v_s, v_bh, 0, keys, kv_len, ld);
+  }
   load_rows<HD>(q_s, q_bh, tile0 * kBlockQ, kBlockQ, q_len, ld);
   cp_async_commit();
 
-  const int full = kv_len / 64, tail = (kv_len % 64 + 15) / 16;
   for (int t = 0; t < tiles; ++t) {
     bf16* q_t = q_s + (t & 1) * L::q_tile;
     if (t + 1 < tiles)  // the other stage was released by the barrier ending tile t - 1
       load_rows<HD>(q_s + ((t + 1) & 1) * L::q_tile, q_bh, (tile0 + t + 1) * kBlockQ, kBlockQ,
                     q_len, ld);
     cp_async_commit();
-    cp_async_wait<1>();  // all but the newest group: K, V and Q tile t have landed
+    cp_async_wait<1>();  // all but the newest group: Q tile t (and K, V) have landed
     __syncthreads();
 
     bf16* q_w = q_t + warp * 16 * LD;  // this warp's rows
@@ -247,11 +262,23 @@ flash_cross_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < NT; ++n) st.o[n][0] = st.o[n][1] = st.o[n][2] = st.o[n][3] = 0.f;
     st.m0 = st.m1 = -INFINITY;
     st.l0 = st.l1 = 0.f;
-    for (int j = 0; j < full; ++j)
-      key_tile<HD, 4>(st, qa, k_s + j * 64 * LD, v_s + j * 64 * LD, 64, scale_log2);
-    for (int j = 0; j < tail; ++j) {
-      const int key0 = full * 64 + j * 16;
-      key_tile<HD, 1>(st, qa, k_s + key0 * LD, v_s + key0 * LD, kv_len - key0, scale_log2);
+    for (int c = 0; c < chunks; ++c) {
+      const int key0 = c * L::chunk, len = min(L::chunk, kv_len - key0);
+      if (chunks > 1) {  // this chunk into the K and V rows, after every warp's last use
+        if (c > 0) __syncthreads();  // (chunk 0: the barrier ending tile t - 1)
+        load_rows<HD>(k_s, k_bh, key0, (len + 15) / 16 * 16, kv_len, ld);
+        load_rows<HD>(v_s, v_bh, key0, (len + 15) / 16 * 16, kv_len, ld);
+        cp_async_commit();
+        cp_async_wait<0>();  // also Q tile t + 1, which the next tile waits for anyway
+        __syncthreads();
+      }
+      const int full = len / 64, tail = (len % 64 + 15) / 16;
+      for (int j = 0; j < full; ++j)
+        key_tile<HD, 4>(st, qa, k_s + j * 64 * LD, v_s + j * 64 * LD, 64, scale_log2);
+      for (int j = 0; j < tail; ++j) {
+        const int r0 = full * 64 + j * 16;
+        key_tile<HD, 1>(st, qa, k_s + r0 * LD, v_s + r0 * LD, len - r0, scale_log2);
+      }
     }
 
     // O / l -> bf16 into this warp's Q rows (its own: no other warp reads
@@ -279,7 +306,7 @@ flash_cross_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         *reinterpret_cast<uint4*>(o_bh + static_cast<size_t>(row0 + r) * ld + c) =
             *reinterpret_cast<const uint4*>(q_w + r * LD + c);
     }
-    __syncthreads();  // every warp is done with stage t & 1
+    __syncthreads();  // every warp is done with stage t & 1 (and with the chunk)
   }
   cp_async_wait<0>();
 }
@@ -287,8 +314,9 @@ flash_cross_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int batch, int q_len,
                    int kv_len, int heads, cudaStream_t stream) {
+  using L = Plan<HD>;
   auto kern = flash_cross_kernel<HD>;
-  const int smem = Plan<HD>::q + Plan<HD>::kv((kv_len + 15) / 16 * 16);
+  const int smem = L::q + L::kv(std::min((kv_len + 15) / 16 * 16, L::chunk));
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   // each (batch, head) split into ranges of query tiles, enough blocks for
@@ -297,14 +325,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bat
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
     return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, L::threads, smem);
   if (err != cudaSuccess) return err;
-  const int q_tiles = (q_len + kBlockQ - 1) / kBlockQ;
+  const int q_tiles = (q_len + L::block_q - 1) / L::block_q;
   const int pairs = batch * heads;
   const int ranges = std::min(q_tiles, std::max(1, (kWaves * sms * per_sm + pairs - 1) / pairs));
   const int per_block = (q_tiles + ranges - 1) / ranges;
   const dim3 grid((q_tiles + per_block - 1) / per_block, pairs);
-  kern<<<grid, kThreads, smem, stream>>>(
+  kern<<<grid, L::threads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), q_len, kv_len, heads, per_block,
       kLog2e / sqrtf(static_cast<float>(HD)));
@@ -316,7 +344,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bat
 extern "C" {
 
 // q (batch, q_len, heads * hd), k and v (batch, kv_len, heads * hd), o like
-// q: bf16, contiguous, 16-byte aligned; hd 40 or 80, any head count, any
+// q: bf16, contiguous, 16-byte aligned; hd 40, 80 or 160, any head count, any
 // q_len >= 1, 1 <= kv_len <= 512.
 int md_flash_cross(const void* q, const void* k, const void* v, void* o, int batch, int q_len,
                    int kv_len, int heads, int hd, void* stream) {
@@ -325,6 +353,7 @@ int md_flash_cross(const void* q, const void* k, const void* v, void* o, int bat
   switch (hd) {
     case 40: return launch<40>(q, k, v, o, batch, q_len, kv_len, heads, s);
     case 80: return launch<80>(q, k, v, o, batch, q_len, kv_len, heads, s);
+    case 160: return launch<160>(q, k, v, o, batch, q_len, kv_len, heads, s);
     default: return cudaErrorInvalidValue;
   }
 }

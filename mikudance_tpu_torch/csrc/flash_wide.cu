@@ -1,19 +1,28 @@
-// Flash attention for one head of width 512, hand-written for Hopper (sm_90a).
+// Flash attention for heads of width 512, hand-written for Hopper (sm_90a).
+// One kernel, two entry points, each its own instantiation (a kernel tag in
+// the template arguments, so that a profile tells them apart):
 //
-//   K4 md_flash_wide  replaces mikudance_tpu/kernels/flash_attention.py
+//   K4 md_flash_wide      replaces mikudance_tpu/kernels/flash_attention.py
 //      _flash_kernel (:44), the streamed branch of flash_attention_padded
 //      (:677): the VAE mid-block's attention, one head of 512 over S = 9216
-//      at 768^2 (5184 at 576^2), where one head's K and V pass the 6 MB that
-//      K9 keeps resident.
+//      at 768^2 (5184 at 576^2, 16384 at 1024^2), where one head's K and V
+//      pass the 6 MB that the TPU kernel keeps resident.
+//   K9 md_flash_resident  replaces _flash_kernel_resident (:85), the branch
+//      of flash_attention_padded taken while one head's K and V stay under
+//      those 6 MB (S <= 3072: the VAE mid-block below 512^2). The two TPU
+//      kernels compute one function and differ only in whether K and V stay
+//      in VMEM; here every block streams key tiles from L2 at any S, so K9 is
+//      K4's kernel under its own counter.
 //
-// The TPU kernel's function: the exact online softmax,
+// The TPU kernels' function: the exact online softmax,
 //     s = q . k * scale            fp32 (bf16 products)
 //     m = running row maximum, p = exp(s - m) in fp32, l = sum p in fp32
 //     O = O * exp(m_old - m) + bf16(p) . v, fp32;  o = O / l
 // here in base 2 with log2(e) folded into the scale.
 //
 // What bounds it on the card: 4 B S^2 512 flops (1.39 TFLOP, 1.41 ms at the
-// bf16 tensor peak for (8, 9216, 512)) against S 512 bytes a tensor. A 64-row
+// bf16 tensor peak for (8, 9216, 512); 0.089 ms for (8, 2304, 512)) against
+// S 512 bytes a tensor. A 64-row
 // block walks all keys, so every block streams the head's K and V (18.9 MB at
 // S = 9216) from L2: 21.7 GB for the call, near 4 ms at L2's rate, which
 // with shared memory's rate for the operands sets this design's floor.
@@ -80,6 +89,9 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int row0,
   }
 }
 
+// kTag: the kernel number (4, 9), so that each entry point has a device symbol
+// of its own
+template <int kTag>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, bf16* __restrict__ o, int seq, int heads, int ld,
@@ -241,23 +253,35 @@ flash_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+template <int kTag>
+int launch(const void* q, const void* k, const void* v, void* o, int batch, int seq, int heads,
+           int hd, void* stream) {
+  if (hd != kHD || seq < 1) return cudaErrorInvalidValue;
+  auto kern = flash_wide_kernel<kTag>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((seq + kBlockQ - 1) / kBlockQ, batch * heads);
+  kern<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), seq, heads, heads * kHD, kLog2e / sqrtf(static_cast<float>(kHD)));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// q, k, v, o: (batch, seq, heads * 512) bf16, contiguous, 16-byte aligned;
-// any seq >= 1.
+// q, k, v, o: (batch, seq, heads * 512) bf16, contiguous, 16-byte aligned
+// (cp.async's rule); any seq >= 1.
 int md_flash_wide(const void* q, const void* k, const void* v, void* o, int batch, int seq,
                   int heads, int hd, void* stream) {
-  if (hd != kHD || seq < 1) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(flash_wide_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((seq + kBlockQ - 1) / kBlockQ, batch * heads);
-  flash_wide_kernel<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), seq, heads, heads * kHD, kLog2e / sqrtf(static_cast<float>(kHD)));
-  return cudaGetLastError();
+  return launch<4>(q, k, v, o, batch, seq, heads, hd, stream);
+}
+
+// the same, K9's counter and symbol
+int md_flash_resident(const void* q, const void* k, const void* v, void* o, int batch, int seq,
+                      int heads, int hd, void* stream) {
+  return launch<9>(q, k, v, o, batch, seq, heads, hd, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // Warp-level tensor-core primitives for the kernels that keep their tiles in
-// registers (flash_fullc.cu, flash_wide.cu, flash_cross.cu; flash_anchor_wg.cu
-// takes the exponential and the bf16 packing), for Hopper (sm_90a).
+// registers (flash_wide.cu, flash_cross.cu; flash_anchor_wg.cu takes the
+// exponential and the bf16 packing), for Hopper (sm_90a).
 //
 // mma.sync m16n8k16, bf16 in, fp32 accumulate. With g = lane / 4 and
 // c = lane % 4 a lane holds:

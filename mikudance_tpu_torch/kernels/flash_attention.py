@@ -2,10 +2,11 @@
 
 Kernels, each beside its plain PyTorch version:
 
-- K1 ``flash_attention_fullc`` (``csrc/flash_fullc.cu``): packed-heads
-  self-attention with the self-score anchor rounded to bf16 and the +-100
-  clamp in place of the running maximum (the UNet levels with S >= 1024
-  under the default switches), replacing ``_flash_kernel_fullc_nt``.
+- K1 ``flash_attention_fullc`` (``csrc/flash_anchor_wg.cu``, the warpgroup
+  kernel of K10-K12 under its own entry point): packed-heads self-attention
+  with the self-score anchor rounded to bf16 and the +-100 clamp in place of
+  the running maximum (the UNet levels with S >= 1024 under the default
+  switches), replacing ``_flash_kernel_fullc_nt``.
 - K2 ``cross_attention`` (``csrc/flash_cross.cu``): S >= 1024 queries
   against <= 512 keys (the CLIP context, held in shared memory), replacing
   ``_cross_kernel_fullc``.
@@ -13,12 +14,13 @@ Kernels, each beside its plain PyTorch version:
   one head of width 512 (the route of every head width that is a multiple of
   128) where one head's K and V exceed ``RESIDENT_KV_BYTES``, replacing
   ``_flash_kernel``.
-- K9 ``flash_attention_resident`` (``csrc/flash_resident.cu``): the same
-  heads below that size (S <= 3072 at width 512: every picture under 512^2),
-  replacing ``_flash_kernel_resident``.
+- K9 ``flash_attention_resident`` (``csrc/flash_wide.cu``, K4's kernel under
+  its own entry point): the same heads below that size (S <= 3072 at width
+  512: every picture under 512^2), replacing ``_flash_kernel_resident``.
 - K10 / K11 ``flash_attention_fullc_anchored`` and K12
   ``flash_attention_fullc_t``, one warpgroup-MMA kernel with TMA-fed K and V
-  (``csrc/flash_anchor_wg.cu``) under three entry points and counters:
+  (``csrc/flash_anchor_wg.cu``) under three entry points and counters (K1's
+  is a fourth):
   packed-heads self-attention with the self-score anchor and the +-100
   clamp. K10 replaces ``_flash_kernel_fullc_resident`` (a batch element's K
   and V under ``FULLC_RESIDENT_BYTES``: the 2304-token level) and K11
@@ -63,13 +65,13 @@ from .temporal_attention import MAX_FRAMES, small_sequence_attention, temporal_a
 
 _TPU = "mikudance_tpu/kernels/flash_attention.py"
 K1 = CudaKernel("K1 flash_attention_fullc", "md_flash_fullc",
-                "mikudance_tpu_torch/csrc/flash_fullc.cu", f"{_TPU}:485")
+                "mikudance_tpu_torch/csrc/flash_anchor_wg.cu", f"{_TPU}:485")
 K2 = CudaKernel("K2 cross_attention", "md_flash_cross",
                 "mikudance_tpu_torch/csrc/flash_cross.cu", f"{_TPU}:598")
 K4 = CudaKernel("K4 flash_attention_wide", "md_flash_wide",
                 "mikudance_tpu_torch/csrc/flash_wide.cu", f"{_TPU}:44")
 K9 = CudaKernel("K9 flash_attention_resident", "md_flash_resident",
-                "mikudance_tpu_torch/csrc/flash_resident.cu", f"{_TPU}:85")
+                "mikudance_tpu_torch/csrc/flash_wide.cu", f"{_TPU}:85")
 K10 = CudaKernel("K10 flash_anchor_resident", "md_flash_anchor_resident",
                  "mikudance_tpu_torch/csrc/flash_anchor_wg.cu", f"{_TPU}:158")
 K11 = CudaKernel("K11 flash_anchor_stream", "md_flash_anchor_stream",
@@ -96,13 +98,14 @@ LOG2E = 1.4426950408889634
 PLAIN_SCORE_BYTES = 1 << 30
 # Keys K2 holds in shared memory: the CLIP context's 257 and more.
 MAX_CROSS_KEYS = 512
-# Head widths the kernels take, the main path's (the CUDA source
-# instantiates only these): packed K1/K2 at UNet levels 0 and 1, wide K4 in
-# the VAE mid-block.
-PACKED_HEAD_DIMS = (40, 80)
+# Head widths the kernels take (the CUDA sources instantiate these): packed
+# K1, K2 and K10-K12 at SD1.5's three UNet levels (320, 640 and 1280 channels
+# in 8 heads; level 2 takes a flash route from 1024 tokens, 1024^2 up), wide
+# K4 and K9 in the VAE mid-block.
+PACKED_HEAD_DIMS = (40, 80, 160)
 WIDE_HEAD_DIMS = (512,)
 # One head's bf16 K and V together, up to which the JAX package keeps them on
-# chip and K9 keeps a block's whole score rows in shared memory.
+# chip (K9's route; above it, K4's).
 RESIDENT_KV_BYTES = 6 * 1024 * 1024
 # Batches from which sequences of <= MAX_FRAMES tokens go to K13.
 SMALL_SEQUENCE_MIN_BATCH = 64
@@ -288,7 +291,8 @@ def _differentiable(fn):
 def flash_attention_fullc(q, k, v, heads: int) -> torch.Tensor:
     """K1: the counterpart of the JAX package's ``flash_attention_fullc_nt``
     (``flash_attention.py:546``): packed-heads self-attention with the anchor
-    rounded to bf16 (``anchored_attention_t``), q/k/v (B, S, C); any S."""
+    rounded to bf16 (``anchored_attention_t``), q/k/v (B, S, C); any S. K12's
+    kernel under K1's entry point and counter, under TMA's 16-byte rule."""
     if q.device.type == "cpu":
         return anchored_attention_t(q, k, v, heads)
     hd = _check_cuda("flash_attention_fullc", q, k, v, heads, PACKED_HEAD_DIMS)
@@ -380,15 +384,14 @@ def resident_kv(S_kv: int, hd: int) -> bool:
 
 @_differentiable
 def flash_attention_resident(q, k, v, heads: int) -> torch.Tensor:
-    """K9: self-attention with heads of width 512 over S <= 3072 tokens."""
+    """K9: self-attention with heads of width 512 over S <= 3072 tokens; K4's
+    kernel (16-byte aligned rows, cp.async's rule) under K9's entry point."""
     if q.device.type == "cpu":
         return dot_product_attention(q, k, v, heads)
     hd = _check_cuda("flash_attention_resident", q, k, v, heads, WIDE_HEAD_DIMS)
     if k.shape[1] != q.shape[1] or not resident_kv(k.shape[1], hd):
         raise ValueError(f"flash_attention_resident: needs S_kv == S and S_kv * {hd} * 4 <= "
                          f"{RESIDENT_KV_BYTES} bytes, got S = {q.shape[1]}, S_kv = {k.shape[1]}")
-    if any(t.data_ptr() % 32 for t in (q, k, v)):  # fragment loads from global memory
-        raise ValueError("flash_attention_resident: q, k, v must start on a 32-byte boundary")
     return _launch(K9, q, k, v, q.shape[0], q.shape[1], heads, hd)
 
 
