@@ -24,6 +24,11 @@ Phases, in order, one line each; any failure exits non-zero:
    median times of the
    kernel, its plain version and the one library call that computes the
    same function, and the least time the card could take (``bound_ms``).
+   K3 and K13 are held to ``temporal_attention_rounded`` (the TPU bodies'
+   bf16 rounding of q' and of the weights; a one-token case's control reads
+   v's channels shifted by one, since the scale does not matter there), with
+   the CPU route's plain version's distance and, for K13, host and device
+   time a call beside the library call's.
    K1 is held to ``anchored_attention_t`` (the TPU kernel's anchor and
    clamp), also where the clamp bites and the exact softmax is another
    function, and to K12 on the same inputs, which must give the same bits
@@ -95,6 +100,8 @@ Phases, in order, one line each; any failure exits non-zero:
     both timed (control: the bank K/V left out).
 
 The kernel counts are set to 0 just before each request and read just after;
+K3's and K13's must equal the counts read before the two were rebuilt on
+one kernel (``K3_K13_LAUNCHES``),
 K1's and K4's must equal the counts the smoke read before the dispatcher
 took the JAX block rule (``K1_K4_LAUNCHES``), K2's and K10's those read
 before the two were rebuilt (``K2_K10_LAUNCHES``), K11's and K12's those read
@@ -221,6 +228,13 @@ K2_K10_LAUNCHES = {"request A": (210, 0), "request B": (210, 0), "image request"
 # Launches of K11 and K12 on each path as the smoke read them before the two
 # moved onto K10's kernel (PERF.md section 6); every other path launches neither.
 K11_K12_LAUNCHES = {"request E": (25, 0), "request F (transposed)": (0, 51)}
+# Launches of K3 and K13 on each path as the smoke read them before the two
+# were rebuilt on one kernel (PERF.md section 6): the rebuild changes no route.
+K3_K13_LAUNCHES = {"request A": (840, 0), "request B": (840, 0), "image request": (0, 0),
+                   "request C, per-step": (504, 0), "request C, cached_q8": (504, 0),
+                   "request C, cached-grouped": (336, 0), "request D": (168, 4),
+                   "request F (default)": (378, 0), "request F (transposed)": (378, 0),
+                   "stage-1 steps": (0, 0)}
 
 
 def log(msg: str) -> None:
@@ -449,6 +463,29 @@ def gemm_tiles_k8(args) -> int:
     return -(-n // (128 // (wb * hb))) * (w // wb) * -(-h // hb) * -(-cout // bn)
 
 
+def host_and_device_ms(fn, reps: int = 100) -> tuple[float, float]:
+    """``fn``'s host time a call (wall clock over ``reps`` calls with no
+    synchronisation between them) and its device time a call (torch.profiler's
+    device time of the kernels the same number of calls launch), in ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    device = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+    return host, device / reps / 1e3
+
+
 def launch_spy(launch, what, seen: list):
     """``launch`` that first appends ``what(args)`` (its grid's tile count, its
     shape arguments) to ``seen``."""
@@ -516,13 +553,19 @@ def attention_cases(dev, only=()):
          [(2, 1024, 1280), (2, 512, 1280), (2, 512, 1280)], 8),
         (fa.K2, fa.cross_attention, fa.dot_product_attention,
          [(32, 1024, 1280), (32, 77, 1280), (32, 77, 1280)], 8),
-        (ta.K3, ta.temporal_attention, ta.temporal_attention_plain, [(2, 16, 9216, 320)] * 3, 8),
-        (ta.K3, ta.temporal_attention, ta.temporal_attention_plain, [(2, 16, 2304, 640)] * 3, 8),
-        (ta.K3, ta.temporal_attention, ta.temporal_attention_plain, [(2, 16, 576, 1280)] * 3, 8),
-        (ta.K3, ta.temporal_attention, ta.temporal_attention_plain, [(2, 16, 144, 1280)] * 3, 8),
+        # K3 and K13 are held to the TPU bodies' function (q' and P rounded to
+        # bf16), temporal_attention_rounded
+        (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(2, 16, 9216, 320)] * 3, 8),
+        (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(2, 16, 2304, 640)] * 3, 8),
+        (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(2, 16, 576, 1280)] * 3, 8),
+        (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(2, 16, 144, 1280)] * 3, 8),
         # the 30-frame windows of a long clip: one window, and four at 256^2
-        (ta.K3, ta.temporal_attention, ta.temporal_attention_plain, [(1, 30, 9216, 320)] * 3, 8),
-        (ta.K3, ta.temporal_attention, ta.temporal_attention_plain, [(4, 30, 1024, 320)] * 3, 8),
+        (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(1, 30, 9216, 320)] * 3, 8),
+        (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(4, 30, 1024, 320)] * 3, 8),
+        # request F's 20-frame clip at level 0; 32 frames at heads of 160; one frame
+        (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(1, 20, 5184, 320)] * 3, 8),
+        (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(1, 32, 576, 1280)] * 3, 8),
+        (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(2, 1, 2304, 640)] * 3, 8),
         (fa.K4, fa.flash_attention_wide, fa.dot_product_attention, [(8, 9216, 512)] * 3, 1),
         (fa.K4, fa.flash_attention_wide, fa.dot_product_attention, [(4, 5184, 512)] * 3, 1),
         # the VAE encoder's chunk of 8 frames at 1024^2 (request H)
@@ -534,15 +577,19 @@ def attention_cases(dev, only=()):
         (fa.K9, fa.flash_attention_resident, fa.dot_product_attention, [(8, 3072, 512)] * 3, 1),
         (fa.K9, fa.flash_attention_resident, fa.dot_product_attention, [(2, 1155, 512)] * 3, 1),
         # the UNet mid-block on a 4 x 4 map (256^2, four 30-frame windows),
-        # then the other head widths, 32 tokens, and a T off the multiples of 8
-        (ta.K13, ta.small_sequence_attention, ta.small_sequence_attention_plain,
+        # then the other head widths, 32 tokens, T off the multiples of 8
+        (ta.K13, ta.small_sequence_attention, ta.small_sequence_attention_rounded,
          [(120, 16, 1280)] * 3, 8),
-        (ta.K13, ta.small_sequence_attention, ta.small_sequence_attention_plain,
+        (ta.K13, ta.small_sequence_attention, ta.small_sequence_attention_rounded,
          [(64, 32, 320)] * 3, 8),
-        (ta.K13, ta.small_sequence_attention, ta.small_sequence_attention_plain,
+        (ta.K13, ta.small_sequence_attention, ta.small_sequence_attention_rounded,
          [(256, 16, 640)] * 3, 8),
-        (ta.K13, ta.small_sequence_attention, ta.small_sequence_attention_plain,
+        (ta.K13, ta.small_sequence_attention, ta.small_sequence_attention_rounded,
          [(64, 30, 1280)] * 3, 8),
+        (ta.K13, ta.small_sequence_attention, ta.small_sequence_attention_rounded,
+         [(64, 20, 640)] * 3, 8),
+        (ta.K13, ta.small_sequence_attention, ta.small_sequence_attention_rounded,
+         [(64, 1, 320)] * 3, 8),
     ]
     for kern, fn, plain, shapes, heads, *q_scale in cases:
         if not wanted(kern, only):
@@ -561,6 +608,20 @@ def attention_cases(dev, only=()):
                 check(apart > REL_L2, f"{what}: the softmax and K1's function agree")
                 what += f"; the exact softmax against it: relative L2 {apart:.3e}"
             what += f"; exp2 floor {exp2_floor_ms(q.shape[0] * heads * q.shape[1] ** 2):.3f} ms)"
+        if kern in (ta.K3, ta.K13):  # the CPU route's function (fp32 q', P) differs
+            cpu_route = (ta.temporal_attention_plain if kern is ta.K3
+                         else ta.small_sequence_attention_plain)
+            what += (f" (the CPU route's plain version against the kernel: relative L2 "
+                     f"{rel_l2(fn(q, k, v, heads), cpu_route(q, k, v, heads)):.3e}")
+            if kern is ta.K13:  # host and device time a call, the library's device time
+                host, device = host_and_device_ms(lambda: fn(q, k, v, heads))
+                lib_host, lib_device = host_and_device_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        *(t.view(t.shape[0], t.shape[1], heads, -1).transpose(1, 2)
+                          for t in (q, k, v))))
+                what += (f"; host {host:.4f} ms a call, device {device:.4f} ms; library host "
+                         f"{lib_host:.4f}, device {lib_device:.4f} ms")
+            what += ")"
         C = q.shape[-1]
         hd = C // heads
         if q.ndim == 4:  # K3: one T x T attention per (batch, position, head)
@@ -571,9 +632,16 @@ def attention_cases(dev, only=()):
         else:
             flops = 4 * q.shape[0] * q.shape[1] * k.shape[1] * C
             lib = [t.view(t.shape[0], t.shape[1], heads, hd).transpose(1, 2) for t in (q, k, v)]
+        if kern in (ta.K3, ta.K13) and k.shape[-3 if k.ndim == 4 else 1] == 1:
+            # one token: softmax is 1 whatever the scale, o = v; the control
+            # reads v's channels shifted by one
+            def control(q=q, k=k, v=v, heads=heads, plain=plain):
+                return plain(q, k, v.roll(1, -1), heads)
+        else:
+            def control(q=q, k=k, v=v, heads=heads, plain=plain):
+                return plain(q * CONTROL_Q_SCALE, k, v, heads)
         yield (kern, what,
-               lambda: fn(q, k, v, heads), lambda: plain(q, k, v, heads),
-               lambda: plain(q * CONTROL_Q_SCALE, k, v, heads),
+               lambda: fn(q, k, v, heads), lambda: plain(q, k, v, heads), control,
                lambda: F.scaled_dot_product_attention(*lib),
                flops, 2 * (2 * q.numel() + k.numel() + v.numel()), PEAK_BF16)
 
@@ -1103,7 +1171,9 @@ PROFILE_CATEGORIES = [
     ("K2 hd 160 (S=1024 cross)", ("flash_cross_kernel<160>",)),
     ("K4 hd 512 (VAE)", ("flash_wide_kernel<4>",)),
     ("K9 hd 512 (VAE under 512^2)", ("flash_wide_kernel<9>",)),
-    ("K3 temporal", ("temporal_kernel",)),
+    # K3 and K13 are one kernel; the tag (3 or 13) leads its template arguments
+    ("K3 temporal attention", ("short_attention_kernel<3, ",)),
+    ("K13 small-sequence attention", ("short_attention_kernel<13, ",)),
     ("K5 GroupNorm (statistics, finish, apply)", ("gn_stats_kernel", "gn_finish_kernel",
                                                   "gn_apply_kernel")),
     ("K6 LayerNorm", ("ln_kernel",)),
@@ -1523,6 +1593,10 @@ def main() -> int:
         want = K11_K12_LAUNCHES.get(what, (0, 0))
         got = (counts[fa.K11.name], counts[fa.K12.name])
         check(got == want, f"{what}: K11 / K12 launched {got} times, {want} before")
+        if what in K3_K13_LAUNCHES:
+            got = (counts[ta.K3.name], counts[ta.K13.name])
+            check(got == K3_K13_LAUNCHES[what],
+                  f"{what}: K3 / K13 launched {got} times, {K3_K13_LAUNCHES[what]} before")
 
     def read_counts(what: str, expect=default_kernels, absent=row_major_only,
                     also_absent=off_the_sampler) -> dict:
@@ -1550,7 +1624,7 @@ def main() -> int:
         f"(ptxas report: {lib.with_suffix('.log')})")
     log("ptxas: " + ptxas_report(lib.with_suffix(".log").read_text(),
                                  ("anchor_wg_kernel", "flash_cross_kernel", "flash_wide_kernel",
-                                  "linear_kernel", "conv3x3_kernel")))
+                                  "linear_kernel", "conv3x3_kernel", "short_attention_kernel")))
     log("kernels: " + "; ".join(f"{k.name} = {k.symbol} in {k.source}, replaces {k.replaces}"
                                 for k in kernels))
 

@@ -1,25 +1,34 @@
 """Attention over at most 32 tokens: across frames, and over tiny maps.
 
-K3 (``csrc/temporal_attention.cu``) replaces the TPU kernel
-``mikudance_tpu/kernels/temporal_attention.py::_temporal_kernel_btpc`` on the
-motion module's (B, T, P, C) layout. ``temporal_attention_plain`` is its
-plain PyTorch version, the math of the JAX package's
-``temporal_attention_xla`` (:160).
+K3 and K13 are two entry points of one CUDA kernel
+(``csrc/temporal_attention.cu``: mma.sync tensor-core products, q, k and v
+staged once in bf16):
 
-K13 (``csrc/small_attention.cu``) replaces ``_temporal_kernel`` (:29, entry
-``temporal_attention_fused``) on (N, T, C): N independent sequences of
-T <= 32 tokens, the UNet mid-block's spatial self-attention once its map has
-shrunk that far. ``small_sequence_attention_plain`` is its plain version,
-the same math as ``temporal_attention_plain`` with one position a sequence.
+- K3 (``md_temporal_attention``) replaces the TPU kernel
+  ``mikudance_tpu/kernels/temporal_attention.py::_temporal_kernel_btpc``
+  (:120) on the motion module's (B, T, P, C) layout;
+- K13 (``md_small_attention``) replaces ``_temporal_kernel`` (:29, entry
+  ``temporal_attention_fused``) on (N, T, C): N independent sequences of
+  T <= 32 tokens, the UNet mid-block's spatial self-attention once its map
+  has shrunk that far.
 
-Dispatch is by the tensor's device alone: a CPU tensor goes to the plain
-version; a CUDA tensor launches the kernel or raises. Both wrappers are
-differentiable: the backward is the vector-Jacobian product of the plain
-version, as in the JAX package (``temporal_attention.py:239, 252``).
+Both TPU bodies round q * scale * log2(e) to bf16 before Q K^T and the
+normalised weights to bf16 before P V. ``temporal_attention_rounded`` (and
+its (N, T, C) view ``small_sequence_attention_rounded``) is that function in
+plain PyTorch: the kernels' plain version on the card.
+
+Dispatch is by the tensor's device alone: a CPU tensor goes to
+``temporal_attention_plain`` / ``small_sequence_attention_plain``, the math
+of the JAX package's CPU path (``temporal_attention_xla`` :160,
+``grouped_small_attention``); a CUDA tensor launches the kernel or raises.
+Both wrappers are differentiable: the backward is the vector-Jacobian product
+of the CPU route's math, as in the JAX package (``temporal_attention.py:239,
+252``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -35,15 +44,22 @@ K3 = CudaKernel(
 
 K13 = CudaKernel(
     "K13 small_sequence_attention", "md_small_attention",
-    source="mikudance_tpu_torch/csrc/small_attention.cu",
+    source="mikudance_tpu_torch/csrc/temporal_attention.cu",
     replaces="mikudance_tpu/kernels/temporal_attention.py:29",
 )
 
 MAX_FRAMES = 32
-# Head widths K13 takes: the UNet's 8 heads at 320, 640 and 1280 channels.
+# Head widths K3 and K13 take: the UNet's 8 heads at 320, 640 and 1280 channels.
 SMALL_HEAD_DIMS = (40, 80, 160)
 # Upper bound on the fp32 score bytes one chunk of the plain version holds.
 PLAIN_SCORE_BYTES = 1 << 30
+LOG2E = 1.4426950408889634
+# A kernel tile: whole sequences, TILE_ROWS (sequence, token) rows with the
+# tokens rounded up to 16, by a group of heads of at most GROUP_CHANNELS
+# channels; the plan aims for BLOCKS_PER_SM tiles an SM at least.
+TILE_ROWS = 32
+GROUP_CHANNELS = 320
+BLOCKS_PER_SM = 2
 
 
 def temporal_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -68,6 +84,34 @@ def temporal_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
+def temporal_attention_rounded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               heads: int) -> torch.Tensor:
+    """What the TPU bodies (and K3, K13) compute, per (batch, position, head):
+    q' = bf16(q * scale * log2(e)) in fp32, s = q' . bf16(k) in fp32, p =
+    exp2(s - max s), o = bf16(p / sum p) . bf16(v) in fp32, in q's dtype.
+    Processed in chunks of positions as the plain version."""
+    B, T, P, C = q.shape
+    hd = C // heads
+    mult = 1.0 / math.sqrt(hd) * LOG2E
+
+    def bf16(x):
+        return x.to(torch.bfloat16).float()
+
+    out = torch.empty_like(q)
+    n = max(1, PLAIN_SCORE_BYTES // (B * heads * T * T * 4))
+    for p0 in range(0, P, n):
+        sl = slice(p0, p0 + n)
+        qh = bf16(q[:, :, sl].float() * mult).reshape(B, T, -1, heads, hd)
+        kh = bf16(k[:, :, sl]).reshape(B, T, -1, heads, hd)
+        vh = bf16(v[:, :, sl]).reshape(B, T, -1, heads, hd)
+        s = torch.einsum("btphd,bsphd->bphts", qh, kh)
+        p = torch.exp2(s - s.amax(-1, keepdim=True))
+        w = bf16(p / p.sum(-1, keepdim=True))
+        o = torch.einsum("bphts,bsphd->btphd", w, vh)
+        out[:, :, sl] = o.reshape(B, T, -1, C)
+    return out
+
+
 def temporal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        heads: int) -> torch.Tensor:
     """K3 on CUDA tensors, the plain version on CPU tensors."""
@@ -83,10 +127,40 @@ def _temporal_attention(q, k, v, heads: int) -> torch.Tensor:
         raise ValueError(f"temporal_attention: unsupported device {q.device}")
     _check_operands(q, k, v, heads)
     B, T, P, C = q.shape
+    plan = tile_plan(B, P, T, heads, C // heads, _sm_count(q.device.index))
     o = torch.empty_like(q)
-    K3.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, T, P, C, heads,
+    K3.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, T, P, C, heads, *plan,
               torch.cuda.current_stream(q.device).cuda_stream)
     return o
+
+
+@functools.cache
+def tile_plan(outer: int, sequences: int, T: int, heads: int, hd: int,
+              sms: int) -> tuple[int, int, int]:
+    """(sequences, heads, warps) of one kernel block for ``outer`` x
+    ``sequences`` sequences of T tokens: TILE_ROWS rows of sequences (tokens
+    rounded up to 16) by the most heads that divide ``heads`` within
+    GROUP_CHANNELS; while the grid has fewer than BLOCKS_PER_SM blocks an SM,
+    first fewer sequences a tile, then fewer heads. A warp takes one m16 row
+    tile of a (sequence, head) at a time: 8 warps where a tile has 8 such
+    units or more, else 4."""
+    tp = 16 if T <= 16 else 32
+    ns = TILE_ROWS // tp
+    groups = [g for g in range(heads, 0, -1) if heads % g == 0 and g * hd <= GROUP_CHANNELS]
+    gh = groups.pop(0)
+    while -(-sequences // ns) * (heads // gh) * outer < BLOCKS_PER_SM * sms:
+        if ns > 1:
+            ns //= 2
+        elif groups:
+            gh = groups.pop(0)
+        else:
+            break
+    return ns, gh, 8 if ns * gh * (tp // 16) >= 8 else 4
+
+
+@functools.cache
+def _sm_count(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_operands(q, k, v, heads: int) -> None:
@@ -97,11 +171,12 @@ def _check_operands(q, k, v, heads: int) -> None:
     if any(t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device
            for t in (q, k, v)):
         raise ValueError("temporal_attention: q, k, v must be contiguous bf16 on one device")
-    if any(t.data_ptr() % 4 for t in (q, k, v)):  # the kernel's bf16-pair loads
-        raise ValueError("temporal_attention: q, k, v must start on a 4-byte boundary")
-    if C % heads or (C // heads) % 2 or T > MAX_FRAMES or B > 65535 or heads > 65535:
+    if any(t.data_ptr() % 16 for t in (q, k, v)):  # the kernel's 16-byte cp.async chunks
+        raise ValueError("temporal_attention: q, k, v must start on a 16-byte boundary")
+    if C % heads or C // heads not in SMALL_HEAD_DIMS or not 1 <= T <= MAX_FRAMES \
+            or B > 65535 or heads > 65535:
         raise ValueError(f"temporal_attention: unsupported T={T}, C={C}, heads={heads} "
-                         f"(needs an even head width and T <= {MAX_FRAMES})")
+                         f"(needs a head width in {SMALL_HEAD_DIMS} and T <= {MAX_FRAMES})")
 
 
 def small_sequence_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -109,6 +184,13 @@ def small_sequence_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     """Self-attention within each of N sequences (N, T, C): fp32 scores and
     softmax, weights cast to v's dtype for the P V product."""
     return temporal_attention_plain(q[:, :, None], k[:, :, None], v[:, :, None], heads)[:, :, 0]
+
+
+def small_sequence_attention_rounded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                     heads: int) -> torch.Tensor:
+    """``temporal_attention_rounded`` on (N, T, C): one position a sequence."""
+    return temporal_attention_rounded(q[:, :, None], k[:, :, None], v[:, :, None],
+                                      heads)[:, :, 0]
 
 
 def small_sequence_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -126,8 +208,9 @@ def _small_sequence_attention(q, k, v, heads: int) -> torch.Tensor:
         raise ValueError(f"small_sequence_attention: unsupported device {q.device}")
     _check_small_operands(q, k, v, heads)
     N, T, C = q.shape
+    plan = tile_plan(1, N, T, heads, C // heads, _sm_count(q.device.index))
     o = torch.empty_like(q)
-    K13.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), N, T, C, heads,
+    K13.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), N, T, C, heads, *plan,
                torch.cuda.current_stream(q.device).cuda_stream)
     return o
 
@@ -141,8 +224,9 @@ def _check_small_operands(q, k, v, heads: int) -> None:
            for t in (q, k, v)):
         raise ValueError("small_sequence_attention: q, k, v must be contiguous bf16 on one "
                          "device")
-    if any(t.data_ptr() % 4 for t in (q, k, v)):  # the kernel's bf16-pair loads
-        raise ValueError("small_sequence_attention: q, k, v must start on a 4-byte boundary")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):  # the kernel's 16-byte cp.async chunks
+        raise ValueError("small_sequence_attention: q, k, v must start on a 16-byte "
+                         "boundary")
     if C % heads or C // heads not in SMALL_HEAD_DIMS or not 1 <= T <= MAX_FRAMES \
             or heads > 65535:
         raise ValueError(f"small_sequence_attention: unsupported T={T}, C={C}, heads={heads} "

@@ -145,6 +145,75 @@ def test_k3_plain_matches_pallas_btpc(jx):
                                  torch.from_numpy(v), heads), want)
 
 
+def bf16_data(seed, shape):
+    """q, k, v of N(0, 1) values that bf16 holds exactly (the kernels' inputs),
+    in fp32, so that the Pallas bodies return their fp32 results unrounded."""
+    return [torch.from_numpy(a).bfloat16().float() for a in qkv(seed, *[shape] * 3)]
+
+
+def tie_rows(q, k, heads):
+    """(B, T, P, heads): query rows with a normalised weight p / l within 2^-18
+    (relative) of a bf16 rounding midpoint. There the last bit of exp2 (XLA
+    computes exp(x ln 2), PyTorch exp2) or of a sum's order may round the
+    weight the other way, and the row's output moves by a bf16 step of the
+    weight times v."""
+    B, T, P, C = q.shape
+    hd = C // heads
+    qh = (q.float() * (1.0 / np.sqrt(hd) * pta.LOG2E)).bfloat16().double()
+    s = torch.einsum("btphd,bsphd->btphs", qh.reshape(B, T, P, heads, hd),
+                     k.bfloat16().double().reshape(B, T, P, heads, hd))
+    w = torch.softmax(s * np.log(2.0), dim=-1)
+    mant, _ = torch.frexp(w)                       # w = mant * 2^e, mant in [0.5, 1)
+    x = mant * 256                                 # w in bf16 steps: 8 significant bits
+    near = (x - x.floor() - 0.5).abs() < x * 2.0 ** -18
+    return near.any(-1)
+
+
+def check_twin(got, want, ties, heads):
+    """Within 1e-4 everywhere but the rows of ``ties``, which stay within a bf16
+    step; at most a few percent of rows are such."""
+    B, T, P, C = got.shape
+    diff = (got - torch.from_numpy(np.array(want, np.float32))).abs()
+    diff = diff.reshape(B, T, P, heads, C // heads).amax(-1)
+    assert diff[~ties].max().item() <= 1e-4
+    assert ties.float().mean().item() < 0.1
+    assert not ties.any() or diff[ties].max().item() <= 1e-2
+
+
+@pytest.mark.parametrize("B,T,P,heads,hd", [
+    (2, 16, 21, 4, 40),   # P = 21 exercises the TPU kernel's padding
+    (1, 30, 9, 2, 80), (1, 20, 16, 2, 160)])
+def test_k3_rounded_twin_matches_pallas_btpc(B, T, P, heads, hd, jx):
+    """``temporal_attention_rounded``, the kernels' plain version on the card,
+    is the TPU body's function: q * scale * log2(e) and the normalised
+    weights rounded to bf16. The CPU route (``temporal_attention_plain``, the
+    JAX package's CPU math) is another function, more than 1e-3 away."""
+    q, k, v = bf16_data(B * T + P + hd, (B, T, P, heads * hd))
+    want = jx.btpc(*(jx.jnp.asarray(t.numpy()) for t in (q, k, v)), heads,
+                   rows_per_tile=128, interpret=True)
+    got = pta.temporal_attention_rounded(q, k, v, heads)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    check_twin(got, want, tie_rows(q, k, heads), heads)
+    want = torch.from_numpy(np.array(want, np.float32))
+    old = pta.temporal_attention_plain(q, k, v, heads)
+    assert ((old - want).norm() / want.norm()).item() > 1e-3
+
+
+@pytest.mark.parametrize("N,T,heads,hd", [(21, 16, 4, 40), (21, 32, 2, 160)])
+def test_k13_rounded_twin_matches_pallas_fused(N, T, heads, hd, jx):
+    """``small_sequence_attention_rounded`` is the (N, T, C) body's function;
+    N = 21 exercises the TPU kernel's padding to whole tiles."""
+    q, k, v = bf16_data(N + T + hd, (N, T, heads * hd))
+    want = jx.fused(*(jx.jnp.asarray(t.numpy()) for t in (q, k, v)), heads, 128, True)
+    got = pta.small_sequence_attention_rounded(q, k, v, heads)
+    assert got.shape == q.shape
+    check_twin(got[:, :, None], np.asarray(want)[:, :, None],
+               tie_rows(q[:, :, None], k[:, :, None], heads), heads)
+    want = torch.from_numpy(np.array(want, np.float32))
+    old = pta.small_sequence_attention_plain(q, k, v, heads)
+    assert ((old - want).norm() / want.norm()).item() > 1e-3
+
+
 @pytest.mark.parametrize("hd", [128, 256])
 def test_k4_plain_matches_pallas_streamed(hd, monkeypatch, jx):
     monkeypatch.setattr(jx.fa, "RESIDENT_KV_BYTES", 0)  # force _flash_kernel
@@ -507,7 +576,7 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="16-byte"):
         pfa._check_operands("k", x, x, x, 2, pfa.PACKED_HEAD_DIMS)
     x = flat[1:].view(1, 2, 8, 64)
-    with pytest.raises(ValueError, match="4-byte"):
+    with pytest.raises(ValueError, match="16-byte"):
         pta._check_operands(x, x, x, 2)
 
 
@@ -546,12 +615,32 @@ def test_resident_wrapper_refuses_what_the_kernel_does_not_take(case, match, mon
 
 @pytest.mark.parametrize("case,match", [
     ("shape", "share an"), ("frames", "T <= 32"), ("width", "head width"), ("dtype", "bf16"),
-    ("view", "contiguous"), ("offset", "4-byte"),
+    ("view", "contiguous"), ("offset", "16-byte"),
+    # K3, the other entry of K13's kernel: heads of 40, 80 or 160 only
+    ("k3-width-32", "head width"), ("k3-width-64", "head width"), ("k3-width-48", "head width"),
+    ("k3-frames", "T <= 32"), ("k3-no-frames", "T <= 32"), ("k3-offset", "16-byte"),
 ])
 def test_small_sequence_wrapper_refuses_what_the_kernel_does_not_take(case, match):
     def m(*s, dtype=torch.bfloat16):
         return torch.empty(s, dtype=dtype, device="meta")
 
+    if case.startswith("k3"):
+        q = k = v = m(2, 16, 24, 320)
+        for hd in pta.SMALL_HEAD_DIMS:  # SD1.5's three levels, 8 heads each
+            x = m(2, 16, 24, 8 * hd)
+            pta._check_operands(x, x, x, 8)
+        if case.startswith("k3-width"):
+            q = k = v = m(2, 16, 24, 8 * int(case.split("-")[-1]))
+        elif case == "k3-frames":
+            q = k = v = m(2, 33, 24, 320)
+        elif case == "k3-no-frames":
+            q = k = v = m(2, 0, 24, 320)
+        else:  # 8 bytes in: off the 16-byte rule of the kernel's row loads
+            q = k = v = torch.empty(4 + 2 * 16 * 24 * 320, dtype=torch.bfloat16,
+                                    device="meta")[4:].view(2, 16, 24, 320)
+        with pytest.raises(ValueError, match=match):
+            pta._check_operands(q, k, v, 8)
+        return
     q = k = v = m(64, 16, 320)
     with pytest.raises(ValueError, match="unsupported device"):
         pta.small_sequence_attention(q, k, v, 8)
@@ -599,7 +688,7 @@ def test_build_runs_one_compiler_per_source_then_links(fail, tmp_path, monkeypat
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     assert {"flash_cross.cu", "flash_anchor_wg.cu", "flash_wide.cu",
-            "temporal_attention.cu", "small_attention.cu", "group_norm.cu",
+            "temporal_attention.cu", "group_norm.cu",
             "layer_norm.cu"} <= set(sources)
     if fail:
         with pytest.raises(RuntimeError, match=fail):
@@ -728,9 +817,11 @@ def test_norm_kernel_matches_plain_on_card(case, cuda):
                                   "K1-clamp-hd80", "K1-hd160", "K1-clamp-hd160", "K2", "K2-hd80",
                                   "K2-ragged", "K2-77-keys", "K2-512-keys", "K2-hd160",
                                   "K2-hd160-77-keys", "K2-hd160-512-keys", "K3", "K3-one-frame",
-                                  "K3-30-frames", "K4", "K4-5184", "K9", "K9-ragged",
-                                  "K9-two-heads", "K9-3072", "K13-hd40",
-                                  "K13-hd80", "K13-hd160-30-tokens", "K13-one-token"])
+                                  "K3-30-frames", "K3-20-frames", "K3-32-frames-hd40",
+                                  "K3-32-frames-hd160", "K3-hd160", "K4", "K4-5184", "K9",
+                                  "K9-ragged", "K9-two-heads", "K9-3072", "K13-hd40",
+                                  "K13-hd80", "K13-hd160-30-tokens", "K13-one-token",
+                                  "K13-20-tokens", "K13-hd160-32-tokens"])
 def test_kernel_matches_plain_on_card(case, cuda):
     g = torch.Generator(device=cuda).manual_seed(0)
 
@@ -752,10 +843,13 @@ def test_kernel_matches_plain_on_card(case, cuda):
         S_kv = 77 if case.endswith("77-keys") else 512 if case.endswith("512-keys") else 257
         args, fn, plain = [r(2, S, C), r(2, S_kv, C), r(2, S_kv, C), 8], \
             pfa.cross_attention, pfa.dot_product_attention
-    elif kern == "K3":  # one frame: a motion-module denoiser at T = 1
-        frames = {"K3-one-frame": 1, "K3-30-frames": 30}.get(case, 16)
-        args, fn, plain = [r(2, frames, 300, 640) for _ in range(3)] + [8], \
-            pta.temporal_attention, pta.temporal_attention_plain
+    elif kern == "K3":  # one frame: a motion-module denoiser at T = 1; K3 computes the
+        # TPU body's function (q' and P rounded to bf16), temporal_attention_rounded
+        frames = {"K3-one-frame": 1, "K3-30-frames": 30, "K3-20-frames": 20}.get(case, 16)
+        frames = 32 if "32-frames" in case else frames
+        C = 1280 if "hd160" in case else 320 if "hd40" in case else 640
+        args, fn, plain = [r(2, frames, 301, C) for _ in range(3)] + [8], \
+            pta.temporal_attention, pta.temporal_attention_rounded
     elif kern == "K9":  # ragged: 1155 = 72 * 16 + 3 keys, the tail tile masked
         S, heads = {"K9": (1024, 1), "K9-ragged": (1155, 1), "K9-two-heads": (1040, 2),
                     "K9-3072": (3072, 1)}[case]
@@ -763,9 +857,10 @@ def test_kernel_matches_plain_on_card(case, cuda):
             pfa.flash_attention_resident, pfa.dot_product_attention
     elif kern == "K13":
         N, T, C = {"K13-hd40": (70, 16, 320), "K13-hd80": (65, 32, 640),
-                   "K13-hd160-30-tokens": (64, 30, 1280), "K13-one-token": (64, 1, 320)}[case]
+                   "K13-hd160-30-tokens": (64, 30, 1280), "K13-one-token": (64, 1, 320),
+                   "K13-20-tokens": (67, 20, 640), "K13-hd160-32-tokens": (64, 32, 1280)}[case]
         args, fn, plain = [r(N, T, C) for _ in range(3)] + [8], \
-            pta.small_sequence_attention, pta.small_sequence_attention_plain
+            pta.small_sequence_attention, pta.small_sequence_attention_rounded
     else:  # 5184: the VAE mid-block at 576^2, four pictures of a training batch
         S = 5184 if case == "K4-5184" else 1100
         args, fn, plain = [r(2, S, 512) for _ in range(3)] + [1], \
@@ -777,6 +872,8 @@ def test_kernel_matches_plain_on_card(case, cuda):
     # N(0, 1) inputs give small outputs (a flat softmax): the relative distance
     # is what a wrong kernel cannot pass
     assert ((got.float() - want).norm() / want.norm()).item() < 1e-2
+    if kern in ("K3", "K13"):  # the same function as the twin, up to exp2's last bit
+        assert ((got.float() - want).norm() / want.norm()).item() < 1e-3
 
 
 # ------------------------- the row-major configuration's kernels: refusals, card
@@ -926,6 +1023,52 @@ def test_anchored_wrappers_refuse_what_the_kernels_do_not_take(fn, case, match, 
     with pytest.raises(ValueError, match=match):
         getattr(pfa, fn)(q, k, v, heads)
     assert not launched
+
+
+@pytest.mark.parametrize("kern", ["K3", "K13"])
+def test_short_attention_kernels_share_one_source_under_two_entry_points(kern):
+    """K3 and K13 build from ``csrc/temporal_attention.cu``, each under its own
+    C entry point (tag 3 or 13: its own counter and device symbol), which no
+    other source defines."""
+    from mikudance_tpu_torch.kernels import _build
+
+    kernel = getattr(pta, kern)
+    assert kernel.source == "mikudance_tpu_torch/csrc/temporal_attention.cu"
+    assert kernel.symbol in _build.SIGNATURES and pta.K3.symbol != pta.K13.symbol
+    text = (_build.CSRC / "temporal_attention.cu").read_text()
+    body = text[text.index(f"int {kernel.symbol}("):]
+    assert f"dispatch<{kern[1:]}>" in body[:body.index("\n}")]
+    defining = [p.name for p in _build.CSRC.glob("*.cu")
+                if f"int {kernel.symbol}(" in p.read_text()]
+    assert defining == ["temporal_attention.cu"]
+
+
+@pytest.mark.parametrize("outer,seqs,T,hd,want", [
+    (2, 9216, 16, 40, (2, 8, 8)),    # K3 at level 0 (768^2): 9216 tiles of 2 positions
+    (2, 2304, 16, 80, (2, 4, 8)),
+    (2, 576, 16, 160, (2, 2, 4)),
+    (2, 144, 16, 160, (2, 2, 4)),    # 576 tiles
+    (1, 9216, 30, 40, (1, 8, 8)),    # a 30-frame window: two row tiles a sequence
+    (1, 5184, 20, 40, (1, 8, 8)),    # request F's 20 frames
+    (1, 576, 32, 160, (1, 2, 4)),
+    (1, 120, 16, 160, (1, 2, 4)),    # K13 on request D: 480 tiles
+    (1, 64, 32, 40, (1, 1, 4)),      # K13's smallest: 64 sequences, 512 tiles
+    (1, 64, 1, 40, (1, 1, 4)),
+])
+def test_tile_plan_fills_the_card_within_the_kernels_limits(outer, seqs, T, hd, want):
+    """The tile plan of K3 and K13 (132 SMs, 8 heads): whole sequences of at
+    most 32 padded rows by heads of at most 320 channels that divide the head
+    count, fewer sequences and then fewer heads until the grid has two blocks
+    an SM, or one sequence and one head a tile; 8 warps where a tile has 8 row
+    tiles of (sequence, head) pairs, else 4."""
+    ns, gh, warps = pta.tile_plan(outer, seqs, T, 8, hd, 132)
+    assert (ns, gh, warps) == want
+    rows = ns * (16 if T <= 16 else 32)
+    assert rows <= pta.TILE_ROWS and gh * hd <= pta.GROUP_CHANNELS and 8 % gh == 0
+    blocks = -(-seqs // ns) * (8 // gh) * outer
+    assert blocks >= 2 * 132 or (ns, gh) == (1, 1)
+    assert 3 * rows * (gh * hd + 8) * 2 <= 3 * 32 * 328 * 2  # the kernel's shared memory
+    assert warps * 32 <= 256
 
 
 @pytest.mark.parametrize("kern", ["K10", "K11", "K12", "K1"])
