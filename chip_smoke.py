@@ -24,6 +24,12 @@ Phases, in order, one line each; any failure exits non-zero:
    median times of the
    kernel, its plain version and the one library call that computes the
    same function, and the least time the card could take (``bound_ms``).
+   K5 and K6 must give the same bits on a second run; each K5 shape prints
+   its variant (R: clusters of how many blocks, the slab, shared memory a
+   block and ``cudaOccupancyMaxActiveClusters``; S: splits), its device time
+   against the smallest slab's where the plan widened it, and K5 and K6 their
+   host and device time a call by kernel (where a call costs its host time,
+   (32, 12, 12, 2560) and (1, 257, 1024), where that host time goes).
    K3 and K13 are held to ``temporal_attention_rounded`` (the TPU bodies'
    bf16 rounding of q' and of the weights; a one-token case's control reads
    v's channels shifted by one, since the scale does not matter there), with
@@ -467,6 +473,13 @@ def host_and_device_ms(fn, reps: int = 100) -> tuple[float, float]:
     """``fn``'s host time a call (wall clock over ``reps`` calls with no
     synchronisation between them) and its device time a call (torch.profiler's
     device time of the kernels the same number of calls launch), in ms."""
+    host, by_kernel = host_and_kernels_ms(fn, reps)
+    return host, sum(by_kernel.values())
+
+
+def host_and_kernels_ms(fn, reps: int = 100) -> tuple[float, dict]:
+    """As ``host_and_device_ms``, with the device time a call split by
+    kernel name (the name up to its template arguments)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -481,9 +494,45 @@ def host_and_device_ms(fn, reps: int = 100) -> tuple[float, float]:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    device = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA)
-    return host, device / reps / 1e3
+    by_kernel = defaultdict(float)
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[kernel_name(e.key)] += e.self_device_time_total / reps / 1e3
+    return host, dict(by_kernel)
+
+
+def kernel_name(key: str) -> str:
+    """A profiler key's kernel name without its namespaces, template and
+    function arguments ("void (anonymous namespace)::gn_kernel<8>(...)" ->
+    "gn_kernel"); a key that is no function's (a copy) as it is."""
+    import re
+
+    found = re.search(r"(\w+)\s*[<(]", key.replace("(anonymous namespace)::", ""))
+    return found.group(1) if found else key
+
+
+def host_parts_ms(parts: dict, reps: int = 1000) -> str:
+    """Wall-clock ms a call of each named callable, run ``reps`` times with no
+    synchronisation: where a wrapper's host time goes."""
+    out = []
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out.append(f"{name} {(time.perf_counter() - t0) / reps * 1e3:.4f}")
+        torch.cuda.synchronize()
+    return "host ms a call: " + ", ".join(out)
+
+
+def norm_split(fn, parts=None, reps: int = 20) -> str:
+    """A norm call's host time and device time a call by kernel, and where
+    given, the host time of its parts."""
+    host, by_kernel = host_and_kernels_ms(fn, reps)
+    text = (f"host {host:.4f} ms a call, device " + ", ".join(
+        f"{k} {v:.4f}" for k, v in sorted(by_kernel.items())) + " ms a call")
+    return text + ("; " + host_parts_ms(parts) if parts else "")
 
 
 def launch_spy(launch, what, seen: list):
@@ -657,8 +706,9 @@ def norm_cases(dev, only=()):
     g = torch.Generator(device=dev).manual_seed(1)
     eps, groups = 1e-6, 32
     group_norm_shapes = (((32, 96, 96, 320), True), ((32, 96, 96, 960), False),
-                         ((32, 12, 12, 2560), False), ((8, 768, 768, 128), True),
-                         ((1, 12288, 768, 128), True))
+                         ((32, 96, 96, 640), False), ((32, 48, 48, 640), True),
+                         ((32, 24, 24, 1280), False), ((32, 12, 12, 2560), False),
+                         ((8, 768, 768, 128), True), ((1, 12288, 768, 128), True))
     for shape, silu in group_norm_shapes if wanted(gn.K5, only) else ():
         x = norm_input(shape, g, dev)
         w, b = (torch.randn(shape[-1], generator=g, device=dev) for _ in range(2))
@@ -667,8 +717,32 @@ def norm_cases(dev, only=()):
             y = F.group_norm(x.permute(0, 3, 1, 2), groups, w, b, eps)
             return F.silu(y) if silu else y
 
-        yield (gn.K5, f"{gn.K5.name} x{shape} silu {silu}",
-               lambda x=x, w=w, b=b, silu=silu: gn.fused_group_norm(x, w, b, groups, eps, silu),
+        def run(x=x, w=w, b=b, silu=silu):
+            return gn.fused_group_norm(x, w, b, groups, eps, silu)
+
+        parts = None
+        if shape == (32, 12, 12, 2560):  # a call that costs its host time
+            parts = {"the wrapper": run, "checks": lambda: gn._check_operands(x, w, b, groups),
+                     "empty_like": lambda: torch.empty_like(x),
+                     "current_stream": lambda: torch.cuda.current_stream(x.device).cuda_stream,
+                     "library": library}
+        images, rows, C = shape[0], math.prod(shape[1:-1]), shape[-1]
+        plan, held = gn.plan_for(x.device.index, images, rows, C, groups, False, True, silu)
+        variant = (f"variant R, clusters of {plan.cluster}, slab {plan.slab}, {plan.smem} B "
+                   f"a block, cudaOccupancyMaxActiveClusters {held}" if plan.variant == "R" else
+                   f"variant S, slab {plan.slab}, {plan.splits} splits, {plan.apply_blocks} "
+                   "apply blocks an image")
+        smallest = gn.group_norm_plan(images, rows, C, groups, 2, aligned=False)
+        if smallest != plan and (smallest.variant == "S" or gn.max_active_clusters(
+                smallest, False, True, silu)):  # the slab of whole sectors against the smallest
+            _, chosen = host_and_kernels_ms(run, 10)
+            _, other = host_and_kernels_ms(lambda x=x, w=w, b=b, silu=silu, other=smallest: (
+                gn.launch(x, w, b, groups, eps, silu, other)), 10)
+            variant += (f"; device {sum(chosen.values()):.4f} ms a call against "
+                        f"{sum(other.values()):.4f} with the smallest slab ({smallest.slab}, "
+                        f"{smallest.variant}{smallest.cluster or ''})")
+        yield (gn.K5, f"{gn.K5.name} x{shape} silu {silu} ({variant}; "
+                      f"{norm_split(run, parts)})", run,
                lambda x=x, w=w, b=b, silu=silu: gn.group_norm_plain(x, w, b, groups, eps, silu),
                lambda x=x, w=w, b=b, silu=silu: gn.group_norm_plain(x, w, b, CONTROL_GROUPS,
                                                                      eps, silu),
@@ -687,10 +761,26 @@ def norm_cases(dev, only=()):
             var = xf.square().sum(-1, keepdim=True) / (C * CONTROL_WIDTH) - mu.square()
             return ((xf - mu) * torch.rsqrt(var + 1e-5) * w + b).to(x.dtype)
 
-        yield (ln.K6, f"{ln.K6.name} x{shape}",
-               lambda x=x, w=w, b=b: ln.fused_layer_norm(x, w, b, 1e-5),
-               lambda x=x, w=w, b=b: ln.layer_norm_plain(x, w, b, 1e-5), control,
-               lambda x=x, w=w.bfloat16(), b=b.bfloat16(), C=C: F.layer_norm(x, (C,), w, b, 1e-5),
+        run = lambda x=x, w=w, b=b: ln.fused_layer_norm(x, w, b, 1e-5)  # noqa: E731
+        library = lambda x=x, w=w.bfloat16(), b=b.bfloat16(), C=C: F.layer_norm(  # noqa: E731
+            x, (C,), w, b, 1e-5)
+        parts = None
+        if shape == (1, 257, 1024):  # a call that costs its host time
+            y = torch.empty_like(x)
+            lanes, _, vectors = ln.lane_plan(C, 8)
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            parts = {"the wrapper": run, "checks": lambda: ln._check_operands(x, w, b),
+                     "empty_like": lambda: torch.empty_like(x),
+                     "current_stream": lambda: torch.cuda.current_stream(x.device).cuda_stream,
+                     "current_stream(index)": lambda: torch.cuda.current_stream(
+                         x.device.index).cuda_stream,
+                     "the launch": lambda: ln.K6.launch(
+                         x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), 257, C, lanes,
+                         vectors, 1e-5, False, True, stream),
+                     "library": library}
+        yield (ln.K6, f"{ln.K6.name} x{shape} ({norm_split(run, parts)}; library: "
+                      f"{norm_split(library)})", run,
+               lambda x=x, w=w, b=b: ln.layer_norm_plain(x, w, b, 1e-5), control, library,
                8 * x.numel(), 2 * 2 * x.numel(), PEAK_FP32)
         del x
 
@@ -1126,6 +1216,8 @@ def phase_kernels(dev, only=()):
         check(rel < REL_L2, f"{what}: relative L2 {rel:.3e} >= {REL_L2}")
         check(ctl > REL_L2, f"{what}: the control reads {ctl:.3e}, under the limit "
                             f"{REL_L2}: the check cannot fail")
+        if kern.name.startswith(("K5", "K6")):  # no atomics: the same bits on a second run
+            check(torch.equal(got, run()), f"{what}: two runs give different bits")
         del got
         ms = cuda_ms(run, 5)
         plain_ms = cuda_ms(plain, 3)
@@ -1174,8 +1266,9 @@ PROFILE_CATEGORIES = [
     # K3 and K13 are one kernel; the tag (3 or 13) leads its template arguments
     ("K3 temporal attention", ("short_attention_kernel<3, ",)),
     ("K13 small-sequence attention", ("short_attention_kernel<13, ",)),
-    ("K5 GroupNorm (statistics, finish, apply)", ("gn_stats_kernel", "gn_finish_kernel",
-                                                  "gn_apply_kernel")),
+    ("K5 GroupNorm (resident; streamed statistics, apply)", ("gn_resident_kernel",
+                                                             "gn_stream_stats_kernel",
+                                                             "gn_stream_apply_kernel")),
     ("K6 LayerNorm", ("ln_kernel",)),
     ("K7 linear (the chain's products)", ("linear_kernel",)),
     ("K8 conv3x3", ("conv3x3_kernel",)),
@@ -1624,7 +1717,9 @@ def main() -> int:
         f"(ptxas report: {lib.with_suffix('.log')})")
     log("ptxas: " + ptxas_report(lib.with_suffix(".log").read_text(),
                                  ("anchor_wg_kernel", "flash_cross_kernel", "flash_wide_kernel",
-                                  "linear_kernel", "conv3x3_kernel", "short_attention_kernel")))
+                                  "linear_kernel", "conv3x3_kernel", "short_attention_kernel",
+                                  "gn_resident_kernel", "gn_stream_stats_kernel",
+                                  "gn_stream_apply_kernel", "ln_kernel")))
     log("kernels: " + "; ".join(f"{k.name} = {k.symbol} in {k.source}, replaces {k.replaces}"
                                 for k in kernels))
 

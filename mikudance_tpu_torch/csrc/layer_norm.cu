@@ -6,122 +6,136 @@
 //      rsqrt(var + eps) * w + b, cast to x's type.
 //
 // What bounds it on the card: memory, one read and one write of x. The
-// design: one warp per row, the whole row in registers, so x is read from
-// device memory exactly once and both statistics passes run on registers
-// (the TPU kernel holds a block of rows in VMEM for the same reason). The
-// widths on the path are 320, 640, 1280 and 1024: 320 / 32 lanes = 10 values
-// a lane, which 16-byte loads do not divide, so a lane loads pairs (4 bytes
-// of bf16): lane l owns pairs l, l + 32, ... and a warp's load covers 128
-// contiguous bytes. Sums cross the lanes by shuffles. Rows are independent,
-// so blocks need no order and nothing is carried between them.
+// design: a row is taken by a group of L lanes (8, 16 or 32, aligned within
+// the warp), chosen by the wrapper (kernels/layer_norm.py::lane_plan) so that
+// each lane holds whole 16-byte vectors: width 320 in bf16 is 40 vectors,
+// 8 lanes of 5; 640 is 16 lanes of 5; 1280 32 of 5; 1024 32 of 4. The row
+// stays in registers, so x is read from device memory once and both
+// statistics passes run on registers (the TPU kernel holds a block of rows
+// in VMEM for the same reason); sums cross the group by shuffles with
+// offsets under L. A vector count that no L divides is taken by 32 lanes
+// with a masked tail. One lane group takes one row; a block of 8 warps
+// takes 8 x (32 / L) rows and the grid covers the rows once (more warps in
+// flight than a grid-stride loop over rows with w and b staged, which moved
+// fewer bytes a second on an H100). A lane loads its vectors before it uses
+// any and keeps them as stored (20 registers for 5 vectors), converting as
+// it reads; w and b (2C values, resident in L1) are read as vectors where
+// they are used. A warp leaves only as a whole, so every lane reaches every
+// shuffle; rows past the end are masked.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "norm_core.cuh"
 
-typedef __nv_bfloat16 bf16;
+using namespace md_norm;
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
-constexpr int kMaxPairsPerLane = 20;  // C <= 1280
+constexpr int kThreads = 256;
+constexpr int kMaxVectorsPerLane = 10;
+constexpr int kMaxWidth = 1280;
 
-__device__ __forceinline__ float2 load_pair(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ float2 load_pair(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store_pair(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-// weight / bias pair at element 2 * p, stored as fp32 or bf16
-__device__ __forceinline__ float2 param_pair(const void* w, int p, int is_fp32) {
-  return is_fp32 ? static_cast<const float2*>(w)[p]
-                 : __bfloat1622float2(static_cast<const __nv_bfloat162*>(w)[p]);
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
+// T: x's type; P: w's and b's; VPL: vectors a lane holds at most. A lane of
+// group sub takes the row's vectors sub, sub + L, ... below nv = C / V.
+template <typename T, typename P, int VPL>
+__global__ void __launch_bounds__(kThreads)
+ln_kernel(const T* __restrict__ x, const P* __restrict__ w, const P* __restrict__ b,
+          T* __restrict__ y, long long rows, int C, int L, float eps) {
+  constexpr int V = Vec16<T>::N;
+  const int lane = threadIdx.x % 32, sub = lane % L, nv = C / V;
+  const long long first = ((long long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32) * (32 / L);
+  if (first >= rows) return;  // whole warps
+  const long long row = first + lane / L;
+  const bool live = row < rows;
+  uint4 raw[VPL];
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// PAIRS = pairs a lane holds at most: ceil(C / 64) <= PAIRS.
-template <typename T, int PAIRS>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
-ln_kernel(const T* __restrict__ x, const void* __restrict__ w, const void* __restrict__ b,
-          int w_fp32, T* __restrict__ y, long long rows, int C, float eps) {
-  const long long row = (long long)blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
-  if (row >= rows) return;  // whole warps leave together
-  const int lane = threadIdx.x % 32, pairs = C / 2;
-  const T* xr = x + row * C;
-  T* yr = y + row * C;
-
-  float2 v[PAIRS];
+  for (int k = 0; k < VPL; ++k) {
+    const int j = k * L + sub;
+    raw[k] = live && j < nv ? load_raw16(x + row * C + j * V) : make_uint4(0u, 0u, 0u, 0u);
+  }
   float sum = 0.f;
 #pragma unroll
-  for (int k = 0; k < PAIRS; ++k) {
-    const int p = k * 32 + lane;
-    v[k] = p < pairs ? load_pair(xr + 2 * p) : make_float2(0.f, 0.f);
-    sum += v[k].x + v[k].y;
+  for (int k = 0; k < VPL; ++k) {
+    float v[V];
+    unpack(raw[k], v);
+#pragma unroll
+    for (int i = 0; i < V; ++i) sum += v[i];
   }
-  const float mean = warp_sum(sum) / (float)C;
+  const float mean = group_sum(sum, L) / (float)C;
   float sq = 0.f;
 #pragma unroll
-  for (int k = 0; k < PAIRS; ++k) {
-    if (k * 32 + lane < pairs) {
-      const float dx = v[k].x - mean, dy = v[k].y - mean;
-      sq = fmaf(dx, dx, fmaf(dy, dy, sq));
+  for (int k = 0; k < VPL; ++k) {
+    if (k * L + sub < nv) {
+      float v[V];
+      unpack(raw[k], v);
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        const float d = v[i] - mean;
+        sq = fmaf(d, d, sq);
+      }
     }
   }
-  const float inv = rsqrtf(warp_sum(sq) / (float)C + eps);
+  const float inv = rsqrtf(group_sum(sq, L) / (float)C + eps);
 #pragma unroll
-  for (int k = 0; k < PAIRS; ++k) {
-    const int p = k * 32 + lane;
-    if (p < pairs) {
-      const float2 ww = param_pair(w, p, w_fp32), bb = param_pair(b, p, w_fp32);
-      store_pair(yr + 2 * p, fmaf((v[k].x - mean) * inv, ww.x, bb.x),
-                 fmaf((v[k].y - mean) * inv, ww.y, bb.y));
+  for (int k = 0; k < VPL; ++k) {
+    const int j = k * L + sub;
+    if (live && j < nv) {
+      float v[V], wv[V], bv[V];
+      unpack(raw[k], v);
+      load_params<V>(w, j * V, wv);
+      load_params<V>(b, j * V, bv);
+#pragma unroll
+      for (int i = 0; i < V; ++i) v[i] = affine<false>((v[i] - mean) * inv, wv[i], bv[i]);
+      store16(y + row * C + j * V, v);
     }
   }
 }
 
-template <typename T>
-int layer_norm(const T* x, const void* w, const void* b, int w_fp32, T* y, long long rows, int C,
-               float eps, cudaStream_t stream) {
-  const unsigned grid = (unsigned)((rows + kWarpsPerBlock - 1) / kWarpsPerBlock);
-  const int threads = kWarpsPerBlock * 32, per_lane = (C / 2 + 31) / 32;
-  if (per_lane <= 5)
-    ln_kernel<T, 5><<<grid, threads, 0, stream>>>(x, w, b, w_fp32, y, rows, C, eps);
-  else if (per_lane <= 10)
-    ln_kernel<T, 10><<<grid, threads, 0, stream>>>(x, w, b, w_fp32, y, rows, C, eps);
-  else
-    ln_kernel<T, kMaxPairsPerLane><<<grid, threads, 0, stream>>>(x, w, b, w_fp32, y, rows, C, eps);
+template <typename T, typename P, int VPL>
+int launch(const void* x, const void* w, const void* b, void* y, long long rows, int C, int L,
+           float eps, cudaStream_t stream) {
+  const long long rows_a_block = (long long)(kThreads / 32) * (32 / L);
+  const unsigned grid = (unsigned)((rows + rows_a_block - 1) / rows_a_block);
+  ln_kernel<T, P, VPL><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const P*>(w), static_cast<const P*>(b),
+      static_cast<T*>(y), rows, C, L, eps);
   return cudaGetLastError();
+}
+
+template <typename T, typename P>
+int by_vectors(const void* x, const void* w, const void* b, void* y, long long rows, int C,
+               int L, int vpl, float eps, cudaStream_t s) {
+  switch (vpl) {  // the wrapper rounds a lane's vectors up to one of these
+    case 1: return launch<T, P, 1>(x, w, b, y, rows, C, L, eps, s);
+    case 2: return launch<T, P, 2>(x, w, b, y, rows, C, L, eps, s);
+    case 4: return launch<T, P, 4>(x, w, b, y, rows, C, L, eps, s);
+    case 5: return launch<T, P, 5>(x, w, b, y, rows, C, L, eps, s);
+    case 8: return launch<T, P, 8>(x, w, b, y, rows, C, L, eps, s);
+    case 10: return launch<T, P, 10>(x, w, b, y, rows, C, L, eps, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// x, y: (rows, C) contiguous, bf16 (x_fp32 = 0) or fp32, aligned to a pair;
-// w, b: (C,) fp32 (w_fp32 = 1) or bf16. The wrapper guarantees an even
-// C <= 1280 and rows >= 1.
+// x, y: (rows, C) contiguous, bf16 (x_fp32 = 0) or fp32, 16-byte aligned;
+// w, b: (C,) fp32 (w_fp32 = 1) or bf16, 16-byte aligned. The wrapper
+// guarantees C a multiple of the 16-byte vector, rows >= 1, and picks the
+// lanes a row L (8, 16 or 32) and the vectors a lane vpl (1, 2, 4, 5, 8 or
+// 10) with L * vpl * vector >= C.
 int md_layer_norm(const void* x, const void* w, const void* b, void* y, long long rows, int C,
-                  float eps, int x_fp32, int w_fp32, void* stream) {
-  if (C % 2 != 0 || C > 64 * kMaxPairsPerLane || rows < 1 ||
-      (rows + kWarpsPerBlock - 1) / kWarpsPerBlock > 2147483647LL)
+                  int L, int vpl, float eps, int x_fp32, int w_fp32, void* stream) {
+  const int vec = x_fp32 ? 4 : 8;
+  if (C % vec != 0 || C > kMaxWidth || rows < 1 || (L != 8 && L != 16 && L != 32) || vpl < 1 ||
+      vpl > kMaxVectorsPerLane || (long long)L * vpl * vec < C ||
+      (rows + kThreads / 32 - 1) / (kThreads / 32) > 2147483647LL)  // blocks of 8 rows at least
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (x_fp32)
-    return layer_norm<float>(static_cast<const float*>(x), w, b, w_fp32, static_cast<float*>(y),
-                             rows, C, eps, s);
-  return layer_norm<bf16>(static_cast<const bf16*>(x), w, b, w_fp32, static_cast<bf16*>(y), rows,
-                          C, eps, s);
+    return w_fp32 ? by_vectors<float, float>(x, w, b, y, rows, C, L, vpl, eps, s)
+                  : by_vectors<float, bf16>(x, w, b, y, rows, C, L, vpl, eps, s);
+  return w_fp32 ? by_vectors<bf16, float>(x, w, b, y, rows, C, L, vpl, eps, s)
+                : by_vectors<bf16, bf16>(x, w, b, y, rows, C, L, vpl, eps, s);
 }
 
 }  // extern "C"

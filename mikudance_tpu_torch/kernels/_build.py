@@ -43,10 +43,14 @@ SIGNATURES = {
     # warps a block, stream
     "md_small_attention": (P, P, P, P, I, I, I, I, I, I, I, P),
     # x, weight, bias, y, scratch, images, rows, channels, groups, eps, silu, x_fp32,
-    # w_fp32, rows_per_block, splits, chunk_w, lanes, stream
-    "md_group_norm": (P, P, P, P, P, I, L, I, I, F, I, I, I, I, I, I, I, P),
-    # x, weight, bias, y, rows, channels, eps, x_fp32, w_fp32, stream
-    "md_layer_norm": (P, P, P, P, L, I, F, I, I, P),
+    # w_fp32, cluster (0: streamed), slab, rows_per_block, splits, rows_per_split, chunk_w,
+    # apply_blocks, stream
+    "md_group_norm": (P, P, P, P, P, I, L, I, I, F, I, I, I, I, I, I, I, L, I, I, P),
+    # x_fp32, w_fp32, silu, cluster, slab, rows_per_block, out: clusters held at once
+    "md_group_norm_clusters": (I, I, I, I, I, I, ctypes.POINTER(ctypes.c_int)),
+    # x, weight, bias, y, rows, channels, lanes a row, vectors a lane, eps, x_fp32, w_fp32,
+    # stream
+    "md_layer_norm": (P, P, P, P, L, I, I, I, F, I, I, P),
     # x, w, bias, residual, y, rows, cin, cout, bias_fp32, tile width, stream
     "md_linear": (P, P, P, P, P, L, I, I, I, I, P),
     # x, packed weight, bias, y, images, height, width, cin, cout, bias_fp32, tile width,
@@ -139,11 +143,13 @@ class CudaKernel:
     def __init__(self, name: str, symbol: str, source: str, replaces: str):
         self.name, self.symbol, self.source, self.replaces = name, symbol, source, replaces
         self.launches = 0
+        self._entry = None  # the C entry point, looked up at the first launch
 
     def launch(self, *args) -> None:
-        lib = load()
-        err = getattr(lib, self.symbol)(*args)
+        if self._entry is None:
+            self._entry = getattr(load(), self.symbol)
+        err = self._entry(*args)
         if err != 0:
             raise RuntimeError(
-                f"{self.symbol}: CUDA error {err} ({lib.md_error_string(err).decode()})")
+                f"{self.symbol}: CUDA error {err} ({load().md_error_string(err).decode()})")
         self.launches += 1

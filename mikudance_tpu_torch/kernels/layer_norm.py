@@ -13,12 +13,15 @@ differentiable: the backward is the vector-Jacobian product of the plain
 version, as in the JAX package (``layer_norm.py:113``).
 
 The kernel takes x of any leading shape (..., C), contiguous, bf16 or fp32,
-with an even C <= 1280, starting on a boundary of one pair (4 bytes of bf16,
-8 of fp32); weight and bias of shape (C,), contiguous, both fp32 or both
-bf16.
+with C <= 1280 a multiple of the 16-byte vector (8 bf16 or 4 fp32 values),
+starting on a 16-byte boundary; weight and bias of shape (C,), contiguous,
+16-byte aligned, both fp32 or both bf16. ``lane_plan`` picks the lanes that
+take a row and the vectors each lane holds.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -31,7 +34,24 @@ K6 = CudaKernel(
     replaces="mikudance_tpu/kernels/layer_norm.py:51",
 )
 
-MAX_WIDTH = 1280  # a lane holds at most 20 pairs of the row
+MAX_WIDTH = 1280  # 32 lanes of 10 vectors of fp32
+LANE_GROUPS = (32, 16, 8)  # lanes that may take a row, the widest first
+MAX_VECTORS_PER_LANE = 10
+VECTOR_COUNTS = (1, 2, 4, 5, 8, 10)  # the kernel's instantiations: vectors a lane at most
+
+
+@functools.lru_cache(maxsize=None)
+def lane_plan(channels: int, vec: int) -> tuple[int, int, int]:
+    """(lanes a row L, vectors a lane, the kernel instantiation's count) for
+    a row of ``channels`` values in 16-byte vectors of ``vec``: the widest
+    lane group that divides the row's vectors into whole runs of at most
+    ``MAX_VECTORS_PER_LANE`` (320 bf16: 8 lanes of 5; 640: 16 of 5; 1280:
+    32 of 5; 1024: 32 of 4), else 32 lanes with a masked tail."""
+    nv = channels // vec
+    lanes = next((L for L in LANE_GROUPS if nv % L == 0 and nv // L <= MAX_VECTORS_PER_LANE),
+                 LANE_GROUPS[0])
+    per_lane = -(-nv // lanes)
+    return lanes, per_lane, next(n for n in VECTOR_COUNTS if n >= per_lane)
 
 
 def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -45,7 +65,8 @@ def layer_norm_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype)
 
 
-def _check_operands(x, weight, bias) -> None:
+def _check_operands(x, weight, bias) -> tuple[int, int, int]:
+    """Validate what K6 takes; returns its ``lane_plan``."""
     if x.ndim < 1 or x.numel() == 0:
         raise ValueError(f"fused_layer_norm: need x (..., C), got {tuple(x.shape)}")
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -53,17 +74,21 @@ def _check_operands(x, weight, bias) -> None:
     if not x.is_contiguous():
         raise ValueError("fused_layer_norm: x must be contiguous "
                          f"(shape {tuple(x.shape)}, strides {x.stride()})")
-    pair = 2 * x.element_size()
-    if x.data_ptr() % pair:
-        raise ValueError(f"fused_layer_norm: x must start on a {pair}-byte boundary")
-    C = x.shape[-1]
-    if C % 2 or C > MAX_WIDTH:
-        raise ValueError(f"fused_layer_norm: width {C} must be even and <= {MAX_WIDTH}")
+    if x.data_ptr() % 16:
+        raise ValueError("fused_layer_norm: x must start on a 16-byte boundary")
+    C, vec = x.shape[-1], 16 // x.element_size()
+    if C % vec or C > MAX_WIDTH:
+        raise ValueError(f"fused_layer_norm: width {C} must be a multiple of the {vec}-value "
+                         f"vector and <= {MAX_WIDTH}")
+    card, wtype = x.get_device(), weight.dtype
     for name, p in (("weight", weight), ("bias", bias)):
-        if p.shape != (C,) or not p.is_contiguous() or p.device != x.device \
-                or p.dtype != weight.dtype or p.dtype not in (torch.bfloat16, torch.float32):
+        if p.shape != (C,) or not p.is_contiguous() or p.get_device() != card \
+                or p.dtype != wtype or wtype not in (torch.bfloat16, torch.float32) \
+                or p.data_ptr() % 16:
             raise ValueError(f"fused_layer_norm: {name} must be a contiguous ({C},) fp32 or "
-                             "bf16 tensor on x's device, weight and bias of one dtype")
+                             "bf16 tensor on x's device starting on a 16-byte boundary, "
+                             "weight and bias of one dtype")
+    return lane_plan(C, vec)
 
 
 def fused_layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -79,11 +104,10 @@ def _fused_layer_norm(x, weight, bias, eps: float) -> torch.Tensor:
         return layer_norm_plain(x, weight, bias, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_layer_norm: unsupported device {x.device}")
-    _check_operands(x, weight, bias)
+    lanes, _, vectors = _check_operands(x, weight, bias)
     C = x.shape[-1]
     y = torch.empty_like(x)
-    K6.launch(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-              x.numel() // C, C, eps, int(x.dtype == torch.float32),
-              int(weight.dtype == torch.float32),
-              torch.cuda.current_stream(x.device).cuda_stream)
+    K6.launch(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(), x.numel() // C, C,
+              lanes, vectors, eps, x.dtype is torch.float32, weight.dtype is torch.float32,
+              torch.cuda.current_stream(x.get_device()).cuda_stream)
     return y

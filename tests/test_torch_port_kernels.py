@@ -15,6 +15,7 @@ card runs this file with ``--noconftest``:
     python -m pytest tests/test_torch_port_kernels.py -m cuda --noconftest -q
 """
 
+import math
 import types
 
 import numpy as np
@@ -315,23 +316,6 @@ def test_k6_plain_matches_pallas_layer_norm(shape, dtype, tol, jx):
     for want in (kernel, module):
         np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
                                    atol=tol * 10 if dtype == "float32" else tol, rtol=tol)
-
-
-@pytest.mark.parametrize("images,rows,channels,vec", [
-    (32, 96 * 96, 320, 8), (32, 96 * 96, 960, 8), (32, 12 * 12, 2560, 8),
-    (8, 768 * 768, 128, 8), (1, 12288 * 768, 128, 8), (2, 40 * 40, 320, 4), (1, 1, 8, 8),
-])
-def test_k5_statistics_plan_covers_every_row(images, rows, channels, vec):
-    """The cut of the statistics pass: every row in exactly one split, a block
-    of at most 256 threads, short fp32 runs, and enough blocks when N = 1."""
-    rows_per_block, splits, chunk_w, lanes = pgn.stats_plan(images, rows, channels, vec)
-    assert (splits - 1) * rows_per_block < rows <= splits * rows_per_block
-    assert 1 <= chunk_w * lanes <= pgn.BLOCK_THREADS
-    chunks = -(-(channels // vec) // chunk_w)
-    assert chunks * chunk_w >= channels // vec
-    assert rows_per_block <= lanes * pgn.MAX_ROWS_PER_LANE
-    if rows * channels > 1 << 24:  # a large map fills the card whatever the batch
-        assert images * splits * chunks >= 512
 
 
 def test_block_rule_matches_jax(jx):
@@ -716,10 +700,15 @@ def _meta(*s, dtype=torch.bfloat16):
     ("device", "unsupported device"), ("dtype", "bf16 or fp32"), ("view", "contiguous"),
     ("vector", "8-channel vector"), ("groups", "multiple of 3 groups"),
     ("offset", "16-byte"), ("weight", "weight must be"), ("bias dtype", "bias must be"),
+    ("weight offset", "16-byte"), ("slab", "at most 256 vectors"),
+    ("channels", "at most 16384 channels"),
 ])
 def test_group_norm_wrapper_refuses_what_the_kernel_does_not_take(case, match):
     """Checks run before any launch (meta tensors stand in for CUDA ones: the
-    checks read only metadata); nothing falls back to the plain version."""
+    checks read only metadata); nothing falls back to the plain version. The
+    kernel's vector loads of w and b want them 16-byte aligned; a slab (the
+    smallest run of whole groups and whole vectors) is at most 256 vectors,
+    and S holds a and b of at most 16384 channels in shared memory."""
     x, w, b, groups = _meta(2, 4, 4, 32), _meta(32), _meta(32), 4
     if case == "device":
         with pytest.raises(ValueError, match=match):
@@ -737,6 +726,12 @@ def test_group_norm_wrapper_refuses_what_the_kernel_does_not_take(case, match):
         x = _meta(1 + 2 * 4 * 4 * 32)[1:].view(2, 4, 4, 32)
     elif case == "weight":
         w = _meta(16)
+    elif case == "weight offset":  # 2 bytes in: off the kernel's vector loads
+        w = _meta(33)[1:]
+    elif case == "slab":  # one group of 4096 channels: a slab of 512 vectors
+        x, w, b, groups = _meta(1, 4, 4096), _meta(4096), _meta(4096), 1
+    elif case == "channels":
+        x, w, b = _meta(1, 4, 16392), _meta(16392), _meta(16392)
     else:
         b = _meta(32, dtype=torch.float32)
     with pytest.raises(ValueError, match=match):
@@ -745,9 +740,14 @@ def test_group_norm_wrapper_refuses_what_the_kernel_does_not_take(case, match):
 
 @pytest.mark.parametrize("case,match", [
     ("device", "unsupported device"), ("dtype", "bf16 or fp32"), ("view", "contiguous"),
-    ("odd", "even"), ("wide", "<= 1280"), ("offset", "4-byte"), ("weight", "weight must be"),
+    ("odd", "multiple of the 8-value vector"), ("wide", "<= 1280"), ("offset", "16-byte"),
+    ("weight", "weight must be"), ("even", "multiple of the 8-value vector"),
+    ("weight offset", "16-byte"),
 ])
 def test_layer_norm_wrapper_refuses_what_the_kernel_does_not_take(case, match):
+    """K6 moves rows, w and b as 16-byte vectors: the width a multiple of the
+    vector (an even width that is not, 324, is refused), x, w and b 16-byte
+    aligned; widths up to 1280."""
     x, w, b = _meta(2, 8, 64), _meta(64), _meta(64)
     if case == "device":
         with pytest.raises(ValueError, match=match):
@@ -761,8 +761,14 @@ def test_layer_norm_wrapper_refuses_what_the_kernel_does_not_take(case, match):
         x, w, b = _meta(2, 8, 63), _meta(63), _meta(63)
     elif case == "wide":
         x, w, b = _meta(2, 8, 2048), _meta(2048), _meta(2048)
-    elif case == "offset":
-        x = _meta(1 + 2 * 8 * 64)[1:].view(2, 8, 64)
+    elif case == "offset":  # 8 bytes in: aligned to a pair, off the 16-byte vector
+        x = _meta(4 + 2 * 8 * 64)[4:].view(2, 8, 64)
+    elif case == "even":
+        x, w, b = _meta(2, 8, 324), _meta(324), _meta(324)
+    elif case == "weight offset":
+        b = _meta(72)[8:]  # 16 bytes in: aligned
+        pln._check_operands(x, w, b)
+        b = _meta(68)[4:]
     else:
         w = _meta(32)
     with pytest.raises(ValueError, match=match):
@@ -780,15 +786,36 @@ def cuda():
     return torch.device("cuda")
 
 
+# case -> (x shape, x dtype, w / b dtype, K5's variant and cluster size: S is
+# 0; (16, 0): 16 where the card schedules it, else S)
+NORM_CASES = {
+    "K5-silu": ((3, 24, 24, 320), torch.bfloat16, torch.float32, (2,)),
+    "K5-tall-n1": ((1, 4100, 16, 128), torch.bfloat16, torch.float32, (16, 8)),
+    "K5-fp32": ((2, 9, 9, 960), torch.float32, torch.float32, (1,)),
+    "K5-R16-level0": ((2, 96, 96, 320), torch.bfloat16, torch.float32, (16, 8)),
+    "K5-R16-960": ((2, 96, 96, 960), torch.bfloat16, torch.float32, (16, 0)),  # groups of 30
+    "K5-ragged-rows": ((2, 49, 49, 320), torch.bfloat16, torch.float32, (8,)),  # 2401 rows
+    "K5-bf16-params": ((2, 48, 48, 640), torch.bfloat16, torch.bfloat16, (8,)),
+    "K5-S-silu": ((2, 512, 512, 128), torch.bfloat16, torch.float32, (0,)),
+    "K5-S-fp32": ((1, 1024, 1024, 64), torch.float32, torch.float32, (0,)),
+    "K6-320": ((2, 16, 33, 320), torch.bfloat16, torch.float32, None),
+    "K6-1024": ((1, 257, 1024), torch.bfloat16, torch.float32, None),
+    "K6-fp32": ((5, 7, 640), torch.float32, torch.float32, None),
+    "K6-640": ((3, 100, 640), torch.bfloat16, torch.float32, None),
+    "K6-1280": ((2, 77, 1280), torch.bfloat16, torch.float32, None),
+    "K6-fp32-1280": ((3, 50, 1280), torch.float32, torch.float32, None),
+    "K6-bf16-params": ((2, 33, 320), torch.bfloat16, torch.bfloat16, None),
+    "K6-masked-960": ((4, 9, 960), torch.bfloat16, torch.float32, None),  # 32 lanes, a tail
+}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["K5-silu", "K5-tall-n1", "K5-fp32", "K6-320", "K6-1024",
-                                  "K6-fp32"])
+@pytest.mark.parametrize("case", list(NORM_CASES))
 def test_norm_kernel_matches_plain_on_card(case, cuda):
+    """K5 in each variant and cluster size it takes, K6 at each lane plan,
+    against the plain versions; the same bits on a second run."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    dtype = torch.float32 if case.endswith("fp32") else torch.bfloat16
-    shape = {"K5-silu": (3, 24, 24, 320), "K5-tall-n1": (1, 4100, 16, 128),
-             "K5-fp32": (2, 9, 9, 960), "K6-320": (2, 16, 33, 320), "K6-1024": (1, 257, 1024),
-             "K6-fp32": (5, 7, 640)}[case]
+    shape, dtype, wdtype, clusters = NORM_CASES[case]
     C = shape[-1]
     x = (torch.randn(shape, generator=g, device=cuda) * (torch.rand(C, generator=g, device=cuda)
                                                          * 3.75 + 0.25)
@@ -796,10 +823,14 @@ def test_norm_kernel_matches_plain_on_card(case, cuda):
     if case.startswith("K6"):  # row means away from zero
         x += torch.rand(shape[:-1] + (1,), generator=g, device=cuda) * 16 - 8
     x = x.to(dtype)
-    w, b = torch.randn(C, generator=g, device=cuda), torch.randn(C, generator=g, device=cuda)
+    w, b = (torch.randn(C, generator=g, device=cuda).to(wdtype) for _ in range(2))
     if case.startswith("K5"):
-        kern, got = pgn.K5, lambda: pgn.fused_group_norm(x, w, b, 32, 1e-6, case == "K5-silu")
-        want = pgn.group_norm_plain(x, w, b, 32, 1e-6, case == "K5-silu")
+        silu = "silu" in case
+        kern, got = pgn.K5, lambda: pgn.fused_group_norm(x, w, b, 32, 1e-6, silu)
+        want = pgn.group_norm_plain(x, w, b, 32, 1e-6, silu)
+        plan, held = pgn.plan_for(x.device.index, shape[0], math.prod(shape[1:-1]), C, 32,
+                                  dtype == torch.float32, wdtype == torch.float32, silu)
+        assert (plan.cluster if held else 0) in clusters, (plan, held)
     else:
         kern, got = pln.K6, lambda: pln.fused_layer_norm(x, w, b, 1e-5)
         want = pln.layer_norm_plain(x, w, b, 1e-5)
