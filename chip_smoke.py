@@ -30,6 +30,9 @@ Phases, in order, one line each; any failure exits non-zero:
    against the smallest slab's where the plan widened it, and K5 and K6 their
    host and device time a call by kernel (where a call costs its host time,
    (32, 12, 12, 2560) and (1, 257, 1024), where that host time goes).
+   K14 logs, at each level, its plan (chunk, barriers, scratch), its device
+   time by phase and the chunk table: its time at chunks of 1, 2, 4, 8 and
+   32 batch elements, in turns.
    K3 and K13 are held to ``temporal_attention_rounded`` (the TPU bodies'
    bf16 rounding of q' and of the weights; a one-token case's control reads
    v's channels shifted by one, since the scale does not matter there), with
@@ -103,7 +106,8 @@ Phases, in order, one line each; any failure exits non-zero:
     two ``train_stage1`` steps at 768^2 (batch cut from 8 to 1).
 15. request G: the mega-block probe K14 at (32, 2304, 640) in one launch
     against the port's ``TransformerBlock`` read path on the same weights,
-    both timed (control: the bank K/V left out).
+    both timed (control: the bank K/V left out), and K14's device time by
+    phase (block 0's %globaltimer stamps after each grid barrier).
 
 The kernel counts are set to 0 just before each request and read just after;
 K3's and K13's must equal the counts read before the two were rebuilt on
@@ -959,16 +963,55 @@ def block_read_path(block, x, rk, rv, ck, cv):
 
 
 MEGA_LEVELS = ((32, 2304, 640), (32, 576, 1280), (32, 9216, 320))  # the probe's own, mid, big
+MEGA_CHUNKS = (1, 2, 4, 8, 32)  # the chunk table: batch elements a pass of K14's phases
+
+
+def mega_split_text(ins, w) -> str:
+    """K14's device time by phase under its plan, from the %globaltimer
+    stamps block 0 writes after each of its grid barriers (one launch, not
+    counted as a path's: the counts are read before or reset after)."""
+    from mikudance_tpu_torch.kernels import _mega_plan
+    from mikudance_tpu_torch.kernels import mega_block as mb
+
+    plan = _mega_plan.mega_plan(*ins[0].shape)
+    stamps = torch.zeros(2 + _mega_plan.BARRIERS_PER_CHUNK * plan.chunks, dtype=torch.int64,
+                         device=ins[0].device)
+    mb.launch_planned(*ins, w, plan=plan, stamps=stamps)
+    split = mb.phase_split(stamps.cpu(), plan.chunks)
+    total = sum(split.values())
+    return (f"chunk {plan.chunk} x {plan.chunks}, {plan.barriers} barriers, scratch "
+            f"{plan.scratch_bytes / 2**20:.1f} MiB; by phase {total:.3f} ms: "
+            + ", ".join(f"{k} {v:.3f} ({100 * v / total:.0f}%)" for k, v in split.items()))
+
+
+def mega_chunk_table(ins, w, rounds: int = 2) -> str:
+    """K14's time at each chunk of ``MEGA_CHUNKS`` (capped at the batch),
+    the chunks in turns, forwards then backwards, ``rounds`` times; the
+    median of each chunk's readings."""
+    from mikudance_tpu_torch.kernels import _mega_plan
+    from mikudance_tpu_torch.kernels import mega_block as mb
+
+    B, S, C = ins[0].shape
+    plans = {c: _mega_plan.mega_plan(B, S, C, c) for c in sorted({min(c, B) for c in MEGA_CHUNKS})}
+    times = {c: [] for c in plans}
+    for r in range(rounds):
+        for c in (list(plans) if r % 2 == 0 else list(plans)[::-1]):
+            times[c].append(cuda_ms(lambda: mb.launch_planned(*ins, w, plan=plans[c]), 3))
+    return ", ".join(f"chunk {c} ({plans[c].barriers} barriers) "
+                     f"{float(np.median(times[c])):.3f} ms" for c in plans)
 
 
 def mega_cases(dev, only=()):
     """K14 at the probe's three levels; the control leaves the bank K/V out.
-    No single library call computes the block: the read path is timed beside."""
+    No single library call computes the block: the read path is timed beside.
+    Each level logs its phase split and the chunk table first."""
     from mikudance_tpu_torch.kernels import mega_block as mb
 
     for level in MEGA_LEVELS if wanted(mb.K14, only) else ():
         block, ins, w = mega_inputs(dev, level)
         x, rk, rv, ck, cv = ins
+        log(f"kernels: {mb.K14.name} x{level}: {mega_split_text(ins, w)}")
+        log(f"kernels: {mb.K14.name} x{level}: chunk table (in turns): {mega_chunk_table(ins, w)}")
         B, S, C = level
         FF, SC = 4 * C, mb.CTX_LEN
         flops = B * 2 * (4 * S * C * C + 2 * S * S * C + 2 * S * SC * C + 2 * S * C * C
@@ -1719,7 +1762,7 @@ def main() -> int:
                                  ("anchor_wg_kernel", "flash_cross_kernel", "flash_wide_kernel",
                                   "linear_kernel", "conv3x3_kernel", "short_attention_kernel",
                                   "gn_resident_kernel", "gn_stream_stats_kernel",
-                                  "gn_stream_apply_kernel", "ln_kernel")))
+                                  "gn_stream_apply_kernel", "ln_kernel", "mega_kernel")))
     log("kernels: " + "; ".join(f"{k.name} = {k.symbol} in {k.source}, replaces {k.replaces}"
                                 for k in kernels))
 
@@ -1880,6 +1923,7 @@ def main() -> int:
             f"stream; control without the bank K/V {rel_g_ctl:.3e})")
         check(rel_g < G_REL_L2 < rel_g_ctl, f"request G: {rel_g:.3e} and the control "
                                             f"{rel_g_ctl:.3e} on either side of {G_REL_L2}")
+        log(f"request G: K14 {mega_split_text(ins, w)}")
         del block, ins, w, out_g, want_g, zero
 
         return launches_f, launches_f_default, launches_s1, launches_g

@@ -1,5 +1,6 @@
 // The warpgroup GEMM core of the two GEMM-shaped kernels (K7 md_linear in
-// linear.cu, K8 md_conv3x3 in conv2d.cu), hand-written for Hopper (sm_90a).
+// linear.cu, K8 md_conv3x3 in conv2d.cu) and of the products inside the
+// mega-block K14 (mega_block.cu), hand-written for Hopper (sm_90a).
 //
 // Both compute a (rows x K) by (K x columns) product, bf16 in, fp32
 // accumulation, and differ only in where a row of the left operand comes
@@ -46,9 +47,12 @@
 // or 160 where one does, else 128 with the last column tile masked; the
 // wrapper picks (kernels/_gemm_plan.py::column_tile) and the entry point
 // instantiates.
-// Not here (ROADMAP S6): a persistent grid that overlaps one tile's epilogue
-// with the next tile's loads, multicast of the weight tile across a cluster
-// (which halves the L2 traffic of B).
+// The k loop's two halves (produce_tile, consume_tile) stand alone, with the
+// ring's position carried by the caller: K14's persistent kernel runs them
+// tile after tile under epilogues of its own, the producer already loading
+// the next tile while the consumers store this one.
+// Not here (ROADMAP S6): a persistent grid for K7 and K8, multicast of the
+// weight tile across a cluster (which halves the L2 traffic of B).
 //
 // The mbarrier, TMA, setmaxnreg, wgmma-fence and tensor-map helpers are
 // tma_wgmma.cuh's, which K10-K12 (flash_anchor_wg.cu) share.
@@ -76,13 +80,14 @@ constexpr int kProducerRegs = 40;      // 40 + 2 x 232 = 3 x 168, a quadrant's s
 constexpr int kConsumerRegs = 232;
 constexpr int kSmemLimit = 232448;     // dynamic shared memory a block may have
 
-// The plan of a tile width BN: wgmma's N (NW, at most 256) and the products a
-// k16 step takes to cover BN (NH: 2 at BN 320, else 1); the ring's stages (A,
-// then B), the barriers after them, then the tile's bias; the output staging
-// tile (rows padded by 8 bf16 against bank conflicts) reuses the ring.
-template <int BN>
+// The plan of a tile width BN: wgmma's N (NW, at most 256; by default 160 at
+// BN 320, else BN) and the products a k16 step takes to cover BN (NH = BN /
+// NW); the ring's stages (A, then B), the barriers after them, then the
+// tile's bias; the output staging tile (rows padded by 8 bf16 against bank
+// conflicts) reuses the ring.
+template <int BN, int NW_ = (BN > 256 ? BN / 2 : BN)>
 struct Plan {
-  static constexpr int NW = BN > 256 ? BN / 2 : BN;
+  static constexpr int NW = NW_;
   static constexpr int NH = BN / NW;
   static constexpr int a_bytes = BM * BK * 2;
   static constexpr int stage = a_bytes + BN * BK * 2;
@@ -237,6 +242,67 @@ __device__ __forceinline__ float bias_at(const void* bias, int bias_fp32, int n)
                    : __bfloat162float(static_cast<const bf16*>(bias)[n]);
 }
 
+// A ring of Plan<BN>'s stages in shared memory and its full / empty barriers
+// (shared addresses). Both sides count the k blocks they have passed through
+// it (`it`), so a persistent kernel carries the barriers' phases from one
+// tile to the next; a one-tile kernel starts both at 0.
+struct Ring {
+  uint32_t base, full0, empty0;
+};
+
+// The producer's half of a tile's k loop, one lane: k block kb of A and the
+// NH boxes of B, columns n0 + h NW, into the next stage once the consumers
+// have handed it back.
+template <int BN, int NW_ = Plan<BN>::NW, class Loader>
+__device__ __forceinline__ void produce_tile(const Loader& ld, const Ring& r, uint32_t& it,
+                                             int n0) {
+  using L = Plan<BN, NW_>;
+  constexpr int S = L::stages, NW = L::NW;
+  const int k_blocks = ld.k_blocks();
+  for (int kb = 0; kb < k_blocks; ++kb, ++it) {
+    const uint32_t s = it % S;
+    if (it >= S) mbar_wait(r.empty0 + 8 * s, (it / S - 1) & 1);
+    const uint32_t full = r.full0 + 8 * s, a = r.base + s * L::stage;
+    mbar_expect_tx(full, L::stage);
+    ld.load_a(kb, a, full);
+#pragma unroll
+    for (int h = 0; h < L::NH; ++h)
+      ld.load_b(kb, n0 + h * NW, a + L::a_bytes + h * NW * BK * 2, full);
+  }
+}
+
+// The consumers' half, each warpgroup wg (0 or 1) its 64 rows: acc[h] = the
+// tile's rows 64 wg + [0, 64) times B columns h NW + [0, NW), in the wgmma
+// accumulator layout; every stage is handed back, the last once its
+// products are done.
+template <int BN, int NW_ = Plan<BN>::NW>
+__device__ __forceinline__ void consume_tile(float (&acc)[Plan<BN, NW_>::NH][NW_ / 2],
+                                             const Ring& r, uint32_t& it, int k_blocks) {
+  using L = Plan<BN, NW_>;
+  constexpr int S = L::stages, NW = L::NW;
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  for (int kb = 0; kb < k_blocks; ++kb, ++it) {
+    const uint32_t s = it % S;
+    mbar_wait(r.full0 + 8 * s, (it / S) & 1);
+    const uint32_t a = r.base + s * L::stage + wg * 64 * 128;
+    const uint32_t b = r.base + s * L::stage + L::a_bytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int h = 0; h < L::NH; ++h)  // the first k16 step overwrites acc
+        wgmma_n<NW>(acc[h], desc128(a + 32 * kk), desc128(b + h * NW * BK * 2 + 32 * kk),
+                    kb > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // the products of the stage before are done: hand it back
+    if (kb > 0 && lane == 0) mbar_arrive(r.empty0 + 8 * ((it - 1) % S));
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int h = 0; h < L::NH; ++h) fence_regs(acc[h]);
+  if (k_blocks > 0 && lane == 0) mbar_arrive(r.empty0 + 8 * ((it - 1) % S));
+}
+
 // What the epilogue writes: y[row * cout + n] for the tile's columns
 // n0 + [0, BN), bias (bf16 or fp32, or null) and residual (or null) alike.
 struct Out {
@@ -283,16 +349,8 @@ __device__ __forceinline__ void gemm_tile(const Loader& ld, const Out& out) {
         bias_s[c] = out.n0 + c < out.cout ? bias_at(out.bias, out.bias_fp32, out.n0 + c) : 0.f;
       asm volatile("bar.arrive 1, 352;\n" ::: "memory");
     } else if (threadIdx.x == 256) {
-      for (int kb = 0; kb < k_blocks; ++kb) {
-        const int s = kb % S;
-        if (kb >= S) mbar_wait(empty0 + 8 * s, (kb / S - 1) & 1);
-        const uint32_t full = full0 + 8 * s, a = ring + s * L::stage;
-        mbar_expect_tx(full, L::stage);
-        ld.load_a(kb, a, full);
-#pragma unroll
-        for (int h = 0; h < NH; ++h)
-          ld.load_b(kb, out.n0 + h * NW, a + L::a_bytes + h * NW * BK * 2, full);
-      }
+      uint32_t it = 0;
+      produce_tile<BN>(ld, Ring{ring, full0, empty0}, it, out.n0);
     }
     return;
   }
@@ -300,25 +358,9 @@ __device__ __forceinline__ void gemm_tile(const Loader& ld, const Out& out) {
   // a consumer: warpgroup wg owns tile rows 64 wg + [0, 64)
   setmaxnreg_inc<kConsumerRegs>();
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
-  float acc[NH][NW / 2];  // the first k16 step overwrites it
-  for (int kb = 0; kb < k_blocks; ++kb) {
-    const int s = kb % S;
-    mbar_wait(full0 + 8 * s, (kb / S) & 1);
-    const uint32_t a = ring + s * L::stage + wg * 64 * 128, b = ring + s * L::stage + L::a_bytes;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-      for (int h = 0; h < NH; ++h)
-        wgmma_n<NW>(acc[h], desc128(a + 32 * kk), desc128(b + h * NW * BK * 2 + 32 * kk),
-                    kb > 0 || kk > 0);
-    wgmma_commit();
-    wgmma_wait<1>();  // the products of stage kb - 1 are done: hand it back
-    if (kb > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((kb - 1) % S));
-  }
-  wgmma_wait<0>();
-#pragma unroll
-  for (int h = 0; h < NH; ++h) fence_regs(acc[h]);
+  float acc[NH][NW / 2];
+  uint32_t it = 0;
+  consume_tile<BN>(acc, Ring{ring, full0, empty0}, it, k_blocks);
 
   // bias in fp32, one rounding, into this warpgroup's 64 staging rows; the
   // ring is free once both consumers are past their last product (and the

@@ -63,8 +63,8 @@ SIGNATURES = {
     # q, k, v, o, batch, seq, heads, head_dim, stream
     "md_flash_fullc_t": (P, P, P, P, I, I, I, I, P),
     # pointer table (inputs, weights, vectors, output, scratch, barrier), batch, seq,
-    # head_dim, context rows, real context rows, chunk, eps, stream
-    "md_mega_block": (P, I, I, I, I, I, I, F, P),
+    # head_dim, context rows, real context rows, chunk, eps, stamps, stream
+    "md_mega_block": (P, I, I, I, I, I, I, F, P, P),
     # error code -> message
     "md_error_string": (I,),
 }

@@ -16,17 +16,21 @@ version; a CUDA tensor launches the kernel or raises. The kernel takes bf16
 contiguous ``x``, ``rk``, ``rv`` (B, S, C) and ``ck``, ``cv`` (B, S_ctx, C) with
 8 heads of 40, 80 or 160 channels, bf16 weight matrices in ``nn.Linear``'s
 (out, in) layout and fp32 vectors. It is forward only (the probe has no
-gradient in the JAX package either).
+gradient in the JAX package either). The launch's chunk of batch elements
+is ``_mega_plan.mega_plan``'s; ``launch_planned`` takes a plan of the
+caller's and can have block 0 stamp the time after each phase, which
+``phase_split`` turns into milliseconds a phase.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
+from . import _mega_plan
 from ._build import CudaKernel
 
 K14 = CudaKernel(
@@ -39,11 +43,9 @@ HEADS = 8
 HEAD_DIMS = (40, 80, 160)  # the UNet's three widths: 320, 640, 1280 channels
 CTX_LEN = 257  # CLIP context tokens; the probe pads them to 320 rows and masks the rest
 NEG_INF = -1e30
-# Scratch the kernel may use for one chunk of batch elements: its phases hand
-# their (rows, C) intermediates to each other through it, and a chunk is sized
-# so that it stays about the size of the 50 MB L2 (never under one element).
-SCRATCH_BYTES = 48 * 1024 * 1024
-SCRATCH_BYTES_PER_VALUE = 22  # five bf16 (rows, C) buffers, the fp32 stream, bf16 (rows, 4C)
+# the phases of one chunk, in order; the kernel's barriers follow the first
+# ten, and the last phase of a chunk overlaps the next chunk's LN1
+PHASES = ("ln1", "qkv", "self", "out", "ln2", "cross_q", "cross", "out2", "ln3", "geglu", "down")
 # Upper bound on the fp32 score bytes one chunk of the plain version holds.
 PLAIN_SCORE_BYTES = 1 << 30
 MATRICES = ("wq", "wk", "wv", "wo", "wq2", "wo2", "w1", "w2")
@@ -158,18 +160,49 @@ def mega_block(x, rk, rv, ck, cv, w, ctx_len: int = CTX_LEN, heads: int = HEADS,
         return mega_block_plain(x, rk, rv, ck, cv, w, ctx_len, heads, eps)
     if x.device.type != "cuda":
         raise ValueError(f"mega_block: unsupported device {x.device}")
+    return launch_planned(x, rk, rv, ck, cv, w, ctx_len, heads, eps)
+
+
+def launch_planned(x, rk, rv, ck, cv, w, ctx_len: int = CTX_LEN, heads: int = HEADS,
+                   eps: float = 1e-5, plan: Optional[_mega_plan.MegaPlan] = None,
+                   stamps: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K14 on the CUDA tensors that ``mega_block`` takes, under ``plan``
+    (None: ``mega_plan``'s for the shapes). ``stamps``: None, or int64 room
+    for ``2 + 10 plan.chunks`` %globaltimer readings of block 0 (the start,
+    after each barrier, the end)."""
     hd = _check_operands(x, rk, rv, ck, cv, w, ctx_len, heads)
     B, S, C = x.shape
-    chunk = max(1, min(B, SCRATCH_BYTES // (S * C * SCRATCH_BYTES_PER_VALUE)))
-    rows = chunk * S
+    if plan is None:
+        plan = _mega_plan.mega_plan(B, S, C)
+    need = 2 + _mega_plan.BARRIERS_PER_CHUNK * plan.chunks
+    if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != x.device
+                               or stamps.numel() < need):
+        raise ValueError(f"mega_block: stamps need {need} int64 on x's device")
+    rows = plan.chunk * S
     out = torch.empty_like(x)
-    sizes = [rows * C * 2] * 5 + [rows * 4 * C * 2, rows * C * 4]  # nrm q k v a, act, xs
+    # nrm, then q k v a (which act, (rows, 4C), overlays), then the fp32 stream
+    sizes = [rows * C * 2] * 5 + [rows * C * 4]
     scratch = torch.empty(sum(sizes), dtype=torch.uint8, device=x.device)
     barrier = torch.empty(4, dtype=torch.int32, device=x.device)
-    offsets = [sum(sizes[:i]) for i in range(len(sizes))]
+    nrm, q, k, v, a, xs = (scratch.data_ptr() + sum(sizes[:i]) for i in range(len(sizes)))
     ptrs = ([t.data_ptr() for t in (x, rk, rv, ck, cv)] + [w[n].data_ptr() for n in MATRICES]
-            + [w[n].data_ptr() for n in VECTORS] + [out.data_ptr()]
-            + [scratch.data_ptr() + o for o in offsets] + [barrier.data_ptr()])
-    K14.launch((ctypes.c_void_p * len(ptrs))(*ptrs), B, S, hd, ck.shape[1], ctx_len, chunk, eps,
+            + [w[n].data_ptr() for n in VECTORS] + [out.data_ptr(), nrm, q, k, v, a, q, xs,
+                                                    barrier.data_ptr()])
+    K14.launch((ctypes.c_void_p * len(ptrs))(*ptrs), B, S, hd, ck.shape[1], ctx_len, plan.chunk,
+               eps, None if stamps is None else stamps.data_ptr(),
                torch.cuda.current_stream(x.device).cuda_stream)
+    return out
+
+
+def phase_split(stamps, chunks: int) -> Dict[str, float]:
+    """Milliseconds of device time a phase, summed over the chunks, from the
+    ``2 + 10 chunks`` nanosecond stamps of ``launch_planned``. The last phase
+    of a chunk and the next chunk's LN1 share one span, counted as ``down``."""
+    t = [int(v) for v in stamps[:2 + _mega_plan.BARRIERS_PER_CHUNK * chunks]]
+    spans = [(b - a) * 1e-6 for a, b in zip(t, t[1:])]
+    out = dict.fromkeys(PHASES, 0.0)
+    out["ln1"] = spans[0]
+    for c in range(chunks):
+        for i, name in enumerate(PHASES[1:]):
+            out[name] += spans[1 + _mega_plan.BARRIERS_PER_CHUNK * c + i]
     return out

@@ -1327,10 +1327,16 @@ def test_backward_through_each_wrapper_on_card(case, cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("level", [(3, 1155, 640), (5, 576, 1280), (2, 2304, 320)])
-def test_mega_block_matches_plain_on_card(level, cuda):
-    """K14 in one launch against its plain version, on ragged S, a chunked
-    batch and each head width; the bank left out must show."""
+@pytest.mark.parametrize("ctx_len", [257, 320])
+@pytest.mark.parametrize("level, chunk", [((3, 1155, 640), 0), ((3, 1155, 640), 2),
+                                          ((5, 576, 1280), 2), ((2, 2304, 320), 0),
+                                          ((3, 2304, 320), 2)])
+def test_mega_block_matches_plain_on_card(level, chunk, ctx_len, cuda):
+    """K14 in one launch against its plain version, on ragged S, each head
+    width, 257 and all 320 context rows real (one exact pass over them at
+    heads of 40 and 80, two at 160), the plan's chunk and a chunk of 2 whose
+    last pass is ragged; the bank left out must show."""
+    from mikudance_tpu_torch.kernels import _mega_plan
     from mikudance_tpu_torch.kernels import mega_block as mb
 
     B, S, C = level
@@ -1348,15 +1354,24 @@ def test_mega_block_matches_plain_on_card(level, cuda):
 
     x, rk, rv = r(B, S, C, scale=0.1), r(B, S, C, scale=0.5), r(B, S, C, scale=0.5)
     ck, cv = (torch.zeros(B, 320, C, dtype=torch.bfloat16, device=cuda) for _ in range(2))
-    ck[:, :257], cv[:, :257] = r(B, 257, C, scale=0.5), r(B, 257, C, scale=0.5)
+    ck[:, :ctx_len], cv[:, :ctx_len] = r(B, ctx_len, C, scale=0.5), r(B, ctx_len, C, scale=0.5)
+    plan = _mega_plan.mega_plan(B, S, C, chunk)
+    if chunk:
+        assert B % plan.chunk  # the last pass is ragged
+
+    def run():
+        if not chunk:
+            return mb.mega_block(x, rk, rv, ck, cv, w, ctx_len)
+        return mb.launch_planned(x, rk, rv, ck, cv, w, ctx_len, plan=plan)
+
     before = mb.K14.launches
-    out = mb.mega_block(x, rk, rv, ck, cv, w)
+    out = run()
     torch.cuda.synchronize()
     assert mb.K14.launches == before + 1
-    want = mb.mega_block_plain(x, rk, rv, ck, cv, w)
+    want = mb.mega_block_plain(x, rk, rv, ck, cv, w, ctx_len)
     torch.testing.assert_close(out.float(), want.float(), atol=ATOL, rtol=RTOL)
     rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()  # noqa: E731
     assert rel(out, want) < 1e-2
     zero = torch.zeros_like(rk)
-    assert rel(mb.mega_block_plain(x, zero, zero, ck, cv, w), want) > 1e-2
-    assert torch.equal(out, mb.mega_block(x, rk, rv, ck, cv, w))  # no atomics in the data path
+    assert rel(mb.mega_block_plain(x, zero, zero, ck, cv, w, ctx_len), want) > 1e-2
+    assert torch.equal(out, run())  # no atomics in the data path
