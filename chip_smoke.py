@@ -8,6 +8,8 @@
     python3 chip_smoke.py --train     # phases 1-2, then requests F and G alone
     python3 chip_smoke.py --train --profile   # one request-F train step under the profiler
     python3 chip_smoke.py --request-h   # phases 1-2, then request H alone
+    python3 chip_smoke.py --request-i   # phases 1-2, then request I (the toolbox) alone
+    python3 chip_smoke.py --request-i --profile   # ... with UniPose's device time by part
 
 Phases, in order, one line each; any failure exits non-zero:
 
@@ -90,7 +92,27 @@ Phases, in order, one line each; any failure exits non-zero:
     ``row_major()`` (K10 at heads of 160, K11 at 40 and 80, K8 at 1024^2), the
     launches' shape arguments recorded; the row-major latents held to the
     default ones as request E's are (control: the bank K/V left out);
-14. request F, training: ``scripts.train_stage2.main`` on synthetic batches at
+14. request I, the toolbox's networks (stock PyTorch ops, fp32, random seeded
+    weights; no kernel of K1-K14 may launch): UniPose-SwinT on bench.py's
+    XPose batch (10 frames at 800^2, 4 instance slots, 68 keypoints, 900
+    queries), median seconds of 3 forwards after a warm-up, peak memory,
+    shapes and finite outputs; the video driver's ``Detector.detect`` on a
+    10-frame 720 x 1280 clip at its resize (800 x 1408, one frame a forward)
+    for the person, face and hand vocabularies, seconds per frame and per
+    vocabulary, keypoints finite; one 384^2 frame on the card and on the CPU,
+    the encoder memory held to 1e-4 (control: the level embedding left out)
+    and the outputs to 1e-3 where the selected top-900 / top-50 indices
+    agree (their counts logged); DPT-hybrid at its full geometry on one
+    384^2 picture, card against CPU, depth and the ViT's last hidden state
+    to 1e-3 (control: the ViT's LayerNorm eps at 1e-5), and the depth
+    driver's ``run_depth`` (fp32 whatever the process sets) timed and held
+    to the same limit; with cuDNN's TF32 convolutions, which neither driver
+    runs, UniPose's and DPT's distance from the CPU is logged; CLIP-text at
+    ViT-B/32 widths on 72 prompts of 77 ids, 1e-4 (control: the erf GELU for
+    quick_gelu); the deformable-attention op at the 800^2 encoder's shapes
+    against the port's C++ kernel on the CPU, max abs 1e-5 (control: the
+    value's channels shifted by one);
+15. request F, training: ``scripts.train_stage2.main`` on synthetic batches at
     the reference's geometry (20 frames at 576^2, batch 1, SD1.5 widths, MAN
     and motion modules on, bf16 with fp32 master copies, remat on), three
     optimizer steps in the default configuration (K1) and three inside
@@ -104,7 +126,7 @@ Phases, in order, one line each; any failure exits non-zero:
     the kernels and with every wrapper forced to its plain version, loss and
     gradients held to one another (control: the conditioning dropped); then
     two ``train_stage1`` steps at 768^2 (batch cut from 8 to 1).
-15. request G: the mega-block probe K14 at (32, 2304, 640) in one launch
+16. request G: the mega-block probe K14 at (32, 2304, 640) in one launch
     against the port's ``TransformerBlock`` read path on the same weights,
     both timed (control: the bank K/V left out), and K14's device time by
     phase (block 0's %globaltimer stamps after each grid barrier).
@@ -246,6 +268,41 @@ K3_K13_LAUNCHES = {"request A": (840, 0), "request B": (840, 0), "image request"
                    "request F (default)": (378, 0), "request F (transposed)": (378, 0),
                    "stage-1 steps": (0, 0)}
 
+
+# Request I: the toolbox's networks, fp32 with random seeded weights, as the
+# tool wrappers run them. UniPose: bench.py's XPose batch (10 frames at
+# 800^2, 4 instance slots, 68 keypoint slots; no driver runs this batch), the
+# median of 3 timed forwards after a warm-up; one frame at 384^2 on the card
+# and on the CPU, whose encoder memory (before the top-k) and outputs (where
+# the selected indices agree) are held to one another.
+I_FRAMES, I_SIZE, I_N_TXT, I_K, I_RUNS = 10, 800, 4, 68, 3
+# The XPose video driver's own entry point, ``Detector.detect``, as it runs a
+# clip: a 9:16 portrait dance clip of 720 x 1280 at the driver's resize (short
+# side 800, dims rounded to /32: 800 x 1408), one frame a forward, the
+# person, face and hand vocabularies in turn, each encoding its prompts with
+# CLIP-text and reading every frame's outputs back for postprocess and NMS.
+I_CLIP_FRAMES, I_CLIP_SOURCE = 10, (720, 1280)
+I_CHECK_SIZE = 384
+I_MEMORY_REL_L2 = 1e-4
+I_OUTPUT_REL_L2 = 1e-3
+# DPT-hybrid at its full geometry: the depth and the ViT encoder's last hidden
+# state, card against CPU. The BiT features feed the neck directly, so at
+# random weights the depth hardly depends on the ViT's LayerNorm eps (the
+# control: 1e-5 for 1e-12); the ViT's residual stream (patch projection,
+# position and class embeddings, the two output projections of each layer)
+# is drawn at I_VIT_SCALE of the default init, where the eps does matter.
+I_DPT_REL_L2 = 1e-3
+I_VIT_SCALE = 1e-2
+# CLIP-text at ViT-B/32 widths: 72 prompts of 77 seeded ids with one EOT id
+# each (control: quick_gelu read as the erf GELU).
+I_CLIP_PROMPTS, I_CLIP_REL_L2, I_EOT = 72, 1e-4, 49407
+# Deformable attention at the 800^2 encoder's shapes (Swin strides 8-64:
+# 100^2, 50^2, 25^2, 13^2 = 13294 queries, 7 chunks of 2048; 8 heads of 32,
+# 4 points), on the inputs UniPose's first encoder layer gives it, on the
+# card against the port's C++ kernel on the CPU (control: the value's
+# channels shifted by one).
+I_LEVELS = ((100, 100), (50, 50), (25, 25), (13, 13))
+I_DEFORM_ATOL = 1e-5
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -1323,24 +1380,26 @@ PROFILE_CATEGORIES = [
                                 "anchor_wg_kernel<160, 10>")),
     ("K11 anchored attention", ("anchor_wg_kernel<40, 11>", "anchor_wg_kernel<80, 11>",
                                 "anchor_wg_kernel<160, 11>")),
+    # cuDNN's FFT algorithm (its transforms and gemvx products) before the
+    # other convolutions, whose names it shares
+    ("FFT convolution (cuDNN)", ("fft", "gemvx", "region_transform")),
     ("conv (cuDNN)", ("fprop", "conv", "implicit_gemm", "cudnn", "nhwc")),
-    ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "Kernel2")),
-    ("softmax (plain attention)", ("softmax",)),
-    ("reduce (instance-norm statistics, sums)", ("reduce_kernel",)),
-    ("elementwise / copies", ("elementwise", "vectorized", "copy", "Cat", "index", "fill")),
+    ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "Kernel2", "sm90_xmma", "dot")),
+    ("deformable sampling (grid_sample)", ("grid_sampler",)),
+    ("softmax", ("softmax",)),
+    ("norms (LayerNorm, GroupNorm)", ("layer_norm", "group_norm", "LayerNorm", "GroupNorm")),
+    ("sort (top-k)", ("sort", "Sort", "radix")),
+    ("reduce (norm statistics, sums)", ("reduce_kernel",)),
+    ("elementwise / copies", ("elementwise", "vectorized", "copy", "Cat", "index", "fill",
+                              "gather", "roll", "where")),
 ]
 
 
-def profile_request(run, steps: int):
-    """``run(steps)`` (one request, returning its Timer) under torch.profiler:
-    (wall s, phases, ms by category, [(ms, calls, kernel name)] sorted by time)."""
+def device_ms(prof):
+    """A torch.profiler run's device milliseconds by PROFILE_CATEGORIES and
+    [(ms, calls, kernel name)] sorted by time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        timer = run(steps)
-        wall = time.perf_counter() - t0
     sums, top = defaultdict(float), []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
@@ -1350,7 +1409,19 @@ def profile_request(run, steps: int):
                    "other")
         sums[cat] += ms
         top.append((ms, e.count, e.key))
-    return wall, timer.phases, sums, sorted(top, reverse=True)
+    return sums, sorted(top, reverse=True)
+
+
+def profile_request(run, steps: int):
+    """``run(steps)`` (one request, returning its Timer) under torch.profiler:
+    (wall s, phases, ms by category, [(ms, calls, kernel name)] sorted by time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        timer = run(steps)
+        wall = time.perf_counter() - t0
+    return (wall, timer.phases) + device_ms(prof)
 
 
 def log_profile(name: str, steps: int, res) -> None:
@@ -1670,6 +1741,422 @@ def check_video(frames, latents, n_frames: int, what: str, height: int = H,
           and bool(torch.isfinite(latents).all()), f"{what}: latents {tuple(latents.shape)} finite")
 
 
+def seeded_fp32(seed: int, make):
+    """``make()`` on the CPU under PyTorch's default init and a seed, every
+    tensor that starts at zero refilled with seeded N(0, 1e-2); fp32, eval."""
+    torch.manual_seed(seed)
+    module = make()
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for p in module.parameters():
+            if p.is_floating_point() and not p.any():
+                p.normal_(0.0, 1e-2, generator=g)
+    return module.eval()
+
+
+def unipose_inputs(seed: int, frames: int, size: int, real_tokens: int, real_points: int,
+                   width: int | None = None):
+    """Normalized frames of ``size`` x ``width`` (square by default),
+    CLIP-width instance and keypoint embeddings, the instance slots' mask and
+    the keypoint slots' visibility (bench.py's XPose case at ``real_tokens =
+    4, real_points = 68``)."""
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((frames, I_N_TXT), bool)
+    mask[:, :real_tokens] = True
+    vis = np.zeros((frames, I_K), np.float32)
+    vis[:, :real_points] = 1.0
+    return tuple(torch.from_numpy(a) for a in (
+        rng.normal(0, 1, (frames, size, width or size, 3)).astype(np.float32),
+        rng.normal(0, 1, (frames, I_N_TXT, 512)).astype(np.float32), mask,
+        rng.normal(0, 1, (frames, I_K, 512)).astype(np.float32), vis))
+
+
+def kernel_categories(fn) -> dict:
+    """Device milliseconds of one ``fn()`` by kernel category (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return dict(device_ms(prof)[0])
+
+
+def unipose_split_ms(model, inputs, reps: int = 3) -> dict:
+    """Device milliseconds of one forward's Swin backbone, the rest of the
+    encoder (input projections, fusion, text and deformable layers) and the
+    decoder (query selection included): CUDA events, median of ``reps``."""
+    img, obj, mask, kpt, vis = inputs
+    ev = {k: torch.cuda.Event(enable_timing=True) for k in ("start", "swin0", "swin1", "enc",
+                                                             "dec")}
+    swin = model.backbone[0]
+    hooks = [swin.register_forward_pre_hook(lambda m, a: ev["swin0"].record()),
+             swin.register_forward_hook(lambda m, a, o: ev["swin1"].record())]
+    rows = []
+    try:
+        for _ in range(reps):
+            ev["start"].record()
+            memory, txt, shapes = model.encode(img, obj, mask)
+            ev["enc"].record()
+            model.decode(memory, txt, shapes, mask, kpt, vis)
+            ev["dec"].record()
+            torch.cuda.synchronize()
+            t_swin = ev["swin0"].elapsed_time(ev["swin1"])
+            rows.append((t_swin, ev["start"].elapsed_time(ev["enc"]) - t_swin,
+                         ev["enc"].elapsed_time(ev["dec"])))
+    finally:
+        for h in hooks:
+            h.remove()
+    return dict(zip(("Swin", "encoder", "decoder"), np.median(np.array(rows), axis=0)))
+
+
+class StubTokenizer:
+    """Stands in for ``CLIPTokenizer`` (no tokenizer files are in the repo):
+    ids from each prompt's characters, then the EOT id (the largest) as
+    padding to 77."""
+
+    def __call__(self, prompts, padding, max_length, return_tensors):
+        rows = [[ord(c) for c in p][: max_length - 1] for p in prompts]
+        return {"input_ids": np.array([r + [I_EOT] * (max_length - len(r)) for r in rows])}
+
+
+def detect_clip(det, frames, vocabs) -> dict:
+    """``det.detect`` over ``frames`` for each vocabulary, as the video
+    driver calls it (its default thresholds): {vocabulary: (wall s, device s
+    of the UniPose forwards (CUDA events), per-frame keypoints)}."""
+    model, pairs = det.model, []
+
+    def timed(*a):
+        pairs.append((torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)))
+        pairs[-1][0].record()
+        res = model(*a)
+        pairs[-1][1].record()
+        return res
+
+    out = {}
+    det.model = timed
+    try:
+        for vocab, names in vocabs.items():
+            pairs.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            kpts = det.detect(frames, vocab, names, box_threshold=0.2, iou_threshold=0.4)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out[vocab] = (wall, sum(a.elapsed_time(b) for a, b in pairs) / 1e3, kpts)
+    finally:
+        det.model = model
+    return out
+
+
+@contextlib.contextmanager
+def tf32_convolutions():
+    """cuDNN convolutions with TF32 allowed (PyTorch's default, which phase 1
+    turns off for the fp32 comparisons), restored after."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def request_i(dev, profile: bool = False) -> dict:
+    """Request I: the toolbox's networks on the card, stock PyTorch ops (no
+    kernel of K1-K14 is on this path, as in the JAX package). UniPose on
+    bench.py's 10 x 800^2 batch and through the video driver's ``Detector``
+    on a clip, then one 384^2 frame, DPT-hybrid, CLIP-text and the
+    deformable-attention op each held to the port's own CPU run, each with a
+    control the limit must reject. Returns the readings."""
+    import copy
+
+    from mikudance_tpu_torch.toolbox import clip_text, dpt, native, unipose
+    from mikudance_tpu_torch.toolbox.deformable import ms_deform_attn
+    from mikudance_tpu_torch.toolbox.unipose import UniPose
+    from mikudance_tpu_torch.tools import depth_from_image as depth_tool
+    from mikudance_tpu_torch.tools import inference_xpose_on_video as video_driver
+
+    out: dict = {}
+    with torch.inference_mode():
+        # 1. UniPose, 10 frames at 800^2
+        t0 = time.perf_counter()
+        model = seeded_fp32(21, UniPose)
+        card = copy.deepcopy(model).to(dev)
+        log(f"request I: UniPose-SwinT (hidden 256, 6 + 6 layers, 900 queries, 68 points), "
+            f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters, fp32, "
+            f"built in {time.perf_counter() - t0:.1f} s")
+        inputs = [x.to(dev) for x in unipose_inputs(22, I_FRAMES, I_SIZE, I_N_TXT, I_K)]
+        # the warm-up keeps the first deformable-attention call's inputs (the
+        # first encoder layer's, first frame) for the op's own check below
+        captured = []
+
+        def spy(value, levels, loc, weights, q_chunk=None):
+            if not captured:
+                captured.append((value[:1].clone(), list(levels), loc[:1].clone(),
+                                 weights[:1].clone()))
+            return ms_deform_attn(value, levels, loc, weights, q_chunk)
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        unipose.ms_deform_attn = spy
+        try:
+            t0 = time.perf_counter()
+            res = card(*inputs)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+        finally:
+            unipose.ms_deform_attn = ms_deform_attn
+        times = []
+        for _ in range(I_RUNS):
+            t0 = time.perf_counter()
+            res = card(*inputs)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        G = card.num_groups
+        shapes = {k: tuple(res[k].shape) for k in ("pred_logits", "pred_boxes", "pred_keypoints")}
+        check(shapes == {"pred_logits": (I_FRAMES, G, I_N_TXT), "pred_boxes": (I_FRAMES, G, 4),
+                         "pred_keypoints": (I_FRAMES, G, 3 * I_K)},
+              f"request I: UniPose output shapes {shapes}")
+        check(all(bool(torch.isfinite(res[k]).all()) for k in shapes),
+              "request I: UniPose outputs finite")
+        out["unipose_s"] = float(np.median(times))
+        out["unipose_peak_gib"] = peak
+        log(f"request I: UniPose {I_FRAMES}x{I_SIZE}x{I_SIZE}: {out['unipose_s']:.4f} s per "
+            f"{I_FRAMES}-frame forward (median of {I_RUNS}: "
+            f"{' '.join(f'{t:.4f}' for t in times)}; first call {first:.3f} s) | peak "
+            f"{peak:.2f} GiB | shapes {shapes}, finite")
+        if profile:
+            split = unipose_split_ms(card, inputs)
+            cats = kernel_categories(lambda: card(*inputs))
+            busy = sum(cats.values())
+            log(f"request I, profile: UniPose {I_FRAMES}x{I_SIZE}^2 device ms by part (events, "
+                f"median of 3): " + ", ".join(f"{k} {v:.1f}" for k, v in split.items()))
+            log(f"request I, profile: kernel time {busy:.1f} ms by category: " + ", ".join(
+                f"{k} {v:.1f} ms ({v / busy:.1%})" for k, v in
+                sorted(cats.items(), key=lambda kv: -kv[1])))
+            out["unipose_split_ms"] = split
+            out["unipose_categories_ms"] = cats
+        del res, inputs
+        torch.cuda.empty_cache()
+
+        # 1b. the video driver's Detector on a clip at its resize, each vocabulary
+        text = seeded_fp32(41, clip_text.CLIPTextEncoder)
+        text_card = copy.deepcopy(text).to(dev)
+        det = video_driver.Detector(card, text_card, StubTokenizer(), dev)
+        w, h = video_driver.resized_size(*I_CLIP_SOURCE)
+        frames = np.random.default_rng(24).random((I_CLIP_FRAMES, h, w, 3), np.float32)
+        vocabs = {v: names for v, (names, _) in video_driver.VOCABS.items()}
+        torch.cuda.reset_peak_memory_stats(dev)
+        # under PyTorch's default of TF32 convolutions, as a user's process
+        # has it: the driver turns them off around UniPose itself
+        with tf32_convolutions():
+            detect_clip(det, frames[:1], {"person": vocabs["person"]})  # warm-up
+            runs = detect_clip(det, frames, vocabs)
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        for vocab, (wall, fwd, kpts) in runs.items():
+            n = len(vocabs[vocab])
+            check(len(kpts) == I_CLIP_FRAMES and all(
+                k.ndim == 3 and k.shape[1:] == (n, 2) and np.isfinite(k).all()
+                for k in kpts), f"request I: Detector '{vocab}' keypoints per frame")
+        total = sum(r[0] for r in runs.values())
+        log(f"request I: the video driver's Detector.detect, {I_CLIP_FRAMES} frames of "
+            f"{I_CLIP_SOURCE[0]}x{I_CLIP_SOURCE[1]} at its resize {w}x{h}, one frame a forward: "
+            f"{total:.4f} s for the three vocabularies, {total / I_CLIP_FRAMES:.4f} s per frame "
+            f"of video, peak {peak:.2f} GiB | " + ", ".join(
+                f"{v} {r[0]:.4f} s ({r[0] / I_CLIP_FRAMES:.4f} s a frame, UniPose forwards "
+                f"{r[1]:.4f} s on the device, {np.mean([len(k) for k in r[2]]):.1f} "
+                f"detections a frame)" for v, r in runs.items()))
+        out.update(detect_s_per_frame=total / I_CLIP_FRAMES, detect_peak_gib=peak,
+                   detect_by_vocabulary_s={v: r[0] for v, r in runs.items()})
+        if profile:  # one driver frame, its forward alone
+            one = [x.to(dev) for x in unipose_inputs(25, 1, h, 1, 17, width=w)]
+            split = unipose_split_ms(card, one)
+            cats = kernel_categories(lambda: card(*one))
+            log(f"request I, profile: UniPose 1x{h}x{w} (a driver frame) device ms by part "
+                f"(events, median of 3): " + ", ".join(f"{k} {v:.1f}" for k, v in split.items())
+                + f"; kernel time {sum(cats.values()):.1f} ms by category: " + ", ".join(
+                    f"{k} {v:.1f} ms" for k, v in sorted(cats.items(), key=lambda kv: -kv[1])))
+            out["detect_frame_split_ms"] = split
+            out["detect_frame_categories_ms"] = cats
+            del one
+        del det, frames
+        torch.cuda.empty_cache()
+
+        # 2. UniPose, one 384^2 frame on the card and on the CPU
+        small = unipose_inputs(23, 1, I_CHECK_SIZE, 2, 17)
+        small_dev = [x.to(dev) for x in small]
+        img, obj, mask, kpt, vis = small
+        t0 = time.perf_counter()
+        mem_c, txt_c, levels = model.encode(img, obj, mask)
+        res_c = model.decode(mem_c, txt_c, levels, mask, kpt, vis)
+        cpu_s = time.perf_counter() - t0
+        mem_g, txt_g, _ = card.encode(*small_dev[:3])
+        res_g = card.decode(mem_g, txt_g, levels, *small_dev[2:])
+        level_embed = card.transformer.level_embed
+        saved = level_embed.clone()
+        level_embed.zero_()
+        mem_x = card.encode(*small_dev[:3])[0]
+        level_embed.copy_(saved)
+        rel_mem, rel_mem_ctl = rel_l2(mem_g.cpu(), mem_c), rel_l2(mem_x.cpu(), mem_c)
+        q_c, q_g = res_c["query_indices"][0], res_g["query_indices"][0].cpu()
+        g_c, g_g = res_c["group_indices"][0], res_g["group_indices"][0].cpu()
+        same_q = len(set(q_c.tolist()) & set(q_g.tolist()))
+        rows = g_c == g_g
+        rels = {k: rel_l2(res_g[k][0].cpu()[rows][..., sl], res_c[k][0][rows][..., sl])
+                for k, sl in (("pred_boxes", slice(None)), ("pred_keypoints", slice(None)),
+                              ("pred_logits", slice(0, 2)))}
+        log(f"request I: UniPose 1x{I_CHECK_SIZE}^2, card against CPU ({cpu_s:.2f} s there): "
+            f"encoder memory relative L2 {rel_mem:.3e} (limit {I_MEMORY_REL_L2}; control "
+            f"without the level embedding {rel_mem_ctl:.3e}) | top-{card.num_queries} indices "
+            f"shared {same_q} of {card.num_queries} | top-{card.num_groups} in the same place "
+            f"{int(rows.sum())} of {card.num_groups} | outputs there, relative L2 "
+            + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+            + f" (limit {I_OUTPUT_REL_L2}; logits of the 2 real tokens)")
+        check(rel_mem < I_MEMORY_REL_L2 < rel_mem_ctl,
+              f"request I: UniPose memory {rel_mem:.3e} and the control {rel_mem_ctl:.3e} on "
+              f"either side of {I_MEMORY_REL_L2}")
+        check(bool(rows.any()) and max(rels.values()) < I_OUTPUT_REL_L2,
+              f"request I: UniPose outputs {rels} where {int(rows.sum())} groups agree")
+        with tf32_convolutions():
+            mem_t, txt_t, _ = card.encode(*small_dev[:3])
+            res_t = card.decode(mem_t, txt_t, levels, *small_dev[2:])
+        rows_t = g_c == res_t["group_indices"][0].cpu()
+        rels_t = {k: rel_l2(res_t[k][0].cpu()[rows_t][..., sl], res_c[k][0][rows_t][..., sl])
+                  for k, sl in (("pred_boxes", slice(None)), ("pred_keypoints", slice(None)),
+                                ("pred_logits", slice(0, 2)))}
+        log(f"request I: UniPose 1x{I_CHECK_SIZE}^2 with cuDNN's TF32 convolutions (no driver's "
+            f"path), card against CPU: encoder memory {rel_l2(mem_t.cpu(), mem_c):.3e}, top-900 shared "
+            f"{len(set(q_c.tolist()) & set(res_t['query_indices'][0].cpu().tolist()))}, top-50 "
+            f"in place {int(rows_t.sum())}, outputs " + ", ".join(
+                f"{k} {v:.3e}" for k, v in rels_t.items()))
+        out.update(unipose_memory_rel_l2=rel_mem, unipose_memory_control=rel_mem_ctl,
+                   unipose_top_queries_shared=same_q, unipose_groups_agreeing=int(rows.sum()),
+                   unipose_output_rel_l2=rels)
+        del model, card, mem_g, mem_x, res_g, mem_t, res_t, small_dev
+        torch.cuda.empty_cache()
+
+        # 3. DPT-hybrid, one reference picture at 384^2
+        depth_model = seeded_fp32(31, dpt.DPTHybridDepth)
+        emb = depth_model.dpt.embeddings
+        for p in [emb.projection.weight, emb.projection.bias, emb.position_embeddings,
+                  emb.cls_token] + [t for layer in depth_model.dpt.encoder.layer
+                                    for lin in (layer.attention.output.dense, layer.output.dense)
+                                    for t in (lin.weight, lin.bias)]:
+            p.mul_(I_VIT_SCALE)  # the ViT's residual stream (see I_VIT_SCALE)
+        rng = np.random.default_rng(32)
+        picture = rng.integers(0, 256, (dpt.IMAGE_SIZE, dpt.IMAGE_SIZE, 3)).astype(np.float32)
+        pixels = torch.from_numpy((picture / 255.0 - dpt.IMAGE_MEAN) / dpt.IMAGE_STD)[None]
+
+        def with_tap(m, x):
+            taps = []
+            hook = m.dpt.encoder.layer[-1].register_forward_hook(lambda *a: taps.append(a[2]))
+            try:
+                return m(x), taps[0]
+            finally:
+                hook.remove()
+
+        t0 = time.perf_counter()
+        depth_c, tap_c = with_tap(depth_model, pixels)
+        cpu_s = time.perf_counter() - t0
+        depth_card = copy.deepcopy(depth_model).to(dev)
+        pixels_dev = pixels.to(dev)
+        depth_g, tap_g = with_tap(depth_card, pixels_dev)
+        # the depth driver's run_depth under PyTorch's default of TF32
+        # convolutions, as a user's process has it (the driver turns them off
+        # around the network), held to the CPU; the module alone with TF32 on
+        # for comparison, not on any driver's path
+        with tf32_convolutions():
+            depth_drv = torch.from_numpy(depth_tool.run_depth(depth_card, pixels_dev))[None]
+            dpt_ms = cuda_ms(lambda: depth_tool.run_depth(depth_card, pixels_dev), 3)
+            dpt_tf32_ms = cuda_ms(lambda: depth_card(pixels_dev), 3)
+            depth_t, tap_t = with_tap(depth_card, pixels_dev)
+        rel_drv = rel_l2(depth_drv, depth_c)
+        log(f"request I: DPT with cuDNN's TF32 convolutions (no driver's path), card against "
+            f"CPU: relative L2 of the depth {rel_l2(depth_t.cpu(), depth_c):.3e}, of the hidden "
+            f"state {rel_l2(tap_t.cpu(), tap_c):.3e}; {dpt_tf32_ms / 1e3:.4f} s per image")
+        if profile:
+            for what, context in (("TF32 off", contextlib.nullcontext),
+                                  ("cuDNN TF32 on", tf32_convolutions)):
+                with context():
+                    cats = kernel_categories(lambda: depth_card(pixels_dev))
+                log(f"request I, profile: DPT 1x{dpt.IMAGE_SIZE}^2, {what}: kernel time "
+                    f"{sum(cats.values()):.1f} ms: " + ", ".join(
+                        f"{k} {v:.1f} ms" for k, v in sorted(cats.items(), key=lambda kv: -kv[1])))
+                out[f"dpt_categories_ms ({what})"] = cats
+        for layer in depth_card.dpt.encoder.layer:
+            layer.layernorm_before.eps = layer.layernorm_after.eps = 1e-5
+        depth_x, tap_x = with_tap(depth_card, pixels_dev)
+        rel = max(rel_l2(depth_g.cpu(), depth_c), rel_l2(tap_g.cpu(), tap_c))
+        rel_ctl = max(rel_l2(depth_x.cpu(), depth_c), rel_l2(tap_x.cpu(), tap_c))
+        check(tuple(depth_g.shape) == (1, dpt.IMAGE_SIZE, dpt.IMAGE_SIZE)
+              and bool(torch.isfinite(depth_g).all()), "request I: DPT depth shape, finite")
+        log(f"request I: DPT-hybrid 1x{dpt.IMAGE_SIZE}^2, full geometry: {dpt_ms / 1e3:.4f} s per "
+            f"image through the depth driver's run_depth (fp32, median of 3; {cpu_s:.2f} s on "
+            f"the CPU) | card against CPU, relative L2 of the driver's depth {rel_drv:.3e}, of "
+            f"the module's depth {rel_l2(depth_g.cpu(), depth_c):.3e} and of the ViT's last "
+            f"hidden state {rel_l2(tap_g.cpu(), tap_c):.3e} (limit {I_DPT_REL_L2}; control with "
+            f"the ViT LayerNorm eps at 1e-5: depth {rel_l2(depth_x.cpu(), depth_c):.3e}, hidden "
+            f"state {rel_l2(tap_x.cpu(), tap_c):.3e})")
+        check(max(rel, rel_drv) < I_DPT_REL_L2 < rel_ctl,
+              f"request I: DPT {rel:.3e} (the driver's {rel_drv:.3e}) and the control "
+              f"{rel_ctl:.3e} on either side of {I_DPT_REL_L2}")
+        out.update(dpt_s=dpt_ms / 1e3, dpt_tf32_conv_s=dpt_tf32_ms / 1e3, dpt_rel_l2=rel,
+                   dpt_driver_rel_l2=rel_drv, dpt_control=rel_ctl)
+        del depth_model, depth_card, depth_g, tap_g, depth_x, tap_x, depth_t, tap_t
+        torch.cuda.empty_cache()
+
+        # 4. CLIP-text, ViT-B/32 widths
+        rng = np.random.default_rng(42)
+        ids = rng.integers(0, I_EOT, (I_CLIP_PROMPTS, 77))
+        ids[np.arange(I_CLIP_PROMPTS), rng.integers(1, 77, I_CLIP_PROMPTS)] = I_EOT
+        ids = torch.from_numpy(ids)
+        emb_c = text(ids)
+        ids_dev = ids.to(dev)
+        emb_g = text_card(ids_dev)
+        clip_ms = cuda_ms(lambda: text_card(ids_dev), 3)
+        quick_gelu = clip_text.quick_gelu
+        clip_text.quick_gelu = torch.nn.functional.gelu
+        try:
+            emb_x = text_card(ids_dev)
+        finally:
+            clip_text.quick_gelu = quick_gelu
+        rel, rel_ctl = rel_l2(emb_g.cpu(), emb_c), rel_l2(emb_x.cpu(), emb_c)
+        log(f"request I: CLIP-text {I_CLIP_PROMPTS} prompts x 77 tokens (12 layers, 512 wide): "
+            f"{clip_ms:.3f} ms on the card (median of 3) | card against CPU, relative L2 "
+            f"{rel:.3e} (limit {I_CLIP_REL_L2}; control with the erf GELU for quick_gelu "
+            f"{rel_ctl:.3e})")
+        check(tuple(emb_g.shape) == (I_CLIP_PROMPTS, 512) and rel < I_CLIP_REL_L2 < rel_ctl,
+              f"request I: CLIP-text {rel:.3e} and the control {rel_ctl:.3e} on either side of "
+              f"{I_CLIP_REL_L2}")
+        out.update(clip_ms=clip_ms, clip_rel_l2=rel, clip_control=rel_ctl)
+        del text, text_card
+
+        # 5. deformable attention at the 800^2 encoder's shapes, on the inputs
+        # UniPose's first encoder layer gave it for the first frame above
+        v, levels, l, w = captured[0]
+        S, heads, head_dim = v.shape[1:]
+        points = l.shape[4]
+        check(levels == list(I_LEVELS), f"request I: the encoder's levels {levels}")
+        t0 = time.perf_counter()
+        want = native.ms_deform_attn_cpu(v.cpu().numpy(), levels, l.cpu().numpy(),
+                                         w.cpu().numpy())
+        cpp_s = time.perf_counter() - t0
+        got = ms_deform_attn(v, levels, l, w).cpu().numpy()
+        deform_ms = cuda_ms(lambda: ms_deform_attn(v, levels, l, w), 5)
+        ctl = ms_deform_attn(v.roll(1, dims=-1), levels, l, w).cpu().numpy()
+        err, err_ctl = float(np.abs(got - want).max()), float(np.abs(ctl - want).max())
+        log(f"request I: ms_deform_attn at the 800^2 encoder (the first layer's inputs, frame "
+            f"0: levels {levels}, {S} queries in chunks of 2048, {heads} heads of {head_dim}, "
+            f"{points} points; value std {v.std().item():.3f}, largest weight "
+            f"{w.max().item():.3f}): {deform_ms:.3f} ms on the card (median of 5; the C++ "
+            f"kernel {cpp_s:.3f} s on the CPU) | max abs against C++ {err:.3e} (limit "
+            f"{I_DEFORM_ATOL}; control with the value's channels shifted by one {err_ctl:.3e})")
+        check(got.shape == (1, S, heads * head_dim) and err < I_DEFORM_ATOL < err_ctl,
+              f"request I: ms_deform_attn {err:.3e} and the control {err_ctl:.3e} on either "
+              f"side of {I_DEFORM_ATOL}")
+        out.update(deform_ms=deform_ms, deform_max_abs=err, deform_control=err_ctl)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1683,6 +2170,9 @@ def main() -> int:
                     help="build, hold the named kernels to their plain versions, and stop")
     ap.add_argument("--request-h", action="store_true",
                     help="build, then request H (1024^2, both configurations) alone")
+    ap.add_argument("--request-i", action="store_true",
+                    help="build, then request I (the toolbox's networks) alone; with "
+                         "--profile, UniPose's device time by part and kernel category")
     args = ap.parse_args()
     # one card, the first visible one, fixed before CUDA initialises
     card = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0].strip()
@@ -1783,7 +2273,7 @@ def main() -> int:
     def training_phases():
         """Requests F and G; returns their launch counts (F transposed, F
         default, the stage-1 steps, G)."""
-        # 14. request F: the stage-2 trainer at the reference's geometry, a few
+        # 15. request F: the stage-2 trainer at the reference's geometry, a few
         # optimizer steps, in the transposed configuration and in the default one
         train_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                                  "chip_smoke")
@@ -1901,7 +2391,7 @@ def main() -> int:
         del state1
         torch.cuda.empty_cache()
 
-        # 15. request G: the mega-block probe against the block's read path
+        # 16. request G: the mega-block probe against the block's read path
         block, ins, w = mega_inputs(dev, MEGA_LEVELS[0], seed=6)
         read_path = block_read_path(block, *ins)
         reset_counts()
@@ -2009,6 +2499,18 @@ def main() -> int:
         torch.cuda.empty_cache()
         return launches_h, launches_h_rm
 
+    def run_request_i() -> dict:
+        """Request I with the kernel counts at 0 before it: no kernel of K1-K14
+        may launch on the toolbox's path."""
+        reset_counts()
+        readings = request_i(dev, profile=args.profile)
+        read_counts("request I", expect=(), absent=kernels, also_absent=())
+        log(f"request I: launches of K1-K14: {sum(k.launches for k in kernels)}")
+        return readings
+
+    if args.request_i:
+        run_request_i()
+        return 0
     if args.budgets:
         phase_budgets(build_bundle(0, dev), dev)
         return 0
@@ -2288,10 +2790,13 @@ def main() -> int:
     del pipe, bundle_b, pipe_b, small_pipe, d_pipe, q8_pipe, lat_k, lat_p, lat_warm
     torch.cuda.empty_cache()
     launches_h, launches_h_rm = request_h(bundle)
-
-    # 14-15. requests F and G
     del bundle
     torch.cuda.empty_cache()
+
+    # 14. request I: the toolbox's networks
+    run_request_i()
+
+    # 15-16. requests F and G
     launches_f, launches_f_default, launches_s1, launches_g = training_phases()
 
     for rec in record.values():

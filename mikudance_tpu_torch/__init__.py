@@ -9,6 +9,9 @@ the reference the port is held against. Same layout and module names:
 - models:    guidance / denoising UNets, motion modules, MAN, the SD VAE
 - diffusion: zero-SNR v-prediction DDIM
 - pipelines: the video sampler (cached banks, sliding windows, CFG)
+- toolbox:   preprocessing networks and helpers (UniPose, DPT, CLIP-text,
+             renderers, camera); stock PyTorch ops
+- tools:     the toolbox's command-line drivers
 - utils:     phase timing
 
 Importing the package builds nothing and touches no device: the kernel

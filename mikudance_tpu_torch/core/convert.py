@@ -8,10 +8,17 @@ port names its parameters in the reference checkpoint's key grammar
 (diffusers UNet / VAE names), so a port ``state_dict`` goes through them to
 the JAX tree, and a released ``.pth`` loads into the port with no converter.
 
+The toolbox's converters (``convert_swin``, ``convert_unipose``,
+``convert_clip_text``, ``convert_clip_text_hf``, ``convert_dpt``) are copied
+from ``mikudance_tpu/core/convert.py:397-620`` as well; the toolbox networks
+carry the XPose and Hugging Face key grammars those read.
+
 The inverses (``unet_state_dict_from_jax``, ``vae_encoder_state_dict_from_jax``,
-``vae_decoder_state_dict_from_jax``, ``temporal_decoder_state_dict_from_jax``
-and ``clip_vision_state_dict_from_jax``) turn a JAX tree of numpy arrays back
-into a ``state_dict`` that loads into the port's modules with ``strict=True``.
+``vae_decoder_state_dict_from_jax``, ``temporal_decoder_state_dict_from_jax``,
+``clip_vision_state_dict_from_jax``, ``swin_state_dict_from_jax``,
+``unipose_state_dict_from_jax``, ``clip_text_state_dict_from_jax`` and
+``dpt_state_dict_from_jax``) turn a JAX tree of numpy arrays back into a
+``state_dict`` that loads into the port's modules with ``strict=True``.
 
 Transform rules (forward; the inverses undo them):
 - Conv2d weight (O, I, kh, kw) -> HWIO kernel (kh, kw, I, O)
@@ -27,6 +34,8 @@ from __future__ import annotations
 from typing import Any, Dict, Mapping, Tuple
 
 import numpy as np
+
+from ..toolbox.swin import relative_position_index
 
 
 def _t(x) -> np.ndarray:
@@ -380,6 +389,274 @@ def convert_temporal_decoder(src: Mapping, num_blocks: int = 4, layers_per_block
 
 
 # --------------------------------------------------------------------------
+# UniPose (XPose) checkpoint converter
+# --------------------------------------------------------------------------
+
+def _convert_ln(src: Mapping, prefix: str, out: Dict, dst: Tuple[str, ...]):
+    _set(out, dst + ("scale",), _t(src[f"{prefix}.weight"]))
+    _set(out, dst + ("bias",), _t(src[f"{prefix}.bias"]))
+
+
+def _convert_dense(src: Mapping, prefix: str, out: Dict, dst: Tuple[str, ...]):
+    _set(out, dst + ("kernel",), dense_kernel(src[f"{prefix}.weight"]))
+    if f"{prefix}.bias" in src:
+        _set(out, dst + ("bias",), _t(src[f"{prefix}.bias"]))
+
+
+def _convert_mha(src: Mapping, prefix: str, out: Dict, dst: Tuple[str, ...]):
+    """torch nn.MultiheadAttention packed in_proj -> q/k/v/out Dense."""
+    w = _t(src[f"{prefix}.in_proj_weight"])  # (3C, C)
+    b = _t(src[f"{prefix}.in_proj_bias"])
+    C = w.shape[1]
+    for i, n in enumerate(("q_proj", "k_proj", "v_proj")):
+        _set(out, dst + (n, "kernel"), w[i * C:(i + 1) * C].T)
+        _set(out, dst + (n, "bias"), b[i * C:(i + 1) * C])
+    _convert_dense(src, f"{prefix}.out_proj", out, dst + ("out_proj",))
+
+
+def _convert_mlp(src: Mapping, prefix: str, out: Dict, dst: Tuple[str, ...],
+                 num_layers: int = 3):
+    for k in range(num_layers):
+        _convert_dense(src, f"{prefix}.layers.{k}", out, dst + (f"layers_{k}",))
+
+
+def _convert_deform_attn(src: Mapping, prefix: str, out: Dict, dst: Tuple[str, ...]):
+    for n in ("value_proj", "sampling_offsets", "attention_weights", "output_proj"):
+        _convert_dense(src, f"{prefix}.{n}", out, dst + (n,))
+
+
+def convert_swin(src: Mapping, prefix: str = "backbone.0",
+                 depths: Tuple[int, ...] = (2, 2, 6, 2),
+                 out_indices: Tuple[int, ...] = (1, 2, 3)) -> Dict:
+    """Swin-T detection backbone (`swin_transformer.py:429+`) -> SwinTransformer."""
+    out: Dict[str, Any] = {}
+    _set(out, ("patch_embed", "kernel"), conv_kernel(src[f"{prefix}.patch_embed.proj.weight"]))
+    _set(out, ("patch_embed", "bias"), _t(src[f"{prefix}.patch_embed.proj.bias"]))
+    _convert_ln(src, f"{prefix}.patch_embed.norm", out, ("patch_norm",))
+    for i, depth in enumerate(depths):
+        for j in range(depth):
+            bp = f"{prefix}.layers.{i}.blocks.{j}".lstrip(".")
+            dst = (f"stage_{i}_block_{j}",)
+            _convert_ln(src, f"{bp}.norm1", out, dst + ("norm1",))
+            _convert_ln(src, f"{bp}.norm2", out, dst + ("norm2",))
+            _set(out, dst + ("attn", "relative_position_bias_table"),
+                 _t(src[f"{bp}.attn.relative_position_bias_table"]))
+            _convert_dense(src, f"{bp}.attn.qkv", out, dst + ("attn", "qkv"))
+            _convert_dense(src, f"{bp}.attn.proj", out, dst + ("attn", "proj"))
+            _convert_dense(src, f"{bp}.mlp.fc1", out, dst + ("fc1",))
+            _convert_dense(src, f"{bp}.mlp.fc2", out, dst + ("fc2",))
+        if i < len(depths) - 1:
+            _convert_ln(src, f"{prefix}.layers.{i}.downsample.norm", out,
+                        (f"merge_{i}", "norm"))
+            _convert_dense(src, f"{prefix}.layers.{i}.downsample.reduction", out,
+                           (f"merge_{i}", "reduction"))
+    for k in out_indices:
+        _convert_ln(src, f"{prefix}.norm{k}", out, (f"out_norm_{k}",))
+    return out
+
+
+def convert_unipose(src: Mapping, enc_layers: int = 6, dec_layers: int = 6,
+                    num_levels: int = 4,
+                    depths: Tuple[int, ...] = (2, 2, 6, 2),
+                    out_indices: Tuple[int, ...] = (1, 2, 3)) -> Dict:
+    """Released UniPose checkpoint (`unipose.py:505` build; keys as saved by
+    the reference training, 'module.' prefix already stripped) -> the Flax
+    ``toolbox.unipose.UniPose`` param tree.
+
+    Skipped-by-design keys (dead at inference): label_enc, pos_proj, padding,
+    clip_model.* (`unipose.py:421-426` multiplies them by 0.0), and the
+    duplicate shared-head entries (bbox_embed.1..5, transformer.decoder.*_embed,
+    transformer.enc_out_bbox_embed) which alias bbox_embed.0 tensors.
+    """
+    out: Dict[str, Any] = {}
+    out["backbone"] = convert_swin(src, "backbone.0", depths, out_indices)
+
+    for i in range(num_levels):
+        _set(out, (f"input_proj_{i}", "kernel"), conv_kernel(src[f"input_proj.{i}.0.weight"]))
+        _set(out, (f"input_proj_{i}", "bias"), _t(src[f"input_proj.{i}.0.bias"]))
+        _convert_ln(src, f"input_proj.{i}.1", out, (f"input_proj_norm_{i}",))
+
+    _set(out, ("level_embed",), _t(src["transformer.level_embed"]))
+    _set(out, ("tgt_embed",), _t(src["transformer.tgt_embed.weight"]))
+    _set(out, ("hw",), _t(src["transformer.decoder.hw.weight"]))
+    _set(out, ("hw_append",), _t(src["transformer.decoder.hw_append.weight"]))
+    _convert_dense(src, "transformer.enc_output", out, ("enc_output",))
+    _convert_ln(src, "transformer.enc_output_norm", out, ("enc_output_norm",))
+    _convert_ln(src, "transformer.decoder.norm", out, ("decoder_norm",))
+    _convert_mlp(src, "transformer.decoder.ref_point_head", out,
+                 ("ref_point_head",), num_layers=2)
+
+    for i in range(enc_layers):
+        ep = f"transformer.encoder.layers.{i}"
+        _convert_deform_attn(src, f"{ep}.self_attn", out, (f"enc_{i}", "self_attn"))
+        for n in ("norm1", "norm2"):
+            _convert_ln(src, f"{ep}.{n}", out, (f"enc_{i}", n))
+        for n in ("linear1", "linear2"):
+            _convert_dense(src, f"{ep}.{n}", out, (f"enc_{i}", n))
+
+        tp = f"transformer.encoder.text_layers.{i}"
+        _convert_mha(src, f"{tp}.self_attn", out, (f"text_{i}", "self_attn"))
+        for n in ("norm1", "norm2"):
+            _convert_ln(src, f"{tp}.{n}", out, (f"text_{i}", n))
+        for n in ("linear1", "linear2"):
+            _convert_dense(src, f"{tp}.{n}", out, (f"text_{i}", n))
+
+        fp = f"transformer.encoder.fusion_layers.{i}"
+        _convert_ln(src, f"{fp}.layer_norm_v", out, (f"fusion_{i}", "layer_norm_v"))
+        _convert_ln(src, f"{fp}.layer_norm_l", out, (f"fusion_{i}", "layer_norm_l"))
+        for n in ("v_proj", "l_proj", "values_v_proj", "values_l_proj",
+                  "out_v_proj", "out_l_proj"):
+            _convert_dense(src, f"{fp}.attn.{n}", out, (f"fusion_{i}", n))
+        _set(out, (f"fusion_{i}", "gamma_v"), _t(src[f"{fp}.gamma_v"]))
+        _set(out, (f"fusion_{i}", "gamma_l"), _t(src[f"{fp}.gamma_l"]))
+
+    for i in range(dec_layers):
+        dp = f"transformer.decoder.layers.{i}"
+        _convert_deform_attn(src, f"{dp}.cross_attn", out, (f"dec_{i}", "cross_attn"))
+        _convert_mha(src, f"{dp}.self_attn", out, (f"dec_{i}", "self_attn"))
+        _convert_mha(src, f"{dp}.ca_text", out, (f"dec_{i}", "ca_text"))
+        for n in ("norm1", "norm2", "norm3", "catext_norm"):
+            _convert_ln(src, f"{dp}.{n}", out, (f"dec_{i}", n))
+        for n in ("linear1", "linear2"):
+            _convert_dense(src, f"{dp}.{n}", out, (f"dec_{i}", n))
+
+    _convert_mlp(src, "bbox_embed.0", out, ("bbox_embed",))
+    _convert_mlp(src, "pose_embed.0", out, ("pose_embed",))
+    _convert_mlp(src, "pose_hw_embed.0", out, ("pose_hw_embed",))
+    _convert_mlp(src, "projection", out, ("projection",))
+    _convert_mlp(src, "projection_kpt", out, ("projection_kpt",))
+    return out
+
+
+def convert_clip_text(src: Mapping, num_layers: int = 12) -> Dict:
+    """OpenAI CLIP (ViT-B/32) text tower -> toolbox.clip_text.CLIPTextEncoder.
+    Keys as in the released CLIP state dict (`clip.load` model)."""
+    out: Dict[str, Any] = {}
+    _set(out, ("token_embedding",), _t(src["token_embedding.weight"]))
+    _set(out, ("positional_embedding",), _t(src["positional_embedding"]))
+    for i in range(num_layers):
+        p = f"transformer.resblocks.{i}"
+        d = f"layers_{i}"
+        _convert_ln(src, f"{p}.ln_1", out, (f"{d}_ln_1",))
+        _convert_ln(src, f"{p}.ln_2", out, (f"{d}_ln_2",))
+        _set(out, (f"{d}_attn_in", "kernel"), dense_kernel(src[f"{p}.attn.in_proj_weight"]))
+        _set(out, (f"{d}_attn_in", "bias"), _t(src[f"{p}.attn.in_proj_bias"]))
+        _convert_dense(src, f"{p}.attn.out_proj", out, (f"{d}_attn_out",))
+        _convert_dense(src, f"{p}.mlp.c_fc", out, (f"{d}_fc",))
+        _convert_dense(src, f"{p}.mlp.c_proj", out, (f"{d}_proj",))
+    _convert_ln(src, "ln_final", out, ("ln_final",))
+    _set(out, ("text_projection",), _t(src["text_projection"]))
+    return out
+
+
+def convert_clip_text_hf(src: Mapping, num_layers: int = 12) -> Dict:
+    """transformers-format CLIP text tower (openai/clip-vit-base-patch32
+    pytorch_model.bin) -> CLIPTextEncoder. Same math as the openai-format
+    converter above (quick_gelu, EOT pooling); only key names differ."""
+    out: Dict[str, Any] = {}
+    pre = "text_model."
+    _set(out, ("token_embedding",), _t(src[f"{pre}embeddings.token_embedding.weight"]))
+    _set(out, ("positional_embedding",),
+         _t(src[f"{pre}embeddings.position_embedding.weight"]))
+    for i in range(num_layers):
+        p = f"{pre}encoder.layers.{i}"
+        d = f"layers_{i}"
+        _convert_ln(src, f"{p}.layer_norm1", out, (f"{d}_ln_1",))
+        _convert_ln(src, f"{p}.layer_norm2", out, (f"{d}_ln_2",))
+        # pack hf q/k/v into the fused attn_in Dense (q;k;v column order)
+        qw = _t(src[f"{p}.self_attn.q_proj.weight"])
+        kw = _t(src[f"{p}.self_attn.k_proj.weight"])
+        vw = _t(src[f"{p}.self_attn.v_proj.weight"])
+        qb = _t(src[f"{p}.self_attn.q_proj.bias"])
+        kb = _t(src[f"{p}.self_attn.k_proj.bias"])
+        vb = _t(src[f"{p}.self_attn.v_proj.bias"])
+        _set(out, (f"{d}_attn_in", "kernel"), np.concatenate([qw, kw, vw], 0).T)
+        _set(out, (f"{d}_attn_in", "bias"), np.concatenate([qb, kb, vb], 0))
+        _convert_dense(src, f"{p}.self_attn.out_proj", out, (f"{d}_attn_out",))
+        _convert_dense(src, f"{p}.mlp.fc1", out, (f"{d}_fc",))
+        _convert_dense(src, f"{p}.mlp.fc2", out, (f"{d}_proj",))
+    _convert_ln(src, f"{pre}final_layer_norm", out, ("ln_final",))
+    _set(out, ("text_projection",), dense_kernel(src["text_projection.weight"]))
+    return out
+
+
+def _convert_conv(src: Mapping, prefix: str, out: Dict, dst: Tuple[str, ...]):
+    _set(out, dst + ("kernel",), conv_kernel(src[f"{prefix}.weight"]))
+    if f"{prefix}.bias" in src:
+        _set(out, dst + ("bias",), _t(src[f"{prefix}.bias"]))
+
+
+def convert_dpt(src: Mapping, depths: Tuple[int, ...] = (3, 4, 9),
+                num_layers: int = 12) -> Dict:
+    """transformers DPTForDepthEstimation(is_hybrid=True) state dict
+    (Intel/dpt-hybrid-midas) -> toolbox.dpt.DPTHybridDepth param tree.
+
+    Layout notes: BiT weight-standardized convs keep raw kernels (the
+    standardization is applied at forward time on both sides); the ViT patch
+    projection and fusion projections stay 1x1 convs; the reassemble
+    projections become Dense. `dpt.layernorm` is skipped — the depth neck
+    consumes raw (pre-final-layernorm) encoder states, so those weights are
+    dead for depth estimation (modeling_dpt.DPTForDepthEstimation.forward).
+    """
+    out: Dict[str, Any] = {}
+    bit = "dpt.embeddings.backbone.bit"
+    _set(out, ("bit", "stem_conv", "kernel"),
+         conv_kernel(src[f"{bit}.embedder.convolution.weight"]))
+    _convert_ln(src, f"{bit}.embedder.norm", out, ("bit", "stem_norm"))
+    for s, depth in enumerate(depths):
+        for l in range(depth):
+            p = f"{bit}.encoder.stages.{s}.layers.{l}"
+            d = ("bit", f"stage{s}_layer{l}")
+            if f"{p}.downsample.conv.weight" in src:
+                _set(out, d + ("down_conv", "kernel"),
+                     conv_kernel(src[f"{p}.downsample.conv.weight"]))
+                _convert_ln(src, f"{p}.downsample.norm", out, d + ("down_norm",))
+            for n in (1, 2, 3):
+                _set(out, d + (f"conv{n}", "kernel"),
+                     conv_kernel(src[f"{p}.conv{n}.weight"]))
+                _convert_ln(src, f"{p}.norm{n}", out, d + (f"norm{n}",))
+
+    _convert_conv(src, "dpt.embeddings.projection", out, ("projection",))
+    _set(out, ("cls_token",), _t(src["dpt.embeddings.cls_token"]))
+    _set(out, ("pos_embed",), _t(src["dpt.embeddings.position_embeddings"]))
+    for i in range(num_layers):
+        p = f"dpt.encoder.layer.{i}"
+        d = (f"layer{i}",)
+        _convert_ln(src, f"{p}.layernorm_before", out, d + ("ln1",))
+        _convert_ln(src, f"{p}.layernorm_after", out, d + ("ln2",))
+        _convert_dense(src, f"{p}.attention.attention.query", out, d + ("q",))
+        _convert_dense(src, f"{p}.attention.attention.key", out, d + ("k",))
+        _convert_dense(src, f"{p}.attention.attention.value", out, d + ("v",))
+        _convert_dense(src, f"{p}.attention.output.dense", out, d + ("out",))
+        _convert_dense(src, f"{p}.intermediate.dense", out, d + ("fc1",))
+        _convert_dense(src, f"{p}.output.dense", out, d + ("fc2",))
+
+    for i in (2, 3):
+        _convert_dense(src, f"neck.reassemble_stage.readout_projects.{i}.0",
+                       out, (f"readout{i}",))
+        rp = f"neck.reassemble_stage.layers.{i}.projection"
+        _set(out, (f"reassemble{i}_proj", "kernel"), conv1x1_as_dense(src[f"{rp}.weight"]))
+        _set(out, (f"reassemble{i}_proj", "bias"), _t(src[f"{rp}.bias"]))
+    _convert_conv(src, "neck.reassemble_stage.layers.3.resize", out,
+                  ("reassemble3_resize",))
+    for i in range(4):
+        _set(out, (f"neck_conv{i}", "kernel"),
+             conv_kernel(src[f"neck.convs.{i}.weight"]))
+        p = f"neck.fusion_stage.layers.{i}"
+        _convert_conv(src, f"{p}.projection", out, (f"fusion{i}_proj",))
+        # fusion layer 0 (deepest) has no residual input; its residual_layer1
+        # exists in the torch checkpoint but is never called — skip it.
+        for r in ((2,) if i == 0 else (1, 2)):
+            for c in (1, 2):
+                _convert_conv(src, f"{p}.residual_layer{r}.convolution{c}", out,
+                              (f"fusion{i}_res{r}", f"conv{c}"))
+    _convert_conv(src, "head.head.0", out, ("head0",))
+    _convert_conv(src, "head.head.2", out, ("head2",))
+    _convert_conv(src, "head.head.4", out, ("head4",))
+    return out
+
+
+# --------------------------------------------------------------------------
 # inverses: JAX param tree -> reference-grammar state_dict
 # --------------------------------------------------------------------------
 
@@ -654,6 +931,205 @@ def clip_vision_state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
         _emit(tree, layer_rules, f"vision_model.encoder.layers.{i}", (f"layers_{i}",), out)
         i += 1
     _emit(tree, _dense_rules("visual_projection", ("visual_projection",), bias=False), "", (), out)
+    return out
+
+
+# --------------------------------------------------------------------------
+# inverses of the toolbox converters (Swin, UniPose, CLIP-text, DPT)
+# --------------------------------------------------------------------------
+
+def _ln_rules(key: str, dst: Tuple[str, ...]):
+    return ((f"{key}.weight", dst + ("scale",), _np), (f"{key}.bias", dst + ("bias",), _np))
+
+
+def _mha_state(tree: Mapping, dst: Tuple[str, ...], prefix: str, out: Dict) -> None:
+    """q/k/v/out Dense -> torch ``nn.MultiheadAttention``'s packed ``in_proj``."""
+    node = _get(tree, dst)
+    out[f"{prefix}.in_proj_weight"] = _np(np.concatenate(
+        [np.asarray(node[n]["kernel"]).T for n in ("q_proj", "k_proj", "v_proj")], 0))
+    out[f"{prefix}.in_proj_bias"] = _np(np.concatenate(
+        [np.asarray(node[n]["bias"]) for n in ("q_proj", "k_proj", "v_proj")], 0))
+    _emit(tree, _dense_rules("out_proj", ("out_proj",)), prefix, dst, out)
+
+
+def _mlp_rules(key: str, dst: Tuple[str, ...], num_layers: int = 3):
+    return sum((_dense_rules(f"{key}.layers.{k}", dst + (f"layers_{k}",))
+                for k in range(num_layers)), ())
+
+
+_DEFORM_RULES = sum((_dense_rules(n, (n,)) for n in
+                     ("value_proj", "sampling_offsets", "attention_weights", "output_proj")), ())
+
+
+def swin_state_dict_from_jax(tree: Mapping, prefix: str = "backbone.0") -> Dict[str, np.ndarray]:
+    """SwinTransformer param tree -> reference keys (inverse of ``convert_swin``),
+    with each block's ``attn.relative_position_index`` buffer (the window read
+    off the bias table's size). Stages and blocks are emitted while the tree
+    has them."""
+    tree = tree.get("params", tree)
+    out: Dict[str, np.ndarray] = {}
+    _emit(tree, _dense_rules("patch_embed.proj", ("patch_embed",), fn=_oihw)
+          + _ln_rules("patch_embed.norm", ("patch_norm",)), prefix, (), out)
+    block_rules = (
+        _ln_rules("norm1", ("norm1",)) + _ln_rules("norm2", ("norm2",))
+        + (("attn.relative_position_bias_table", ("attn", "relative_position_bias_table"), _np),)
+        + _dense_rules("attn.qkv", ("attn", "qkv")) + _dense_rules("attn.proj", ("attn", "proj"))
+        + _dense_rules("mlp.fc1", ("fc1",)) + _dense_rules("mlp.fc2", ("fc2",)))
+    i = 0
+    while f"stage_{i}_block_0" in tree:
+        j = 0
+        while f"stage_{i}_block_{j}" in tree:
+            bp = f"{prefix}.layers.{i}.blocks.{j}".lstrip(".")
+            _emit(tree, block_rules, bp, (f"stage_{i}_block_{j}",), out)
+            n = tree[f"stage_{i}_block_{j}"]["attn"]["relative_position_bias_table"].shape[0]
+            window = (int(round(n ** 0.5)) + 1) // 2
+            out[f"{bp}.attn.relative_position_index"] = relative_position_index(window)
+            j += 1
+        _emit(tree, _ln_rules("downsample.norm", ("norm",))
+              + _dense_rules("downsample.reduction", ("reduction",), bias=False),
+              f"{prefix}.layers.{i}".lstrip("."), (f"merge_{i}",), out)
+        if f"out_norm_{i}" in tree:
+            _emit(tree, _ln_rules(f"norm{i}", (f"out_norm_{i}",)), prefix, (), out)
+        i += 1
+    return out
+
+
+def unipose_state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
+    """UniPose param tree -> the reference checkpoint's live keys (inverse of
+    ``convert_unipose``); layers are emitted while the tree has them."""
+    tree = tree.get("params", tree)
+    out = swin_state_dict_from_jax(tree["backbone"], "backbone.0")
+    i = 0
+    while f"input_proj_{i}" in tree:
+        _emit(tree, _dense_rules(f"input_proj.{i}.0", (f"input_proj_{i}",), fn=_oihw)
+              + _ln_rules(f"input_proj.{i}.1", (f"input_proj_norm_{i}",)), "", (), out)
+        i += 1
+    t = "transformer"
+    out[f"{t}.level_embed"] = _np(tree["level_embed"])
+    out[f"{t}.tgt_embed.weight"] = _np(tree["tgt_embed"])
+    out[f"{t}.decoder.hw.weight"] = _np(tree["hw"])
+    out[f"{t}.decoder.hw_append.weight"] = _np(tree["hw_append"])
+    _emit(tree, _dense_rules("enc_output", ("enc_output",))
+          + _ln_rules("enc_output_norm", ("enc_output_norm",))
+          + _ln_rules("decoder.norm", ("decoder_norm",))
+          + _mlp_rules("decoder.ref_point_head", ("ref_point_head",), 2), t, (), out)
+    ffn = (_ln_rules("norm1", ("norm1",)) + _ln_rules("norm2", ("norm2",))
+           + _dense_rules("linear1", ("linear1",)) + _dense_rules("linear2", ("linear2",)))
+    i = 0
+    while f"enc_{i}" in tree:
+        ep = f"{t}.encoder.layers.{i}"
+        _emit(tree, _prefixed(_DEFORM_RULES, "self_attn", ("self_attn",)) + ffn, ep,
+              (f"enc_{i}",), out)
+        tp = f"{t}.encoder.text_layers.{i}"
+        _mha_state(tree, (f"text_{i}", "self_attn"), f"{tp}.self_attn", out)
+        _emit(tree, ffn, tp, (f"text_{i}",), out)
+        fp = f"{t}.encoder.fusion_layers.{i}"
+        _emit(tree, _ln_rules("layer_norm_v", ("layer_norm_v",))
+              + _ln_rules("layer_norm_l", ("layer_norm_l",))
+              + sum((_dense_rules(f"attn.{n}", (n,)) for n in
+                     ("v_proj", "l_proj", "values_v_proj", "values_l_proj", "out_v_proj",
+                      "out_l_proj")), ())
+              + (("gamma_v", ("gamma_v",), _np), ("gamma_l", ("gamma_l",), _np)),
+              fp, (f"fusion_{i}",), out)
+        i += 1
+    i = 0
+    while f"dec_{i}" in tree:
+        dp = f"{t}.decoder.layers.{i}"
+        _emit(tree, _prefixed(_DEFORM_RULES, "cross_attn", ("cross_attn",)) + ffn
+              + _ln_rules("norm3", ("norm3",)) + _ln_rules("catext_norm", ("catext_norm",)),
+              dp, (f"dec_{i}",), out)
+        _mha_state(tree, (f"dec_{i}", "self_attn"), f"{dp}.self_attn", out)
+        _mha_state(tree, (f"dec_{i}", "ca_text"), f"{dp}.ca_text", out)
+        i += 1
+    _emit(tree, _mlp_rules("bbox_embed.0", ("bbox_embed",))
+          + _mlp_rules("pose_embed.0", ("pose_embed",))
+          + _mlp_rules("pose_hw_embed.0", ("pose_hw_embed",))
+          + _mlp_rules("projection", ("projection",))
+          + _mlp_rules("projection_kpt", ("projection_kpt",)), "", (), out)
+    return out
+
+
+def clip_text_state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
+    """CLIPTextEncoder param tree -> Hugging Face keys (inverse of
+    ``convert_clip_text_hf``: the packed ``attn_in`` splits into q/k/v);
+    layers are emitted while the tree has them."""
+    tree = tree.get("params", tree)
+    pre = "text_model"
+    out: Dict[str, np.ndarray] = {
+        f"{pre}.embeddings.token_embedding.weight": _np(tree["token_embedding"]),
+        f"{pre}.embeddings.position_embedding.weight": _np(tree["positional_embedding"]),
+    }
+    i = 0
+    while f"layers_{i}_ln_1" in tree:
+        p, d = f"{pre}.encoder.layers.{i}", f"layers_{i}"
+        _emit(tree, _ln_rules("layer_norm1", (f"{d}_ln_1",))
+              + _ln_rules("layer_norm2", (f"{d}_ln_2",))
+              + _dense_rules("self_attn.out_proj", (f"{d}_attn_out",))
+              + _dense_rules("mlp.fc1", (f"{d}_fc",)) + _dense_rules("mlp.fc2", (f"{d}_proj",)),
+              p, (), out)
+        packed = tree[f"{d}_attn_in"]
+        kernel, bias = np.asarray(packed["kernel"]), np.asarray(packed["bias"])
+        C = kernel.shape[0]
+        for j, n in enumerate(("q_proj", "k_proj", "v_proj")):
+            out[f"{p}.self_attn.{n}.weight"] = _oi(kernel[:, j * C:(j + 1) * C])
+            out[f"{p}.self_attn.{n}.bias"] = _np(bias[j * C:(j + 1) * C])
+        i += 1
+    _emit(tree, _ln_rules("final_layer_norm", ("ln_final",)), pre, (), out)
+    out["text_projection.weight"] = _oi(tree["text_projection"])
+    return out
+
+
+def dpt_state_dict_from_jax(tree: Mapping) -> Dict[str, np.ndarray]:
+    """DPTHybridDepth param tree -> ``DPTForDepthEstimation`` keys (inverse of
+    ``convert_dpt``); stages, layers and ViT layers are emitted while the tree
+    has them."""
+    tree = tree.get("params", tree)
+    out: Dict[str, np.ndarray] = {}
+    bit = "dpt.embeddings.backbone.bit"
+    _emit(tree, (("embedder.convolution.weight", ("stem_conv", "kernel"), _oihw),)
+          + _ln_rules("embedder.norm", ("stem_norm",)), bit, ("bit",), out)
+    bottleneck = (
+        (("downsample.conv.weight", ("down_conv", "kernel"), _oihw),)
+        + _ln_rules("downsample.norm", ("down_norm",))
+        + sum(((((f"conv{n}.weight", (f"conv{n}", "kernel"), _oihw),)
+                + _ln_rules(f"norm{n}", (f"norm{n}",))) for n in (1, 2, 3)), ()))
+    s = 0
+    while f"stage{s}_layer0" in tree["bit"]:
+        l = 0
+        while f"stage{s}_layer{l}" in tree["bit"]:
+            _emit(tree, bottleneck, f"{bit}.encoder.stages.{s}.layers.{l}",
+                  ("bit", f"stage{s}_layer{l}"), out)
+            l += 1
+        s += 1
+    _emit(tree, _dense_rules("dpt.embeddings.projection", ("projection",), fn=_oihw), "", (), out)
+    out["dpt.embeddings.cls_token"] = _np(tree["cls_token"])
+    out["dpt.embeddings.position_embeddings"] = _np(tree["pos_embed"])
+    vit = (_ln_rules("layernorm_before", ("ln1",)) + _ln_rules("layernorm_after", ("ln2",))
+           + _dense_rules("attention.attention.query", ("q",))
+           + _dense_rules("attention.attention.key", ("k",))
+           + _dense_rules("attention.attention.value", ("v",))
+           + _dense_rules("attention.output.dense", ("out",))
+           + _dense_rules("intermediate.dense", ("fc1",)) + _dense_rules("output.dense", ("fc2",)))
+    i = 0
+    while f"layer{i}" in tree:
+        _emit(tree, vit, f"dpt.encoder.layer.{i}", (f"layer{i}",), out)
+        i += 1
+    rs = "neck.reassemble_stage"
+    for i in (2, 3):
+        _emit(tree, _dense_rules(f"{rs}.readout_projects.{i}.0", (f"readout{i}",))
+              + _dense_rules(f"{rs}.layers.{i}.projection", (f"reassemble{i}_proj",), fn=_oi11),
+              "", (), out)
+    _emit(tree, _dense_rules(f"{rs}.layers.3.resize", ("reassemble3_resize",), fn=_oihw), "", (),
+          out)
+    for i in range(4):
+        p = f"neck.fusion_stage.layers.{i}"
+        _emit(tree, _dense_rules(f"neck.convs.{i}", (f"neck_conv{i}",), bias=False, fn=_oihw)
+              + _dense_rules(f"{p}.projection", (f"fusion{i}_proj",), fn=_oihw)
+              + sum((_dense_rules(f"{p}.residual_layer{r}.convolution{c}",
+                                  (f"fusion{i}_res{r}", f"conv{c}"), fn=_oihw)
+                     for r in (1, 2) for c in (1, 2)), ()), "", (), out)
+    for i in (0, 2, 4):
+        _emit(tree, _dense_rules(f"head.head.{i}", (f"head{i}",), fn=_oihw), "", (), out)
     return out
 
 
