@@ -10,6 +10,7 @@
     python3 chip_smoke.py --request-h   # phases 1-2, then request H alone
     python3 chip_smoke.py --request-i   # phases 1-2, then request I (the toolbox) alone
     python3 chip_smoke.py --request-i --profile   # ... with UniPose's device time by part
+    python3 chip_smoke.py --request-j   # phases 1-2, then request J (fp32, the SD-width gate) alone
 
 Phases, in order, one line each; any failure exits non-zero:
 
@@ -46,7 +47,12 @@ Phases, in order, one line each; any failure exits non-zero:
    (two tags of one kernel; both timed in that line), as K10 is held to K11
    (at each head width); the anchored kernels' log lines also give the exp2
    floor. Heads of 160 (level 2 at 1024^2) have their cases for K1, K2 and
-   K10-K12;
+   K10-K12. Each attention kernel of K1-K4, K9-K13 has an fp32 case at a
+   model shape (fp32 q, k and v: ``FP32_CASES``, also K1 at the tiny VAE's
+   head of 32 and K3 at the tiny twins' heads of 8 and 24), held to the
+   plain version that rounds where its TPU body does, its bound counting 4
+   bytes for q and o; the anchored kernels also run on bf16-rounded q, which
+   must land farther from it. The record keeps these under ``fp32``;
 4. request A: ``VideoPipeline.__call__`` at the headline geometry (16 uint8
    frames at 768^2, SD1.5 widths, context 30/8, CFG 3.5, 20 DDIM steps,
    absent face/hand streams, ready-made CLIP tokens and zero flow, SD-VAE
@@ -126,6 +132,17 @@ Phases, in order, one line each; any failure exits non-zero:
     the kernels and with every wrapper forced to its plain version, loss and
     gradients held to one another (control: the conditioning dropped); then
     two ``train_stage1`` steps at 768^2 (batch cut from 8 to 1).
+14b. request J, fp32 and fidelity: J1, the SD-width gate
+    (``scripts/psnr_sd_width.run_gate``): SD-width twins built once on the
+    card, the oracle once (fp32, TF32 off), then the port's pipeline in fp32
+    (TF32 off) and in bf16 (PyTorch's TF32 defaults) against it, each at 35
+    dB or more, with K1, K2 and K3 launched (the latents' max abs error, the
+    wall seconds, peak memory and launches logged); J2, ``verify_parity
+    --selfcheck`` on the card (``pass`` must be true); J3, request A in fp32
+    (the bundle cast to fp32: UNets and SD VAE) at 2 steps: finite frames and
+    latents of the right shapes, every kernel's launches equal to the same
+    2-step request in bf16 (the routes do not depend on the dtype), K1-K4
+    launched;
 16. request G: the mega-block probe K14 at (32, 2304, 640) in one launch
     against the port's ``TransformerBlock`` read path on the same weights,
     both timed (control: the bank K/V left out), and K14's device time by
@@ -217,6 +234,10 @@ H_SIZE, H_STEPS = 1024, 2
 H_LAUNCHES = {"request H": {"K1": 45, "K2": 45, "K3": 84, "K4": 7, "K5": 410, "K6": 270},
               "request H (row-major)": {"K2": 45, "K3": 84, "K4": 7, "K5": 410, "K6": 270,
                                         "K7": 256, "K8": 342, "K10": 15, "K11": 30}}
+# Request J: the SD-width gate's DDIM steps (the JAX gate's), request A's in
+# fp32 (J3)
+J_GATE_STEPS = 2
+J3_STEPS = 2
 # The card's published peaks (H100 SXM): device memory, dense bf16 tensor
 # cores, fp32 outside the tensor cores.
 PEAK_BYTES, PEAK_BF16, PEAK_FP32 = 3.35e12, 989e12, 67e12
@@ -914,6 +935,90 @@ def anchored_cases(dev, only=()):
                4 * shape[0] * shape[1] * shape[1] * shape[2], 2 * 4 * q.numel(), PEAK_BF16)
 
 
+# fp32 requests through the attention kernels, one model shape a kernel: (kernel,
+# wrapper, rounded plain version, q shape, k / v shape, heads)
+FP32_CASES = (
+    ("K1", "flash_attention_fullc", "anchored_attention_t", (32, 9216, 320), None, 8),
+    ("K2", "cross_attention", "cross_attention_rounded", (32, 9216, 320), (32, 257, 320), 8),
+    ("K3", "temporal_attention", "temporal_attention_rounded", (2, 16, 9216, 320), None, 8),
+    ("K4", "flash_attention_wide", "wide_attention_rounded", (8, 9216, 512), None, 1),
+    ("K9", "flash_attention_resident", "wide_attention_rounded", (8, 2304, 512), None, 1),
+    ("K10", "flash_anchor_resident", "anchored_attention", (32, 2304, 640), None, 8),
+    ("K11", "flash_anchor_stream", "anchored_attention", (32, 9216, 320), None, 8),
+    ("K12", "flash_attention_fullc_t", "anchored_attention_t", (32, 9216, 320), None, 8),
+    ("K13", "small_sequence_attention", "small_sequence_attention_rounded", (120, 16, 1280),
+     None, 8),
+    # request J's narrow heads: the tiny VAE's mid-block (one head of 32 at 768^2,
+    # an encode chunk of 8 frames) and the tiny twins' motion modules (heads of 8
+    # and 24, windows of 3 frames at 128^2)
+    ("K1", "flash_attention_fullc", "anchored_attention_t", (8, 9216, 32), None, 1),
+    ("K3", "temporal_attention", "temporal_attention_rounded", (2, 3, 256, 32), None, 4),
+    ("K3", "temporal_attention", "temporal_attention_rounded", (2, 3, 256, 96), None, 4),
+)
+# fp32 against the same kernel fed bf16-rounded q (the anchored kernels): the
+# rounded q must land at least this many times farther from the rounded plain
+# version on fp32 q than the fp32 kernel does, or the kernel did not read the
+# unrounded q (q' and the anchor)
+FP32_ROUNDED_Q_RATIO = 4.0
+
+
+def fp32_cases(dev, only=()):
+    """K1-K4 and K9-K13 on fp32 q, k and v (N(0, 1), which bf16 does not hold
+    exactly) at one model shape each, held to the plain version that rounds
+    where the TPU body does (the anchored functions with the anchor from the
+    unrounded q; ``cross_attention_rounded``; ``temporal_attention_rounded``;
+    ``wide_attention_rounded``); the output must be fp32. The bound counts 4
+    bytes for q and o and 2 for k and v (the wrappers' casts are part of the
+    timed call); the library call is ``scaled_dot_product_attention`` on the
+    same fp32 tensors. The anchored kernels also run on bf16-rounded q, which
+    must land measurably farther from the plain version (``FP32_ROUNDED_Q_RATIO``)."""
+    import torch.nn.functional as F
+
+    from mikudance_tpu_torch.kernels import flash_attention as fa
+    from mikudance_tpu_torch.kernels import temporal_attention as ta
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    for name, wrapper, plain_name, q_shape, kv_shape, heads in FP32_CASES:
+        mod = ta if wrapper in ("temporal_attention", "small_sequence_attention") else fa
+        kern = getattr(ta if name in ("K3", "K13") else fa, name)
+        if not wanted(kern, only):
+            continue
+        fn, plain = getattr(mod, wrapper), getattr(mod, plain_name)
+        q = torch.randn(q_shape, generator=g, device=dev)
+        k, v = (torch.randn(kv_shape or q_shape, generator=g, device=dev) for _ in range(2))
+        what = f"{kern.name} fp32 q{q_shape} kv{(kv_shape or q_shape)[-2]} heads {heads}"
+        out = fn(q, k, v, heads)
+        check(out.dtype == torch.float32 and out.shape == q.shape,
+              f"{what}: output {out.dtype} {tuple(out.shape)}")
+        if name in ("K1", "K10", "K11", "K12"):
+            want = plain(q, k, v, heads)
+            rel = rel_l2(out, want)
+            rel_rounded = rel_l2(fn(q.bfloat16().float(), k, v, heads), want)
+            check(rel_rounded > FP32_ROUNDED_Q_RATIO * rel,
+                  f"{what}: the kernel on bf16-rounded q lies {rel_rounded:.3e} from the plain "
+                  f"version on fp32 q, the kernel on fp32 q {rel:.3e}")
+            what += f" (on bf16-rounded q: relative L2 {rel_rounded:.3e} against {rel:.3e})"
+            del want
+        del out
+        C = q.shape[-1]
+        hd = C // heads
+        if q.ndim == 4:
+            B, T, P, _ = q.shape
+            flops = 4 * B * P * T * T * C
+            lib = [t.reshape(B, T, P, heads, hd).permute(0, 2, 3, 1, 4)
+                   .reshape(B * P, heads, T, hd).contiguous() for t in (q, k, v)]
+        else:
+            flops = 4 * q.shape[0] * q.shape[1] * k.shape[1] * C
+            lib = [t.view(t.shape[0], t.shape[1], heads, hd).transpose(1, 2) for t in (q, k, v)]
+        yield (kern, what,
+               lambda fn=fn, q=q, k=k, v=v, heads=heads: fn(q, k, v, heads),
+               lambda plain=plain, q=q, k=k, v=v, heads=heads: plain(q, k, v, heads),
+               lambda plain=plain, q=q, k=k, v=v, heads=heads: plain(q * CONTROL_Q_SCALE, k, v,
+                                                                     heads),
+               lambda lib=lib: F.scaled_dot_product_attention(*lib),
+               flops, 4 * 2 * q.numel() + 2 * (k.numel() + v.numel()), PEAK_BF16)
+
+
 def linear_cases(dev, only=()):
     """K7 at the chain's products: (rows, Cin, Cout, residual); the control
     leaves out the residual where there is one, else the bias."""
@@ -1279,8 +1384,10 @@ def ptxas_report(log_text: str, kernels) -> str:
     for line in lines:
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-            args = re.match(r"I((?:Li-?\d+E)+)E", name[name.find("ILi"):] if "ILi" in name else "")
-            targs = "<" + ", ".join(re.findall(r"Li(-?\d+)E", args.group(1))) + ">" if args else ""
+            args = re.match(r"I((?:L[ib]-?\d+E)+)E",
+                            name[name.find("ILi"):] if "ILi" in name else "")
+            targs = "<" + ", ".join(re.findall(r"L[ib](-?\d+)E", args.group(1))) + ">" if args \
+                else ""
             entry = next((k + targs for k in kernels if k in name), None)
         elif entry and ("spill" in line or "Used" in line):
             out.append(f"{entry}: {line.split(':', 1)[-1].strip()}")
@@ -1303,7 +1410,8 @@ def phase_kernels(dev, only=()):
     record = {}
     for kern, what, run, plain, control, library, flops, nbytes, peak, *rest in itertools.chain(
             attention_cases(dev, only), norm_cases(dev, only), anchored_cases(dev, only),
-            linear_cases(dev, only), conv_cases(dev, only), mega_cases(dev, only)):
+            fp32_cases(dev, only), linear_cases(dev, only), conv_cases(dev, only),
+            mega_cases(dev, only)):
         got = run()
         torch.cuda.synchronize()
         want = plain()
@@ -1339,6 +1447,13 @@ def phase_kernels(dev, only=()):
         log(f"kernels: {what}: max_abs_err {err:.3e}  rel_l2 {rel:.3e} (limit {REL_L2}; "
             f"control {ctl:.3e})  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  {lib_text}  "
             f"bound {bound_ms:.3f} ms by {bound_by}")
+        if " fp32 " in what:  # the fp32 case's readings, beside the bf16 ones
+            record[kern.name].setdefault("fp32", {
+                "shape": what.split(" ", 2)[2], "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                "max_abs_err": err, "rel_l2": rel})
+            torch.cuda.empty_cache()
+            continue
         # the record keeps each kernel's first (largest) shape's times
         rec = record.setdefault(kern.name, {
             "name": kern.name, "route": "cuda", "source": kern.source,
@@ -2173,6 +2288,9 @@ def main() -> int:
     ap.add_argument("--request-i", action="store_true",
                     help="build, then request I (the toolbox's networks) alone; with "
                          "--profile, UniPose's device time by part and kernel category")
+    ap.add_argument("--request-j", action="store_true",
+                    help="build, then request J (fp32 requests, the SD-width fidelity gate, "
+                         "verify_parity --selfcheck) alone")
     args = ap.parse_args()
     # one card, the first visible one, fixed before CUDA initialises
     card = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0].strip()
@@ -2499,6 +2617,69 @@ def main() -> int:
         torch.cuda.empty_cache()
         return launches_h, launches_h_rm
 
+    def request_j(bundle) -> dict:
+        """Request J: J1 the SD-width gate in both dtypes, J2 verify_parity
+        --selfcheck, J3 request A in fp32 against its bf16 launches. Returns
+        J3's fp32 launches."""
+        import copy
+
+        from mikudance_tpu_torch.scripts import psnr_sd_width, verify_parity
+
+        # J1: the SD-width twins once, the oracle once, the port in fp32 and bf16
+        t0 = time.perf_counter()
+        records = psnr_sd_width.run_gate(("fp32", "bf16"), steps=J_GATE_STEPS, device=dev,
+                                         log=log)
+        for rec in records:
+            log(f"request J1: {rec['metric']}: PSNR {rec['psnr_db']:.3f} dB (bar "
+                f"{rec['bar_db']}), latents max abs error {rec['latent_max_abs_err']:.3e}, "
+                f"port {rec['elapsed_s']:.3f} s (oracle {rec['oracle_s']:.3f} s), peak "
+                f"{rec['peak_gib']:.2f} GiB, launches {rec['launches']} | {rec['device']}")
+            check(all(rec["launches"].get(k, 0) > 0 for k in ("K1", "K2", "K3")),
+                  f"request J1: K1, K2 and K3 launched: {rec['launches']}")
+            check(rec["pass"], f"request J1: PSNR {rec['psnr_db']:.3f} dB under the "
+                               f"{rec['bar_db']} dB bar ({rec['metric']})")
+        log(f"request J1: both gates in {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+
+        # J2: the tiny twins' selfcheck on the card
+        t0 = time.perf_counter()
+        verdict = verify_parity.run_selfcheck(dev)
+        log(f"request J2: verify_parity --selfcheck on the card in "
+            f"{time.perf_counter() - t0:.1f} s: {json.dumps(verdict)}")
+        check(verdict["pass"], f"request J2: verify_parity --selfcheck: {verdict}")
+
+        # J3: request A in fp32 against the same request in bf16, 2 steps
+        inputs = make_inputs(0, T, H, W)
+        runs = {}
+        for name, b in (("bf16", bundle), ("fp32", None)):
+            if b is None:  # the same weights in fp32: UNets and SD VAE
+                b = ModelBundle(*(copy.deepcopy(m).float() for m in (
+                    bundle.guide, bundle.den, bundle.vae_enc, bundle.vae_dec)))
+            pipe_j = VideoPipeline(b, cfg)
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            frames, latents, timer = run_request(pipe_j, inputs, J3_STEPS)
+            wall = time.perf_counter() - t0
+            counts = read_counts(f"request J3 ({name})", at_768)
+            check_video(frames, latents, T, f"request J3 ({name})")
+            check(latents.dtype == torch.float32, f"request J3 ({name}): latents {latents.dtype}")
+            log(f"request J3 ({name}): {T}x{H}x{W} {J3_STEPS} steps in {wall:.3f} s | "
+                f"{phase_text(timer)} | peak {max(timer.peaks.values()):.2f} GiB | launches "
+                f"{counts} | latents std {latents.std().item():.4f}")
+            runs[name] = (latents, counts)
+            del pipe_j, frames, b
+        (lat_b, counts_b), (lat_f, counts_f) = runs["bf16"], runs["fp32"]
+        check(counts_f == counts_b, f"request J3: fp32 launches {counts_f} against bf16 "
+                                    f"{counts_b}")
+        check(all(counts_f[k.name] > 0 for k in (fa.K1, fa.K2, ta.K3, fa.K4)),
+              f"request J3: K1-K4 launched in fp32: {counts_f}")
+        log(f"request J3: fp32 against bf16 latents, relative L2 {rel_l2(lat_f, lat_b):.3e} "
+            f"(both finite; launches equal)")
+        del runs, lat_b, lat_f
+        torch.cuda.empty_cache()
+        return counts_f
+
     def run_request_i() -> dict:
         """Request I with the kernel counts at 0 before it: no kernel of K1-K14
         may launch on the toolbox's path."""
@@ -2530,6 +2711,9 @@ def main() -> int:
         return 0
     if args.request_h:
         request_h(build_bundle(0, dev))
+        return 0
+    if args.request_j:
+        request_j(build_bundle(0, dev))
         return 0
     if args.kernels:
         log((lib.with_suffix(".log")).read_text())
@@ -2790,6 +2974,9 @@ def main() -> int:
     del pipe, bundle_b, pipe_b, small_pipe, d_pipe, q8_pipe, lat_k, lat_p, lat_warm
     torch.cuda.empty_cache()
     launches_h, launches_h_rm = request_h(bundle)
+
+    # 14b. request J: fp32 requests and the SD-width fidelity gate
+    launches_j3 = request_j(bundle)
     del bundle
     torch.cuda.empty_cache()
 
@@ -2825,6 +3012,7 @@ def main() -> int:
         rec["launches_request_h"] = launches_h[rec["name"]]
         rec["launches_request_h_row_major"] = launches_h_rm[rec["name"]]
         rec["launches_image_request"] = launches_i[rec["name"]]
+        rec["launches_request_j3_fp32"] = launches_j3[rec["name"]]
     kern_line = {"kernels": list(record.values())}
     print(json.dumps(kern_line))
     print(smi)

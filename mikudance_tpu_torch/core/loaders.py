@@ -18,14 +18,17 @@ needs and the file lacks raises.
 
 Where a path is absent the module keeps its random initialisation (PyTorch's
 default, drawn under a seed of its own), so the whole pipeline can be driven
-without weights. Modules are built on ``device`` (``None``: the card; raises
-where there is none) and cast to ``dtype``.
+without weights. In place of a path, a ``{key: tensor}`` mapping already in
+memory (a state dict with the reference's names, e.g. the SD-width gate's
+twins, ``scripts/_oracle.py``) loads by the same strict rule. Modules are
+built on ``device`` (``None``: the card; raises where there is none) and
+cast to ``dtype``.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -52,6 +55,17 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     if isinstance(sd, dict) and "state_dict" in sd:
         sd = sd["state_dict"]
     return dict(sd)
+
+
+# A checkpoint: a file path, or a state dict already in memory.
+Source = Union[str, Mapping[str, torch.Tensor], None]
+
+
+def state_dict_of(src: Source) -> Optional[Mapping[str, torch.Tensor]]:
+    """A mapping as it is, a file that exists loaded, else None."""
+    if isinstance(src, Mapping):
+        return src
+    return load_torch_state_dict(src) if src and os.path.exists(src) else None
 
 
 def _find_weights(dirpath: str, names=("diffusion_pytorch_model", "model", "pytorch_model")):
@@ -84,7 +98,7 @@ def _finish(module: nn.Module, sd: Optional[Mapping[str, torch.Tensor]], dtype) 
     return cast_params(module, dtype)
 
 
-def load_guidance(reference_unet_path: Optional[str], use_man: bool = True,
+def load_guidance(reference_unet_path: Source, use_man: bool = True,
                   dtype=torch.float32, device=None,
                   generator: Optional[torch.Generator] = None,
                   unet_config: Optional[UNetConfig] = None,
@@ -94,12 +108,11 @@ def load_guidance(reference_unet_path: Optional[str], use_man: bool = True,
     ``enable_gradient_checkpointing``)."""
     cfg = GuidanceUNetConfig(use_man=use_man, unet=unet_config or UNetConfig())
     model = _build(lambda: GuidanceUNet(cfg, remat=remat), 0, generator, device)
-    have = reference_unet_path and os.path.exists(reference_unet_path)
-    return _finish(model, load_torch_state_dict(reference_unet_path) if have else None, dtype)
+    return _finish(model, state_dict_of(reference_unet_path), dtype)
 
 
-def load_denoising(denoising_unet_path: Optional[str], motion_module_path: Optional[str] = None,
-                   sd_unet_path: Optional[str] = None, use_motion: bool = True,
+def load_denoising(denoising_unet_path: Source, motion_module_path: Source = None,
+                   sd_unet_path: Source = None, use_motion: bool = True,
                    dtype=torch.float32, device=None,
                    generator: Optional[torch.Generator] = None,
                    unet_config: Optional[UNetConfig] = None,
@@ -115,23 +128,28 @@ def load_denoising(denoising_unet_path: Optional[str], motion_module_path: Optio
         enabled=use_motion, num_attention_heads=u.attention_heads))
     model = _build(lambda: DenoisingUNet(cfg, remat=remat), 1, generator, device)
     sd = None
-    if denoising_unet_path and os.path.exists(denoising_unet_path):
-        sd = {}
-        if sd_unet_path and os.path.exists(sd_unet_path):
-            sd.update(load_torch_state_dict(sd_unet_path))
-        if motion_module_path and os.path.exists(motion_module_path):
-            sd = merge_state_dicts(sd, load_torch_state_dict(motion_module_path))
-        sd = merge_state_dicts(sd, load_torch_state_dict(denoising_unet_path))
+    den_sd = state_dict_of(denoising_unet_path)
+    if den_sd is not None:
+        sd = dict(state_dict_of(sd_unet_path) or {})
+        motion_sd = state_dict_of(motion_module_path)
+        if motion_sd is not None:
+            sd = merge_state_dicts(sd, motion_sd)
+        sd = merge_state_dicts(sd, den_sd)
     return _finish(model, sd, dtype)
 
 
-def load_vae(vae_dir: Optional[str], dtype=torch.float32, device=None,
-             generator: Optional[torch.Generator] = None,
+def load_vae(vae_dir: Union[str, Mapping[str, torch.Tensor], None], dtype=torch.float32,
+             device=None, generator: Optional[torch.Generator] = None,
              config: Optional[VAEConfig] = None) -> Tuple[Encoder, Decoder]:
+    """The SD VAE's encoder and decoder from a diffusers directory (or a state
+    dict of the whole autoencoder), or random init."""
     cfg = config or VAEConfig()
     enc, dec = _build(lambda: nn.ModuleList([Encoder(cfg), Decoder(cfg)]), 2, generator, device)
-    wfile = _dir_weights(vae_dir)
-    sd = load_torch_state_dict(wfile) if wfile else None
+    if isinstance(vae_dir, Mapping):
+        sd = vae_dir
+    else:
+        wfile = _dir_weights(vae_dir)
+        sd = load_torch_state_dict(wfile) if wfile else None
     return _finish(enc, sd, dtype), _finish(dec, sd, dtype)
 
 

@@ -26,13 +26,20 @@
 //       the transposed configuration's level above the byte limit (5184
 //       tokens of 576^2 training).
 //
-// Per head of (B, S, C) bf16 tensors with the heads packed in C:
+// Per head of (B, S, C) tensors with the heads packed in C:
 //     q'  = q * (log2(e) / sqrt(hd))              fp32
 //     off = sum_d q'_d q_d                        fp32, not rounded (K1, K12: bf16(off))
-//     s   = bf16(q') . k                          fp32 accumulation
+//     s   = bf16(q') . bf16(k)                    fp32 accumulation
 //     p   = bf16(exp2(clip(s - off, -100, 100)))
-//     o   = (sum_j p_j v_j) / (sum_j p_j)         both sums in fp32 over bf16 p
-// as the TPU kernels; there is no running maximum and so no rescale.
+//     o   = (sum_j p_j bf16(v_j)) / (sum_j p_j)   both sums in fp32 over bf16 p
+// as the TPU kernels; there is no running maximum and so no rescale. q and o
+// are bf16 or fp32 (the template's kF32; the output has q's type, as the TPU
+// kernels write o_ref.dtype): an fp32 q is read as fp32, and both factors of
+// the anchor are the unrounded values, as the TPU bodies' _self_anchor; only
+// q' is rounded, into the A fragments. K and V arrive in bf16 by TMA: the TPU
+// bodies round them at load, so the wrapper's cast of fp32 K and V gives the
+// same bits. An fp32 o is stored straight from the accumulator, never
+// rounded to bf16.
 //
 // What bounds it on the card. At a head of 80 the tensor cores: at
 // (32, 2304, 640) the 4 B S^2 C flops take 0.440 ms at the bf16 peak, the
@@ -103,8 +110,13 @@
 //   160 registers and, with two consumers at 240, stays behind three; S in
 //   halves of 64 keys.)
 //   End: O / l as bf16 leaves through a per-warp staging tile in 16-byte
-//   stores of the head's columns. Keys past S get p = 0 exactly; rows past S
-//   are not written.
+//   stores of the head's columns; as fp32 (kF32) straight from the
+//   accumulator, a quad's four lanes writing a row's 32 contiguous bytes (an
+//   fp32 staging tile would not fit beside hd 160's two stages). Keys past S
+//   get p = 0 exactly; rows past S are not written.
+//   Heads of 32 (K1 only: the tiny VAE's mid-block at 768^2, 9216 tokens in
+//   one head of 32, which the JAX package sends to _flash_kernel_fullc_nt):
+//   hd 80's plan at two k16 steps, P V on m64n32k16.
 // Alignment is TMA's: 16-byte base and row stride (C a multiple of 8).
 
 #include <cuda.h>
@@ -113,6 +125,8 @@
 
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "mma_sync.cuh"
 #include "tma_wgmma.cuh"
@@ -169,6 +183,22 @@ struct Plan {
   static_assert(bytes <= 232448, "one block's shared memory");
 };
 
+// d (64 x 32, fp32) += A (64 x 16, bf16, registers) B (16 x 32, bf16, N-major
+// shared-memory descriptor)
+__device__ __forceinline__ void wgmma_m64n32k16_t(float (&d)[16], const uint32_t (&a)[4],
+                                                  uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
 // d (64 x 56, fp32) = A (64 x 16, bf16, registers) B (16 x 56, bf16, a shared-memory
 // descriptor) + (accumulate ? d : 0); kTransB 1: B is N-major
 template <int kTransB>
@@ -192,12 +222,13 @@ __device__ __forceinline__ void wgmma_m64n56k16(float (&d)[28], const uint32_t (
 }
 
 // d += A B on the width of P V: n160 at hd 160, n80 at hd 80, n56 at hd 40
-// (48 V columns, 8 of ones)
+// (48 V columns, 8 of ones), n32 at hd 32
 template <int NO>
 __device__ __forceinline__ void wgmma_out(float (&d)[NO / 2], const uint32_t (&a)[4],
                                           uint64_t desc_b) {
   if constexpr (NO == 160) wgmma_m64n160k16<1>(d, a, desc_b, 1);
   else if constexpr (NO == 80) wgmma_m64n80k16<1>(d, a, desc_b, 1);
+  else if constexpr (NO == 32) wgmma_m64n32k16_t(d, a, desc_b);
   else wgmma_m64n56k16<1>(d, a, desc_b, 1);
 }
 
@@ -278,13 +309,16 @@ __device__ __forceinline__ void tile_update(const Tiles& tl, int t,
 }
 
 // kTag: the kernel number (1, 10, 11, 12), so that each entry point has a
-// device symbol of its own; K1 and K12 round the anchor to bf16.
-template <int HD, int kTag>
+// device symbol of its own; K1 and K12 round the anchor to bf16. kF32: q and
+// o are fp32 (else bf16).
+template <int HD, int kTag, bool kF32>
 __global__ void __launch_bounds__(Plan<HD>::threads, 1)
 anchor_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
-                 const __grid_constant__ CUtensorMap tm_v, const bf16* __restrict__ q,
-                 bf16* __restrict__ o, int seq, int heads, float scale_log2) {
+                 const __grid_constant__ CUtensorMap tm_v, const void* __restrict__ q_ptr,
+                 void* __restrict__ o_ptr, int seq, int heads, float scale_log2) {
   using L = Plan<HD>;
+  using TQ = typename std::conditional<kF32, float, bf16>::type;
+  const TQ* __restrict__ q = static_cast<const TQ*>(q_ptr);
   constexpr int KS = L::KS, NO = L::NO, LDO = L::LDO, kConsumers = L::consumers;
   constexpr int kStages = L::stages;
   constexpr bool kRoundAnchor = kTag == 1 || kTag == 12;
@@ -349,7 +383,7 @@ anchor_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
   uint32_t qa[L::KA][4];
   float off0 = 0.f, off1 = 0.f;
   {
-    const bf16* q_bh = q + batch + h * HD;
+    const TQ* q_bh = q + batch + h * HD;
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
 #pragma unroll
@@ -360,10 +394,17 @@ anchor_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
           const int row = r ? row1 : row0;
           float x0 = 0.f, x1 = 0.f;
           if (col < HD && row < seq) {
-            const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
-                q_bh + static_cast<size_t>(row) * ld + col);
-            x0 = __low2float(x);
-            x1 = __high2float(x);
+            if constexpr (kF32) {  // 8-byte loads of the unrounded fp32 pair
+              const float2 x =
+                  *reinterpret_cast<const float2*>(q_bh + static_cast<size_t>(row) * ld + col);
+              x0 = x.x;
+              x1 = x.y;
+            } else {
+              const __nv_bfloat162 x = *reinterpret_cast<const __nv_bfloat162*>(
+                  q_bh + static_cast<size_t>(row) * ld + col);
+              x0 = __low2float(x);
+              x1 = __high2float(x);
+            }
           }
           const float s0 = x0 * scale_log2, s1 = x1 * scale_log2;
           (r ? off1 : off0) += s0 * x0 + s1 * x1;
@@ -412,8 +453,21 @@ anchor_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   }
   const float inv0 = 1.f / l0, inv1 = 1.f / l1;
-  bf16* o_w = out_s + (wg * 4 + warp) * 16 * LDO;
   constexpr int kChunks = HD / 8;
+  if constexpr (kF32) {  // fp32 rows from the accumulator: a quad writes 32 contiguous bytes
+    float* o_bh = static_cast<float*>(o_ptr) + batch + h * HD + c2;
+#pragma unroll
+    for (int n = 0; n < kChunks; ++n) {
+      if (row0 < seq)
+        *reinterpret_cast<float2*>(o_bh + static_cast<size_t>(row0) * ld + n * 8) =
+            make_float2(oacc[4 * n] * inv0, oacc[4 * n + 1] * inv0);
+      if (row1 < seq)
+        *reinterpret_cast<float2*>(o_bh + static_cast<size_t>(row1) * ld + n * 8) =
+            make_float2(oacc[4 * n + 2] * inv1, oacc[4 * n + 3] * inv1);
+    }
+    return;
+  }
+  bf16* o_w = out_s + (wg * 4 + warp) * 16 * LDO;
 #pragma unroll
   for (int n = 0; n < kChunks; ++n) {
     *reinterpret_cast<__nv_bfloat162*>(o_w + g * LDO + n * 8 + c2) =
@@ -423,7 +477,7 @@ anchor_wg_kernel(const __grid_constant__ CUtensorMap tm_k,
   }
   __syncwarp();
   const int first = q0 + wg * 64 + warp * 16;
-  bf16* o_bh = o + batch + h * HD;
+  bf16* o_bh = static_cast<bf16*>(o_ptr) + batch + h * HD;
   for (int i = lane; i < 16 * kChunks; i += 32) {
     const int r = i / kChunks, c = (i % kChunks) * 8;
     if (first + r < seq)
@@ -444,11 +498,11 @@ bool tensor_map(CUtensorMap* map, const void* x, int batch, int seq, int channel
                      CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
 }
 
-template <int HD, int kTag>
+template <int HD, int kTag, bool kF32>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int batch, int seq,
                    int heads, cudaStream_t stream) {
   using L = Plan<HD>;
-  auto kern = anchor_wg_kernel<HD, kTag>;
+  auto kern = anchor_wg_kernel<HD, kTag, kF32>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, L::bytes);
   if (err != cudaSuccess) return err;
@@ -457,54 +511,64 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bat
       !tensor_map(&tm_v, v, batch, seq, heads * HD))
     return cudaErrorInvalidValue;
   const dim3 grid((seq + L::block_q - 1) / L::block_q, batch * heads);
-  kern<<<grid, L::threads, L::bytes, stream>>>(tm_k, tm_v, static_cast<const bf16*>(q),
-                                               static_cast<bf16*>(o), seq, heads,
+  kern<<<grid, L::threads, L::bytes, stream>>>(tm_k, tm_v, q, o, seq, heads,
                                                kLog2e / sqrtf(static_cast<float>(HD)));
   return cudaGetLastError();
 }
 
-template <int kTag>
-int dispatch(const void* q, const void* k, const void* v, void* o, int batch, int seq, int heads,
-             int hd, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (seq < 1) return cudaErrorInvalidValue;
+template <int kTag, bool kF32>
+int dispatch_hd(const void* q, const void* k, const void* v, void* o, int batch, int seq,
+                int heads, int hd, cudaStream_t s) {
   switch (hd) {
-    case 40: return launch<40, kTag>(q, k, v, o, batch, seq, heads, s);
-    case 80: return launch<80, kTag>(q, k, v, o, batch, seq, heads, s);
-    case 160: return launch<160, kTag>(q, k, v, o, batch, seq, heads, s);
+    case 32:  // K1 only (the tiny VAE's mid-block)
+      if constexpr (kTag == 1) return launch<32, kTag, kF32>(q, k, v, o, batch, seq, heads, s);
+      return cudaErrorInvalidValue;
+    case 40: return launch<40, kTag, kF32>(q, k, v, o, batch, seq, heads, s);
+    case 80: return launch<80, kTag, kF32>(q, k, v, o, batch, seq, heads, s);
+    case 160: return launch<160, kTag, kF32>(q, k, v, o, batch, seq, heads, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <int kTag>
+int dispatch(const void* q, const void* k, const void* v, void* o, int batch, int seq, int heads,
+             int hd, int fp32, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (seq < 1) return cudaErrorInvalidValue;
+  return fp32 ? dispatch_hd<kTag, true>(q, k, v, o, batch, seq, heads, hd, s)
+              : dispatch_hd<kTag, false>(q, k, v, o, batch, seq, heads, hd, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, k, v, o: (batch, seq, heads * hd) bf16, contiguous, 16-byte aligned
-// (TMA's rule for the base and the row stride), hd 40, 80 or 160, any head
-// count, any seq >= 1. The anchor rounded to bf16 (anchored_attention_t): K1's
-// counter and symbol.
+// q, k, v, o: (batch, seq, heads * hd), contiguous, 16-byte aligned (TMA's
+// rule for the base and the row stride); k and v bf16, q and o bf16 or, with
+// fp32 != 0, fp32; hd 40, 80 or 160 (K1 also 32), any head count, any seq >=
+// 1. The anchor rounded to bf16 (anchored_attention_t): K1's counter and
+// symbol.
 int md_flash_fullc(const void* q, const void* k, const void* v, void* o, int batch, int seq,
-                   int heads, int hd, void* stream) {
-  return dispatch<1>(q, k, v, o, batch, seq, heads, hd, stream);
+                   int heads, int hd, int fp32, void* stream) {
+  return dispatch<1>(q, k, v, o, batch, seq, heads, hd, fp32, stream);
 }
 
 // the same with the anchor in fp32 (anchored_attention): K10's
 int md_flash_anchor_resident(const void* q, const void* k, const void* v, void* o, int batch,
-                             int seq, int heads, int hd, void* stream) {
-  return dispatch<10>(q, k, v, o, batch, seq, heads, hd, stream);
+                             int seq, int heads, int hd, int fp32, void* stream) {
+  return dispatch<10>(q, k, v, o, batch, seq, heads, hd, fp32, stream);
 }
 
 // the same, K11's counter and symbol
 int md_flash_anchor_stream(const void* q, const void* k, const void* v, void* o, int batch,
-                           int seq, int heads, int hd, void* stream) {
-  return dispatch<11>(q, k, v, o, batch, seq, heads, hd, stream);
+                           int seq, int heads, int hd, int fp32, void* stream) {
+  return dispatch<11>(q, k, v, o, batch, seq, heads, hd, fp32, stream);
 }
 
 // K1's function, K12's counter and symbol
 int md_flash_fullc_t(const void* q, const void* k, const void* v, void* o, int batch, int seq,
-                     int heads, int hd, void* stream) {
-  return dispatch<12>(q, k, v, o, batch, seq, heads, hd, stream);
+                     int heads, int hd, int fp32, void* stream) {
+  return dispatch<12>(q, k, v, o, batch, seq, heads, hd, fp32, stream);
 }
 
 }  // extern "C"

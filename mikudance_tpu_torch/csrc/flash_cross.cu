@@ -41,6 +41,12 @@
 // rows, and the online softmax's running maximum and sum carry across them. O / l leaves as bf16 through the warp's own rows
 // of its Q stage (free once the Q fragments are in registers), then 16-byte
 // stores along the rows.
+// fp32 requests (fp32 != 0 at the entry point): the wrapper hands the kernel
+// q' = bf16(q * log2(e) / sqrt(hd)), scaled in fp32 and rounded once, as the
+// TPU body does, with K and V cast to bf16 (the body rounds them at load: the
+// same bits); the kernel's own scale is then exactly 1, and O / l leaves as
+// fp32 straight from the accumulator (a quad writes a row's 32 contiguous
+// bytes), never rounded to bf16. A runtime switch: only the store differs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -202,8 +208,8 @@ __device__ __forceinline__ void key_tile(Rows<Plan<HD>::NT>& st,
 template <int HD>
 __global__ void __launch_bounds__(Plan<HD>::threads, HD == 40 ? 2 : 1)
 flash_cross_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ o, int q_len, int kv_len,
-                   int heads, int tiles_per_block, float scale_log2) {
+                   const bf16* __restrict__ v, void* __restrict__ o_ptr, bool o_fp32,
+                   int q_len, int kv_len, int heads, int tiles_per_block, float scale_log2) {
   using L = Plan<HD>;
   constexpr int KS = L::KS, LD = L::LD, NT = L::NT, kBlockQ = L::block_q;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -221,7 +227,7 @@ flash_cross_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* q_bh = q + static_cast<size_t>(b) * q_len * ld + h * HD;
   const bf16* k_bh = k + static_cast<size_t>(b) * kv_len * ld + h * HD;
   const bf16* v_bh = v + static_cast<size_t>(b) * kv_len * ld + h * HD;
-  bf16* o_bh = o + static_cast<size_t>(b) * q_len * ld + h * HD;
+  const size_t o_bh = static_cast<size_t>(b) * q_len * ld + h * HD;  // elements
   const int tile0 = blockIdx.x * tiles_per_block;
   const int tiles = min(tiles_per_block, (q_len + kBlockQ - 1) / kBlockQ - tile0);
 
@@ -281,8 +287,9 @@ flash_cross_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // O / l -> bf16 into this warp's Q rows (its own: no other warp reads
-    // them), then 16-byte stores of whole rows
+    // O / l: fp32 straight from the accumulator; or bf16 into this warp's Q
+    // rows (its own: no other warp reads them), then 16-byte stores of whole
+    // rows
     float l0 = st.l0, l1 = st.l1;
     l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
     l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
@@ -290,6 +297,21 @@ flash_cross_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float inv0 = 1.f / l0, inv1 = 1.f / l1;
     const int c2 = (lane % 4) * 2;
+    const int row0 = (tile0 + t) * kBlockQ + warp * 16;
+    if (o_fp32) {  // fp32 rows straight from the accumulator
+      float* o_w = static_cast<float*>(o_ptr) + o_bh + c2;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        if (row0 + g < q_len)
+          *reinterpret_cast<float2*>(o_w + static_cast<size_t>(row0 + g) * ld + n * 8) =
+              make_float2(st.o[n][0] * inv0, st.o[n][1] * inv0);
+        if (row0 + g + 8 < q_len)
+          *reinterpret_cast<float2*>(o_w + static_cast<size_t>(row0 + g + 8) * ld + n * 8) =
+              make_float2(st.o[n][2] * inv1, st.o[n][3] * inv1);
+      }
+      __syncthreads();  // every warp is done with stage t & 1 (and with the chunk)
+      continue;
+    }
     __syncwarp();  // every lane's ldmatrix of these rows is done
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
@@ -299,11 +321,11 @@ flash_cross_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           __floats2bfloat162_rn(st.o[n][2] * inv1, st.o[n][3] * inv1);
     }
     __syncwarp();
-    const int row0 = (tile0 + t) * kBlockQ + warp * 16;
+    bf16* o_w = static_cast<bf16*>(o_ptr) + o_bh;
     for (int i = lane; i < 16 * NT; i += 32) {
       const int r = i / NT, c = (i % NT) * 8;
       if (row0 + r < q_len)
-        *reinterpret_cast<uint4*>(o_bh + static_cast<size_t>(row0 + r) * ld + c) =
+        *reinterpret_cast<uint4*>(o_w + static_cast<size_t>(row0 + r) * ld + c) =
             *reinterpret_cast<const uint4*>(q_w + r * LD + c);
     }
     __syncthreads();  // every warp is done with stage t & 1 (and with the chunk)
@@ -313,7 +335,7 @@ flash_cross_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int batch, int q_len,
-                   int kv_len, int heads, cudaStream_t stream) {
+                   int kv_len, int heads, bool fp32, cudaStream_t stream) {
   using L = Plan<HD>;
   auto kern = flash_cross_kernel<HD>;
   const int smem = L::q + L::kv(std::min((kv_len + 15) / 16 * 16, L::chunk));
@@ -333,9 +355,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bat
   const int per_block = (q_tiles + ranges - 1) / ranges;
   const dim3 grid((q_tiles + per_block - 1) / per_block, pairs);
   kern<<<grid, L::threads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), q_len, kv_len, heads, per_block,
-      kLog2e / sqrtf(static_cast<float>(HD)));
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), o,
+      fp32, q_len, kv_len, heads, per_block,
+      fp32 ? 1.f : kLog2e / sqrtf(static_cast<float>(HD)));
   return cudaGetLastError();
 }
 
@@ -345,15 +367,17 @@ extern "C" {
 
 // q (batch, q_len, heads * hd), k and v (batch, kv_len, heads * hd), o like
 // q: bf16, contiguous, 16-byte aligned; hd 40, 80 or 160, any head count, any
-// q_len >= 1, 1 <= kv_len <= 512.
+// q_len >= 1, 1 <= kv_len <= 512. fp32 != 0: q holds q' (scaled by log2(e) /
+// sqrt(hd) and rounded to bf16 by the caller) and o is fp32.
 int md_flash_cross(const void* q, const void* k, const void* v, void* o, int batch, int q_len,
-                   int kv_len, int heads, int hd, void* stream) {
+                   int kv_len, int heads, int hd, int fp32, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (q_len < 1 || kv_len < 1 || kv_len > kMaxKeys) return cudaErrorInvalidValue;
+  const bool f = fp32 != 0;
   switch (hd) {
-    case 40: return launch<40>(q, k, v, o, batch, q_len, kv_len, heads, s);
-    case 80: return launch<80>(q, k, v, o, batch, q_len, kv_len, heads, s);
-    case 160: return launch<160>(q, k, v, o, batch, q_len, kv_len, heads, s);
+    case 40: return launch<40>(q, k, v, o, batch, q_len, kv_len, heads, f, s);
+    case 80: return launch<80>(q, k, v, o, batch, q_len, kv_len, heads, f, s);
+    case 160: return launch<160>(q, k, v, o, batch, q_len, kv_len, heads, f, s);
     default: return cudaErrorInvalidValue;
   }
 }

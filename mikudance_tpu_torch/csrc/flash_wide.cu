@@ -43,6 +43,10 @@
 // S_t is computed, K_{t+1} while the softmax and P V of tile t run. 227,840
 // bytes of shared memory, one block an SM. Any S: keys past S are masked to
 // p = 0, rows past S are not written.
+// fp32 requests (fp32 != 0 at the entry point): the TPU body rounds q, k and
+// v to bf16 before anything else, so the wrapper's cast of all three gives
+// the kernel the same bits; O / l is stored as fp32 from the accumulator,
+// never rounded to bf16. A runtime switch: only the store differs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -94,8 +98,8 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int row0,
 template <int kTag>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                  const bf16* __restrict__ v, bf16* __restrict__ o, int seq, int heads, int ld,
-                  float scale_log2) {
+                  const bf16* __restrict__ v, void* __restrict__ o, bool o_fp32, int seq,
+                  int heads, int ld, float scale_log2) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* q_s = reinterpret_cast<bf16*>(smem);
   bf16* k_s = reinterpret_cast<bf16*>(smem + kQBytes);
@@ -236,13 +240,23 @@ flash_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   if (part == 0) l_s[srow] = l;
   __syncthreads();
-  bf16* o_bh = o + head + col0 + c2;
+  bf16* o_bh = static_cast<bf16*>(o) + head + col0 + c2;
+  float* o32 = static_cast<float*>(o) + head + col0 + c2;
 #pragma unroll
   for (int mt = 0; mt < kBlockQ / 16; ++mt) {
     const int r0 = mt * 16 + g, r1 = r0 + 8;
     const float inv0 = 1.f / l_s[r0], inv1 = 1.f / l_s[r1];
 #pragma unroll
     for (int n = 0; n < kColsW / 8; ++n) {
+      if (o_fp32) {
+        if (q0 + r0 < seq)
+          *reinterpret_cast<float2*>(o32 + static_cast<size_t>(q0 + r0) * ld + n * 8) =
+              make_float2(oacc[mt][n][0] * inv0, oacc[mt][n][1] * inv0);
+        if (q0 + r1 < seq)
+          *reinterpret_cast<float2*>(o32 + static_cast<size_t>(q0 + r1) * ld + n * 8) =
+              make_float2(oacc[mt][n][2] * inv1, oacc[mt][n][3] * inv1);
+        continue;
+      }
       if (q0 + r0 < seq)
         *reinterpret_cast<__nv_bfloat162*>(o_bh + static_cast<size_t>(q0 + r0) * ld + n * 8) =
             __floats2bfloat162_rn(oacc[mt][n][0] * inv0, oacc[mt][n][1] * inv0);
@@ -255,15 +269,15 @@ flash_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int kTag>
 int launch(const void* q, const void* k, const void* v, void* o, int batch, int seq, int heads,
-           int hd, void* stream) {
+           int hd, int fp32, void* stream) {
   if (hd != kHD || seq < 1) return cudaErrorInvalidValue;
   auto kern = flash_wide_kernel<kTag>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((seq + kBlockQ - 1) / kBlockQ, batch * heads);
   kern<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), seq, heads, heads * kHD, kLog2e / sqrtf(static_cast<float>(kHD)));
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), o,
+      fp32 != 0, seq, heads, heads * kHD, kLog2e / sqrtf(static_cast<float>(kHD)));
   return cudaGetLastError();
 }
 
@@ -272,16 +286,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch, int 
 extern "C" {
 
 // q, k, v, o: (batch, seq, heads * 512) bf16, contiguous, 16-byte aligned
-// (cp.async's rule); any seq >= 1.
+// (cp.async's rule); any seq >= 1; fp32 != 0: o is fp32.
 int md_flash_wide(const void* q, const void* k, const void* v, void* o, int batch, int seq,
-                  int heads, int hd, void* stream) {
-  return launch<4>(q, k, v, o, batch, seq, heads, hd, stream);
+                  int heads, int hd, int fp32, void* stream) {
+  return launch<4>(q, k, v, o, batch, seq, heads, hd, fp32, stream);
 }
 
 // the same, K9's counter and symbol
 int md_flash_resident(const void* q, const void* k, const void* v, void* o, int batch, int seq,
-                      int heads, int hd, void* stream) {
-  return launch<9>(q, k, v, o, batch, seq, heads, hd, stream);
+                      int heads, int hd, int fp32, void* stream) {
+  return launch<9>(q, k, v, o, batch, seq, heads, hd, fp32, stream);
 }
 
 }  // extern "C"

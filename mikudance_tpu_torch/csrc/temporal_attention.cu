@@ -13,8 +13,9 @@
 //       tokens C apart (the UNet mid-block's self-attention on a map of at
 //       most 32 tokens).
 //
-// Per (sequence, head), heads of 40, 80 or 160 packed in C, as both TPU
-// bodies compute it:
+// Per (sequence, head), heads of 40, 80 or 160 packed in C (and 8, 16 or 24:
+// the tiny twins' 4 heads at 32, 64 and 96 channels that verify_parity
+// --selfcheck drives), as both TPU bodies compute it:
 //     q' = bf16(q * (log2(e) / sqrt(hd)))      scaled in fp32, then rounded
 //     s  = q' . bf16(k)                        fp32 accumulation
 //     p  = exp2(s - max_j s)                   keys past T masked
@@ -51,6 +52,12 @@
 // whole rows with 16-byte stores. wgmma's 64-row minimum would waste 2-4x on
 // masked scores; at these sizes the products are not the limit, so mma.sync
 // is the unit.
+// fp32 requests (fp32 != 0 at the entry points): the wrapper hands the kernel
+// q' = bf16(q * log2(e) / sqrt(hd)), scaled in fp32 and rounded once as the
+// TPU bodies do, so the kernel's own factor is exactly 1, with K and V cast
+// to bf16 (the bodies round them first: the same bits); O is stored as fp32
+// straight from the accumulator (a quad writes a row's 32 contiguous bytes of
+// a head), never rounded to bf16. A runtime switch: only the store differs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,8 +93,8 @@ struct Rows {
 template <int kTag, int HD, int TP>
 __global__ void __launch_bounds__(kMaxThreads, 2)
 short_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ o, const Rows rows, int T,
-                       int ns, int gh, int groups, float q_mult) {
+                       const bf16* __restrict__ v, void* __restrict__ o, bool o_fp32,
+                       const Rows rows, int T, int ns, int gh, int groups, float q_mult) {
   constexpr int KS = (HD + 15) / 16;       // k16 steps of Q' K^T
   constexpr int NO = HD / 8;               // n8 tiles of O
   constexpr int NOH = NO > 10 ? NO / 2 : NO;  // of them at once (hd 160: two halves)
@@ -190,9 +197,13 @@ short_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       pa[kk][3] =
           pack_bf16(__fdiv_rn(sacc[2 * kk + 1][2], l1), __fdiv_rn(sacc[2 * kk + 1][3], l1));
     }
-    // all of this row tile's Q fragments are read: its rows take O
+    // all of this row tile's Q fragments are read: its rows take O (bf16), or
+    // O goes straight to memory (fp32): token 16 mt + g and 16 mt + g + 8
     __syncwarp();
     bf16* orow = qu + g * ld + c2;
+    const int tok = 16 * mt + g;
+    float* o32 = static_cast<float*>(o) + base + (s0 + s) * rows.inner_stride +
+                 tok * rows.token_stride + hc + c2;
 #pragma unroll
     for (int h0 = 0; h0 < NO; h0 += NOH) {
       float oacc[NOH][4];
@@ -217,24 +228,35 @@ short_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
 #pragma unroll
       for (int n = 0; n < NOH; ++n) {
+        if (o_fp32) {
+          if (tok < T)
+            *reinterpret_cast<float2*>(o32 + 8 * (h0 + n)) = make_float2(oacc[n][0], oacc[n][1]);
+          if (tok + 8 < T)
+            *reinterpret_cast<float2*>(o32 + 8 * rows.token_stride + 8 * (h0 + n)) =
+                make_float2(oacc[n][2], oacc[n][3]);
+          continue;
+        }
         *reinterpret_cast<uint32_t*>(orow + 8 * (h0 + n)) = pack_bf16(oacc[n][0], oacc[n][1]);
         *reinterpret_cast<uint32_t*>(orow + 8 * ld + 8 * (h0 + n)) =
             pack_bf16(oacc[n][2], oacc[n][3]);
       }
     }
   }
+  if (o_fp32) return;
   __syncthreads();
   for (int i = threadIdx.x; i < R * chunks; i += threads) {
     const int r = i / chunks, c = (i - r * chunks) * 8, s = r / TP, t = r % TP;
     if (t < T && s0 + s < rows.inner)
-      *reinterpret_cast<uint4*>(o + base + (s0 + s) * rows.inner_stride + t * rows.token_stride +
-                                c) = *reinterpret_cast<const uint4*>(qs + r * ld + c);
+      *reinterpret_cast<uint4*>(static_cast<bf16*>(o) + base + (s0 + s) * rows.inner_stride +
+                                t * rows.token_stride + c) =
+          *reinterpret_cast<const uint4*>(qs + r * ld + c);
   }
 }
 
 template <int kTag, int HD, int TP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, const Rows& rows,
-                   int outer, int T, int heads, int ns, int gh, int warps, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, bool fp32,
+                   const Rows& rows, int outer, int T, int heads, int ns, int gh, int warps,
+                   cudaStream_t stream) {
   auto kern = short_attention_kernel<kTag, HD, TP>;
   // once a process, at the most any plan may ask for
   static const cudaError_t attr =
@@ -244,19 +266,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, const R
   const int groups = heads / gh;
   const long long blocks = static_cast<long long>((rows.inner + ns - 1) / ns) * groups;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  // log2(e) / sqrt(hd) as the TPU body's fp32 constant: the double product, rounded
-  const float q_mult = static_cast<float>(1.0 / sqrt(static_cast<double>(HD)) * kLog2e);
+  // log2(e) / sqrt(hd) as the TPU body's fp32 constant: the double product,
+  // rounded; 1 where the caller scaled and rounded q (fp32)
+  const float q_mult =
+      fp32 ? 1.f : static_cast<float>(1.0 / sqrt(static_cast<double>(HD)) * kLog2e);
   kern<<<dim3(static_cast<unsigned>(blocks), outer), 32 * warps, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), rows, T, ns, gh, groups, q_mult);
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v), o,
+      fp32, rows, T, ns, gh, groups, q_mult);
   return cudaGetLastError();
 }
 
-// hd 40, 80 or 160; 1 <= T <= 32; a tile of ns sequences (ns * TP <= 32 rows)
-// by gh heads (gh divides heads, gh * hd <= 320 channels); 1 to 8 warps a block
+// hd 8, 16, 24, 40, 80 or 160; 1 <= T <= 32; a tile of ns sequences (ns * TP
+// <= 32 rows) by gh heads (gh divides heads, gh * hd <= 320 channels); 1 to 8
+// warps a block
 template <int kTag>
-int dispatch(const void* q, const void* k, const void* v, void* o, const Rows& rows, int outer,
-             int T, int channels, int heads, int ns, int gh, int warps, void* stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o, int fp32, const Rows& rows,
+             int outer, int T, int channels, int heads, int ns, int gh, int warps,
+             void* stream) {
   if (heads < 1 || channels % heads != 0 || T < 1 || T > kMaxTokens || rows.inner < 1 ||
       outer < 1 || outer > 65535 || ns < 1 || gh < 1 || heads % gh != 0 || warps < 1 ||
       32 * warps > kMaxThreads)
@@ -264,15 +290,17 @@ int dispatch(const void* q, const void* k, const void* v, void* o, const Rows& r
   const int hd = channels / heads, tp = T > 16 ? 32 : 16;
   if (ns * tp > kTileRows || gh * hd > kGroupChannels) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool f = fp32 != 0;
+#define MD_SHORT(HD, TP)                                                                   \
+  case HD * 100 + TP:                                                                      \
+    return launch<kTag, HD, TP>(q, k, v, o, f, rows, outer, T, heads, ns, gh, warps, s);
   switch (hd * 100 + tp) {
-    case 4016: return launch<kTag, 40, 16>(q, k, v, o, rows, outer, T, heads, ns, gh, warps, s);
-    case 4032: return launch<kTag, 40, 32>(q, k, v, o, rows, outer, T, heads, ns, gh, warps, s);
-    case 8016: return launch<kTag, 80, 16>(q, k, v, o, rows, outer, T, heads, ns, gh, warps, s);
-    case 8032: return launch<kTag, 80, 32>(q, k, v, o, rows, outer, T, heads, ns, gh, warps, s);
-    case 16016: return launch<kTag, 160, 16>(q, k, v, o, rows, outer, T, heads, ns, gh, warps, s);
-    case 16032: return launch<kTag, 160, 32>(q, k, v, o, rows, outer, T, heads, ns, gh, warps, s);
+    MD_SHORT(8, 16) MD_SHORT(8, 32) MD_SHORT(16, 16) MD_SHORT(16, 32) MD_SHORT(24, 16)
+    MD_SHORT(24, 32) MD_SHORT(40, 16) MD_SHORT(40, 32) MD_SHORT(80, 16) MD_SHORT(80, 32)
+    MD_SHORT(160, 16) MD_SHORT(160, 32)
     default: return cudaErrorInvalidValue;
   }
+#undef MD_SHORT
 }
 
 }  // namespace
@@ -280,23 +308,25 @@ int dispatch(const void* q, const void* k, const void* v, void* o, const Rows& r
 extern "C" {
 
 // q, k, v, o: (batch, frames, positions, channels) bf16, contiguous, 16-byte
-// aligned; a sequence is one (batch, position). K3's counter and symbol.
+// aligned; a sequence is one (batch, position); fp32 != 0: q holds q' (scaled
+// by log2(e) / sqrt(hd) and rounded to bf16 by the caller) and o is fp32.
+// K3's counter and symbol.
 int md_temporal_attention(const void* q, const void* k, const void* v, void* o, int batch,
                           int frames, int positions, int channels, int heads, int seqs_per_tile,
-                          int heads_per_tile, int warps, void* stream) {
+                          int heads_per_tile, int warps, int fp32, void* stream) {
   const long long pc = static_cast<long long>(positions) * channels;
   const Rows rows{frames * pc, channels, pc, positions};
-  return dispatch<3>(q, k, v, o, rows, batch, frames, channels, heads, seqs_per_tile,
+  return dispatch<3>(q, k, v, o, fp32, rows, batch, frames, channels, heads, seqs_per_tile,
                      heads_per_tile, warps, stream);
 }
 
 // q, k, v, o: (sequences, tokens, channels) bf16, contiguous, 16-byte
-// aligned. K13's counter and symbol.
+// aligned; fp32 as above. K13's counter and symbol.
 int md_small_attention(const void* q, const void* k, const void* v, void* o, int sequences,
                        int tokens, int channels, int heads, int seqs_per_tile, int heads_per_tile,
-                       int warps, void* stream) {
+                       int warps, int fp32, void* stream) {
   const Rows rows{0, static_cast<long long>(tokens) * channels, channels, sequences};
-  return dispatch<13>(q, k, v, o, rows, 1, tokens, channels, heads, seqs_per_tile,
+  return dispatch<13>(q, k, v, o, fp32, rows, 1, tokens, channels, heads, seqs_per_tile,
                       heads_per_tile, warps, stream);
 }
 

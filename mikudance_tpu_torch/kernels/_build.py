@@ -28,20 +28,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 P, I, L, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C entry point -> argument types; every entry point returns cudaGetLastError().
 SIGNATURES = {
-    # q, k, v, o, batch, seq, heads, head_dim, stream
-    "md_flash_fullc": (P, P, P, P, I, I, I, I, P),
-    # q, k, v, o, batch, q_len, kv_len, heads, head_dim, stream
-    "md_flash_cross": (P, P, P, P, I, I, I, I, I, P),
-    # q, k, v, o, batch, seq, heads, head_dim, stream
-    "md_flash_wide": (P, P, P, P, I, I, I, I, P),
-    # q, k, v, o, batch, seq, heads, head_dim, stream
-    "md_flash_resident": (P, P, P, P, I, I, I, I, P),
+    # The attention entry points end with fp32 (0 / 1: q and o, or o alone where
+    # the caller scaled and rounded q, are fp32) and the stream.
+    # q, k, v, o, batch, seq, heads, head_dim, fp32, stream
+    "md_flash_fullc": (P, P, P, P, I, I, I, I, I, P),
+    # q, k, v, o, batch, q_len, kv_len, heads, head_dim, fp32, stream
+    "md_flash_cross": (P, P, P, P, I, I, I, I, I, I, P),
+    # q, k, v, o, batch, seq, heads, head_dim, fp32, stream
+    "md_flash_wide": (P, P, P, P, I, I, I, I, I, P),
+    # q, k, v, o, batch, seq, heads, head_dim, fp32, stream
+    "md_flash_resident": (P, P, P, P, I, I, I, I, I, P),
     # q, k, v, o, batch, frames, positions, channels, heads, sequences a tile, heads a tile,
-    # warps a block, stream
-    "md_temporal_attention": (P, P, P, P, I, I, I, I, I, I, I, I, P),
+    # warps a block, fp32, stream
+    "md_temporal_attention": (P, P, P, P, I, I, I, I, I, I, I, I, I, P),
     # q, k, v, o, sequences, tokens, channels, heads, sequences a tile, heads a tile,
-    # warps a block, stream
-    "md_small_attention": (P, P, P, P, I, I, I, I, I, I, I, P),
+    # warps a block, fp32, stream
+    "md_small_attention": (P, P, P, P, I, I, I, I, I, I, I, I, P),
     # x, weight, bias, y, scratch, images, rows, channels, groups, eps, silu, x_fp32,
     # w_fp32, cluster (0: streamed), slab, rows_per_block, splits, rows_per_split, chunk_w,
     # apply_blocks, stream
@@ -56,12 +58,12 @@ SIGNATURES = {
     # x, packed weight, bias, y, images, height, width, cin, cout, bias_fp32, tile width,
     # box width, box height, stream
     "md_conv3x3": (P, P, P, P, I, I, I, I, I, I, I, I, I, P),
-    # q, k, v, o, batch, seq, heads, head_dim, stream
-    "md_flash_anchor_resident": (P, P, P, P, I, I, I, I, P),
-    # q, k, v, o, batch, seq, heads, head_dim, stream
-    "md_flash_anchor_stream": (P, P, P, P, I, I, I, I, P),
-    # q, k, v, o, batch, seq, heads, head_dim, stream
-    "md_flash_fullc_t": (P, P, P, P, I, I, I, I, P),
+    # q, k, v, o, batch, seq, heads, head_dim, fp32, stream
+    "md_flash_anchor_resident": (P, P, P, P, I, I, I, I, I, P),
+    # q, k, v, o, batch, seq, heads, head_dim, fp32, stream
+    "md_flash_anchor_stream": (P, P, P, P, I, I, I, I, I, P),
+    # q, k, v, o, batch, seq, heads, head_dim, fp32, stream
+    "md_flash_fullc_t": (P, P, P, P, I, I, I, I, I, P),
     # pointer table (inputs, weights, vectors, output, scratch, barrier), batch, seq,
     # head_dim, context rows, real context rows, chunk, eps, stamps, stream
     "md_mega_block": (P, I, I, I, I, I, I, F, P, P),

@@ -109,7 +109,8 @@ def _check_operands(x, weight, bias, packed) -> None:
     for name, t in (("x", x), ("packed weight", packed)):
         if t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != x.device:
             raise ValueError(f"conv3x3_fused: {name} must be contiguous bf16 on x's device, got "
-                             f"{t.dtype} {tuple(t.shape)} strides {t.stride()}")
+                             f"{t.dtype} {tuple(t.shape)} strides {t.stride()} (K8 takes bf16 "
+                             "only: an fp32 request runs outside row_major())")
         if t.data_ptr() % 16:
             raise ValueError(f"conv3x3_fused: {name} must start on a 16-byte boundary")
     if bias is not None and (bias.shape != (cout,) or not bias.is_contiguous()

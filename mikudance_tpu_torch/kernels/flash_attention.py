@@ -41,6 +41,20 @@ anchor rounded to bf16 before it is subtracted (the JAX package calls its
 two kernels bit-identical, ``flash_attention.py:778-783``). The anchored
 functions equal the softmax only while the clamp does not bite.
 
+Operands: q, k and v are each bf16 or fp32, and the output has q's dtype,
+as the TPU kernels write ``o_ref.dtype`` from their fp32 accumulators. Every
+TPU body rounds its operands to bf16 inside, so an fp32 request runs through
+the same kernels by the same routes (both packages count K/V bytes at 2 an
+element): K and V go to the kernels cast to bf16, which is where the bodies
+round them; q goes as fp32 to the anchored kernel (K1, K10-K12: q' and the
+self-score anchor come from the unrounded q), as bf16(q * log2(e) / sqrt(hd))
+to K2 (its body's q', scaled in fp32 and rounded once here, the kernel's own
+scale then 1), cast to bf16 for K4 and K9 (whose body rounds q first); an
+fp32 output is stored from the accumulator, never rounded to bf16. The
+rounded plain versions on the card are ``anchored_attention`` /
+``anchored_attention_t`` (fp32 q as above), ``cross_attention_rounded`` (K2)
+and ``wide_attention_rounded`` (K4, K9).
+
 Every wrapper is differentiable (``_autograd.differentiable``): the backward
 of all of them is the chunked dense recompute of the exact softmax
 (``_autograd.flash_backward``), as the JAX package's ``_flash_bwd``.
@@ -61,7 +75,8 @@ import torch
 
 from ._autograd import differentiable, flash_vjp
 from ._build import CudaKernel
-from .temporal_attention import MAX_FRAMES, small_sequence_attention, temporal_attention
+from .temporal_attention import (MAX_FRAMES, rounded_q, small_sequence_attention,
+                                 temporal_attention)
 
 _TPU = "mikudance_tpu/kernels/flash_attention.py"
 K1 = CudaKernel("K1 flash_attention_fullc", "md_flash_fullc",
@@ -101,9 +116,15 @@ MAX_CROSS_KEYS = 512
 # Head widths the kernels take (the CUDA sources instantiate these): packed
 # K1, K2 and K10-K12 at SD1.5's three UNet levels (320, 640 and 1280 channels
 # in 8 heads; level 2 takes a flash route from 1024 tokens, 1024^2 up), wide
-# K4 and K9 in the VAE mid-block.
+# K4 and K9 in the VAE mid-block. K1 also takes heads of 32: the tiny VAE of
+# the SD-width fidelity gate (``scripts/psnr_sd_width.py``) has one head of 32
+# in its mid-block, 9216 tokens at 768^2, which the JAX package sends to
+# ``flash_attention_fullc_nt``.
 PACKED_HEAD_DIMS = (40, 80, 160)
+FULLC_HEAD_DIMS = (32,) + PACKED_HEAD_DIMS
 WIDE_HEAD_DIMS = (512,)
+# What q, k and v may each be (the output takes q's dtype).
+OPERAND_DTYPES = (torch.bfloat16, torch.float32)
 # One head's bf16 K and V together, up to which the JAX package keeps them on
 # chip (K9's route; above it, K4's).
 RESIDENT_KV_BYTES = 6 * 1024 * 1024
@@ -134,6 +155,64 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         w = torch.softmax(s, dim=-1).to(v.dtype)
         out[i:i + n] = torch.matmul(w, vh[i:i + n])
     return out.reshape(B, heads, Sq, hd).transpose(1, 2).reshape(B, Sq, C)
+
+
+def _bf16f(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).float()
+
+
+def _rounded_attention(q, k, v, heads: int, step) -> torch.Tensor:
+    """Per chunk of batch x heads (fp32 scores bounded as the plain version's),
+    ``step(q, k, v)`` on one chunk's (n, S, hd) slices; the output in q's
+    dtype."""
+    B, Sq, C = q.shape
+    Sk = k.shape[1]
+    hd = C // heads
+
+    def split(x, s):
+        return x.reshape(B, s, heads, hd).transpose(1, 2).reshape(B * heads, s, hd)
+
+    qh, kh, vh = split(q, Sq), split(k, Sk), split(v, Sk)
+    out = torch.empty(B * heads, Sq, hd, dtype=q.dtype, device=q.device)
+    n = max(1, PLAIN_SCORE_BYTES // (Sq * Sk * 4))
+    for i in range(0, B * heads, n):
+        out[i:i + n] = step(qh[i:i + n], kh[i:i + n], vh[i:i + n]).to(q.dtype)
+    return out.reshape(B, heads, Sq, hd).transpose(1, 2).reshape(B, Sq, C)
+
+
+def cross_attention_rounded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            heads: int) -> torch.Tensor:
+    """What K2's TPU body (``_cross_kernel_fullc``) computes, per head: q' =
+    bf16(q * log2(e) / sqrt(hd)) scaled in fp32, s = q' . bf16(k) in fp32, p =
+    exp2(s - max s), o = bf16(p / sum p) . bf16(v) in fp32, in q's dtype. The
+    kernel rounds p before the division by the sum (over the unrounded p)."""
+    mult = 1.0 / math.sqrt(q.shape[-1] // heads) * LOG2E
+
+    def step(qc, kc, vc):
+        s = torch.matmul(_bf16f(qc.float() * mult), _bf16f(kc).transpose(1, 2))
+        p = torch.exp2(s - s.amax(-1, keepdim=True))
+        return torch.matmul(_bf16f(p / p.sum(-1, keepdim=True)), _bf16f(vc))
+
+    return _rounded_attention(q, k, v, heads, step)
+
+
+def wide_attention_rounded(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           heads: int) -> torch.Tensor:
+    """What K4's and K9's TPU bodies (``_flash_kernel``,
+    ``_flash_kernel_resident``) compute, per head: q, k and v rounded to bf16
+    first, s = q . k * scale in fp32, p = exp(s - max s), l = sum p over the
+    unrounded p, o = (bf16(p) . v) / l in fp32, in q's dtype. The bodies take
+    the maximum online, a key block at a time, and round p against the running
+    maximum; here against the row's (the same where one block holds every
+    key)."""
+    scale = 1.0 / math.sqrt(q.shape[-1] // heads)
+
+    def step(qc, kc, vc):
+        s = torch.matmul(_bf16f(qc), _bf16f(kc).transpose(1, 2)) * scale
+        p = torch.exp(s - s.amax(-1, keepdim=True))
+        return torch.matmul(_bf16f(p), _bf16f(vc)) / p.sum(-1, keepdim=True)
+
+    return _rounded_attention(q, k, v, heads, step)
 
 
 def _anchored_chunks(q, k, heads: int, round_anchor: bool = False):
@@ -257,9 +336,10 @@ def _check_operands(name: str, q, k, v, heads: int, head_dims) -> int:
             or k.shape[2] != q.shape[2]:
         raise ValueError(f"{name}: need q (B, S, C) and k, v (B, S_kv, C), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if any(t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device
+    if any(t.dtype not in OPERAND_DTYPES or not t.is_contiguous() or t.device != q.device
            for t in (q, k, v)):
-        raise ValueError(f"{name}: q, k, v must be contiguous bf16 on one device")
+        raise ValueError(f"{name}: q, k, v must be contiguous bf16 or fp32 on one device, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):  # the kernels' 16-byte row loads
         raise ValueError(f"{name}: q, k, v must start on a 16-byte boundary")
     B, _, C = q.shape
@@ -270,10 +350,19 @@ def _check_operands(name: str, q, k, v, heads: int, head_dims) -> int:
     return C // heads
 
 
-def _launch(kernel: CudaKernel, q, k, v, *dims) -> torch.Tensor:
-    o = torch.empty_like(q)
-    kernel.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), *dims,
-                  torch.cuda.current_stream(q.device).cuda_stream)
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype == torch.bfloat16 else t.to(torch.bfloat16)
+
+
+def _launch(kernel: CudaKernel, dtype: torch.dtype, q, k, v, *dims) -> torch.Tensor:
+    """Launch on q as given (what the kernel reads) and k, v in bf16 (every
+    TPU body rounds them at load: the cast gives the same bits); the output in
+    ``dtype`` (the request's q's), the kernel told whether that is fp32. The
+    cast copies live until the launch is queued on the stream."""
+    kb, vb = _bf16(k), _bf16(v)
+    o = torch.empty(q.shape, dtype=dtype, device=q.device)
+    kernel.launch(q.data_ptr(), kb.data_ptr(), vb.data_ptr(), o.data_ptr(), *dims,
+                  int(dtype == torch.float32), torch.cuda.current_stream(q.device).cuda_stream)
     return o
 
 
@@ -292,13 +381,14 @@ def flash_attention_fullc(q, k, v, heads: int) -> torch.Tensor:
     """K1: the counterpart of the JAX package's ``flash_attention_fullc_nt``
     (``flash_attention.py:546``): packed-heads self-attention with the anchor
     rounded to bf16 (``anchored_attention_t``), q/k/v (B, S, C); any S. K12's
-    kernel under K1's entry point and counter, under TMA's 16-byte rule."""
+    kernel under K1's entry point and counter, under TMA's 16-byte rule; also
+    heads of 32 (``FULLC_HEAD_DIMS``)."""
     if q.device.type == "cpu":
         return anchored_attention_t(q, k, v, heads)
-    hd = _check_cuda("flash_attention_fullc", q, k, v, heads, PACKED_HEAD_DIMS)
+    hd = _check_cuda("flash_attention_fullc", q, k, v, heads, FULLC_HEAD_DIMS)
     if k.shape[1] != q.shape[1]:
         raise ValueError("flash_attention_fullc: self-attention needs S_kv == S")
-    return _launch(K1, q, k, v, q.shape[0], q.shape[1], heads, hd)
+    return _launch(K1, q.dtype, q, k, v, q.shape[0], q.shape[1], heads, hd)
 
 
 def _check_anchored(name: str, q, k, v, heads: int) -> int:
@@ -316,7 +406,7 @@ def flash_anchor_resident(q, k, v, heads: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return anchored_attention(q, k, v, heads)
     hd = _check_anchored("flash_anchor_resident", q, k, v, heads)
-    return _launch(K10, q, k, v, q.shape[0], q.shape[1], heads, hd)
+    return _launch(K10, q.dtype, q, k, v, q.shape[0], q.shape[1], heads, hd)
 
 
 @_differentiable
@@ -326,7 +416,7 @@ def flash_anchor_stream(q, k, v, heads: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return anchored_attention(q, k, v, heads)
     hd = _check_anchored("flash_anchor_stream", q, k, v, heads)
-    return _launch(K11, q, k, v, q.shape[0], q.shape[1], heads, hd)
+    return _launch(K11, q.dtype, q, k, v, q.shape[0], q.shape[1], heads, hd)
 
 
 @_differentiable
@@ -351,19 +441,21 @@ def flash_attention_fullc_t(q, k, v, heads: int) -> torch.Tensor:
     if q.device.type == "cpu":
         return anchored_attention_t(q, k, v, heads)
     hd = _check_anchored("flash_attention_fullc_t", q, k, v, heads)
-    return _launch(K12, q, k, v, q.shape[0], q.shape[1], heads, hd)
+    return _launch(K12, q.dtype, q, k, v, q.shape[0], q.shape[1], heads, hd)
 
 
 @_differentiable
 def cross_attention(q, k, v, heads: int) -> torch.Tensor:
-    """K2: q (B, S, C) against a short k/v (B, S_kv, C), 1 <= S_kv <= 512."""
+    """K2: q (B, S, C) against a short k/v (B, S_kv, C), 1 <= S_kv <= 512. An
+    fp32 q is scaled and rounded here, once, to the TPU body's q'."""
     if q.device.type == "cpu":
         return dot_product_attention(q, k, v, heads)
     hd = _check_cuda("cross_attention", q, k, v, heads, PACKED_HEAD_DIMS)
     if not 1 <= k.shape[1] <= MAX_CROSS_KEYS:
         raise ValueError(f"cross_attention: S_kv = {k.shape[1]}, the kernel holds 1 to "
                          f"{MAX_CROSS_KEYS} keys in shared memory")
-    return _launch(K2, q, k, v, q.shape[0], q.shape[1], k.shape[1], heads, hd)
+    qk = q if q.dtype == torch.bfloat16 else rounded_q(q, hd)
+    return _launch(K2, q.dtype, qk, k, v, q.shape[0], q.shape[1], k.shape[1], heads, hd)
 
 
 @_differentiable
@@ -374,7 +466,7 @@ def flash_attention_wide(q, k, v, heads: int) -> torch.Tensor:
     hd = _check_cuda("flash_attention_wide", q, k, v, heads, WIDE_HEAD_DIMS)
     if k.shape[1] != q.shape[1]:
         raise ValueError("flash_attention_wide: self-attention needs S_kv == S")
-    return _launch(K4, q, k, v, q.shape[0], q.shape[1], heads, hd)
+    return _launch(K4, q.dtype, _bf16(q), k, v, q.shape[0], q.shape[1], heads, hd)
 
 
 def resident_kv(S_kv: int, hd: int) -> bool:
@@ -392,7 +484,7 @@ def flash_attention_resident(q, k, v, heads: int) -> torch.Tensor:
     if k.shape[1] != q.shape[1] or not resident_kv(k.shape[1], hd):
         raise ValueError(f"flash_attention_resident: needs S_kv == S and S_kv * {hd} * 4 <= "
                          f"{RESIDENT_KV_BYTES} bytes, got S = {q.shape[1]}, S_kv = {k.shape[1]}")
-    return _launch(K9, q, k, v, q.shape[0], q.shape[1], heads, hd)
+    return _launch(K9, q.dtype, _bf16(q), k, v, q.shape[0], q.shape[1], heads, hd)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int) -> torch.Tensor:

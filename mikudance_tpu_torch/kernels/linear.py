@@ -19,7 +19,10 @@ version, as in the JAX package (``linear.py:131``), with no gradient for an
 absent bias or residual. The kernel takes bf16
 ``x`` of any leading shape ``(..., Cin)``, contiguous and 16-byte aligned,
 ``Cin`` and ``Cout`` multiples of 8, a bf16 weight, a bf16 or fp32 bias (or
-none) and a bf16 residual of the output's shape (or none).
+none) and a bf16 residual of the output's shape (or none). fp32 operands
+raise: the TPU body multiplies fp32 operands at ``Precision.DEFAULT``, and
+what that is inside Mosaic the code does not settle, so K7 stays bf16-only
+(the row-major configuration is for bf16 requests).
 """
 
 from __future__ import annotations
@@ -73,7 +76,8 @@ def _check_operands(x, w, b, residual) -> None:
                 or tuple(t.shape) != tuple(shape):
             raise ValueError(f"fused_linear: {name} must be a contiguous bf16 tensor of shape "
                              f"{tuple(shape)} on x's device, got {t.dtype} {tuple(t.shape)} "
-                             f"strides {t.stride()}")
+                             f"strides {t.stride()} (K7 takes bf16 only: an fp32 request runs "
+                             "outside row_major())")
         if t.data_ptr() % 16:
             raise ValueError(f"fused_linear: {name} must start on a 16-byte boundary")
     if b is not None and (b.shape != (cout,) or not b.is_contiguous() or b.device != x.device

@@ -17,6 +17,12 @@ normalised weights to bf16 before P V. ``temporal_attention_rounded`` (and
 its (N, T, C) view ``small_sequence_attention_rounded``) is that function in
 plain PyTorch: the kernels' plain version on the card.
 
+q, k and v are each bf16 or fp32 and the output has q's dtype, as the TPU
+kernels write ``o_ref.dtype``: an fp32 q goes to the kernel as its body's q' =
+bf16(q * log2(e) / sqrt(hd)), scaled in fp32 and rounded once here (the
+kernel's own factor is then 1), k and v cast to bf16 (the bodies round them
+first), and an fp32 output is stored from the accumulator.
+
 Dispatch is by the tensor's device alone: a CPU tensor goes to
 ``temporal_attention_plain`` / ``small_sequence_attention_plain``, the math
 of the JAX package's CPU path (``temporal_attention_xla`` :160,
@@ -49,8 +55,13 @@ K13 = CudaKernel(
 )
 
 MAX_FRAMES = 32
-# Head widths K3 and K13 take: the UNet's 8 heads at 320, 640 and 1280 channels.
-SMALL_HEAD_DIMS = (40, 80, 160)
+# Head widths K3 and K13 take: the UNet's 8 heads at 320, 640 and 1280
+# channels, and the tiny twins' 4 heads at 32, 64 and 96 channels (the motion
+# modules of ``scripts/verify_parity.py --selfcheck``, which the JAX package
+# sends to its kernel at any width).
+SMALL_HEAD_DIMS = (8, 16, 24, 40, 80, 160)
+# What q, k and v may each be (the output takes q's dtype).
+OPERAND_DTYPES = (torch.bfloat16, torch.float32)
 # Upper bound on the fp32 score bytes one chunk of the plain version holds.
 PLAIN_SCORE_BYTES = 1 << 30
 LOG2E = 1.4426950408889634
@@ -128,9 +139,25 @@ def _temporal_attention(q, k, v, heads: int) -> torch.Tensor:
     _check_operands(q, k, v, heads)
     B, T, P, C = q.shape
     plan = tile_plan(B, P, T, heads, C // heads, _sm_count(q.device.index))
+    return _launch(K3, q, k, v, heads, B, T, P, C, heads, *plan)
+
+
+def rounded_q(q: torch.Tensor, hd: int) -> torch.Tensor:
+    """The TPU bodies' q' = bf16(q * log2(e) / sqrt(hd)): scaled in fp32,
+    rounded once (K2, K3, K13 on fp32 q; the kernel's own factor is then 1)."""
+    return (q * (1.0 / math.sqrt(hd) * LOG2E)).to(torch.bfloat16)
+
+
+def _launch(kernel, q, k, v, heads: int, *dims) -> torch.Tensor:
+    """Launch with k and v in bf16 and q as is, or, fp32, as ``rounded_q``;
+    the output in q's dtype. The cast copies live until the launch is
+    queued."""
+    fp32 = q.dtype == torch.float32
+    qk = rounded_q(q, q.shape[-1] // heads) if fp32 else q
+    kb, vb = (t if t.dtype == torch.bfloat16 else t.to(torch.bfloat16) for t in (k, v))
     o = torch.empty_like(q)
-    K3.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, T, P, C, heads, *plan,
-              torch.cuda.current_stream(q.device).cuda_stream)
+    kernel.launch(qk.data_ptr(), kb.data_ptr(), vb.data_ptr(), o.data_ptr(), *dims, int(fp32),
+                  torch.cuda.current_stream(q.device).cuda_stream)
     return o
 
 
@@ -168,9 +195,10 @@ def _check_operands(q, k, v, heads: int) -> None:
         raise ValueError(f"temporal_attention: q, k, v must share a (B, T, P, C) shape, "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     B, T, P, C = q.shape
-    if any(t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device
+    if any(t.dtype not in OPERAND_DTYPES or not t.is_contiguous() or t.device != q.device
            for t in (q, k, v)):
-        raise ValueError("temporal_attention: q, k, v must be contiguous bf16 on one device")
+        raise ValueError("temporal_attention: q, k, v must be contiguous bf16 or fp32 on one "
+                         f"device, got {q.dtype}, {k.dtype}, {v.dtype}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):  # the kernel's 16-byte cp.async chunks
         raise ValueError("temporal_attention: q, k, v must start on a 16-byte boundary")
     if C % heads or C // heads not in SMALL_HEAD_DIMS or not 1 <= T <= MAX_FRAMES \
@@ -209,10 +237,7 @@ def _small_sequence_attention(q, k, v, heads: int) -> torch.Tensor:
     _check_small_operands(q, k, v, heads)
     N, T, C = q.shape
     plan = tile_plan(1, N, T, heads, C // heads, _sm_count(q.device.index))
-    o = torch.empty_like(q)
-    K13.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), N, T, C, heads, *plan,
-               torch.cuda.current_stream(q.device).cuda_stream)
-    return o
+    return _launch(K13, q, k, v, heads, N, T, C, heads, *plan)
 
 
 def _check_small_operands(q, k, v, heads: int) -> None:
@@ -220,10 +245,10 @@ def _check_small_operands(q, k, v, heads: int) -> None:
         raise ValueError(f"small_sequence_attention: q, k, v must share an (N, T, C) shape, "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     N, T, C = q.shape
-    if any(t.dtype != torch.bfloat16 or not t.is_contiguous() or t.device != q.device
+    if any(t.dtype not in OPERAND_DTYPES or not t.is_contiguous() or t.device != q.device
            for t in (q, k, v)):
-        raise ValueError("small_sequence_attention: q, k, v must be contiguous bf16 on one "
-                         "device")
+        raise ValueError("small_sequence_attention: q, k, v must be contiguous bf16 or fp32 on "
+                         f"one device, got {q.dtype}, {k.dtype}, {v.dtype}")
     if any(t.data_ptr() % 16 for t in (q, k, v)):  # the kernel's 16-byte cp.async chunks
         raise ValueError("small_sequence_attention: q, k, v must start on a 16-byte "
                          "boundary")

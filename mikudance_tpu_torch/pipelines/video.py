@@ -193,6 +193,19 @@ def guidance_context_for_windows(windows: np.ndarray, ctx_cond: torch.Tensor,
     return torch.where(mask, ctx_uncond, ctx_cond)
 
 
+def schedule_for(config: PipelineConfig) -> DDIMSchedule:
+    """The DDIM schedule a pipeline of ``config`` samples with."""
+    sc = config.scheduler
+    return DDIMSchedule.create(
+        beta_schedule=sc.beta_schedule,
+        prediction_type=sc.prediction_type,
+        rescale_betas_zero_snr=sc.rescale_betas_zero_snr,
+        num_train_timesteps=sc.num_train_timesteps,
+        beta_start=sc.beta_start,
+        beta_end=sc.beta_end,
+    )
+
+
 class VideoPipeline:
     """Host-side orchestrator of the sampler on one device."""
 
@@ -203,15 +216,7 @@ class VideoPipeline:
         self.device = resolve_device(device)
         self.bundle = bundle.to(self.device)
         self.config = config
-        sc = config.scheduler
-        self.schedule = schedule or DDIMSchedule.create(
-            beta_schedule=sc.beta_schedule,
-            prediction_type=sc.prediction_type,
-            rescale_betas_zero_snr=sc.rescale_betas_zero_snr,
-            num_train_timesteps=sc.num_train_timesteps,
-            beta_start=sc.beta_start,
-            beta_end=sc.beta_end,
-        )
+        self.schedule = schedule or schedule_for(config)
 
     def clip_context(self, ref_image) -> np.ndarray:
         """Reference picture -> the (1, 257, 768) CLIP tokens ``__call__``

@@ -536,7 +536,7 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
         ((m(1, 8, 64),) * 3, 3, pfa.PACKED_HEAD_DIMS, "head width"),
         ((m(1, 8, 48),) * 3, 1, pfa.PACKED_HEAD_DIMS, "head width"),  # no SD1.5 width
         ((m(1, 8, 384),) * 3, 1, pfa.WIDE_HEAD_DIMS, "head width"),
-        ((m(1, 8, 64, dtype=torch.float32), m(1, 8, 64), m(1, 8, 64)), 2,
+        ((m(1, 8, 64, dtype=torch.float16), m(1, 8, 64), m(1, 8, 64)), 2,
          pfa.PACKED_HEAD_DIMS, "bf16"),
         ((m(1, 8, 64), m(1, 8, 32), m(1, 8, 32)), 2, pfa.PACKED_HEAD_DIMS, "need q"),
         ((m(1, 8, 64), m(1, 8, 64).transpose(0, 1), m(1, 8, 64)), 2, pfa.PACKED_HEAD_DIMS,
@@ -569,7 +569,7 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
     ("long", "S_kv == S"), ("dtype", "bf16"), ("offset", "16-byte"),
 ])
 def test_resident_wrapper_refuses_what_the_kernel_does_not_take(case, match, monkeypatch):
-    """K9 takes heads of 512 over S <= 3072 self-attention tokens, bf16,
+    """K9 takes heads of 512 over S <= 3072 self-attention tokens, bf16 or fp32 (not fp16),
     16-byte aligned (K4's kernel, cp.async's rule); anything else raises
     before a launch."""
     def m(*s, dtype=torch.bfloat16):
@@ -584,7 +584,7 @@ def test_resident_wrapper_refuses_what_the_kernel_does_not_take(case, match, mon
     elif case == "long":
         q = k = v = m(1, 3088, 512)
     elif case == "dtype":
-        q = m(2, 1024, 512, dtype=torch.float32)
+        q = m(2, 1024, 512, dtype=torch.float16)
     elif case == "offset":  # 8 bytes in: off the 16-byte rule of K4's and K9's row loads
         q = k = v = torch.empty(4 + 1024 * 512, dtype=torch.bfloat16,
                                 device="meta")[4:].view(1, 1024, 512)
@@ -635,7 +635,7 @@ def test_small_sequence_wrapper_refuses_what_the_kernel_does_not_take(case, matc
     elif case == "width":
         q = k = v = m(64, 16, 384)  # heads of 48
     elif case == "dtype":
-        q = k = v = m(64, 16, 320, dtype=torch.float32)
+        q = k = v = m(64, 16, 320, dtype=torch.float16)
     elif case == "view":
         q = k = v = m(64, 16, 640)[..., :320]
     else:
@@ -914,12 +914,12 @@ def test_kernel_matches_plain_on_card(case, cuda):
     ("many-keys", "S_kv = 513"), ("no-keys", "S_kv = 0"), ("fits", None), ("fits-160", None),
 ])
 def test_cross_wrapper_refuses_what_the_kernel_does_not_take(case, match, monkeypatch):
-    """K2 takes bf16 heads of 40, 80 or 160 against 1 to 512 keys; anything
+    """K2 takes bf16 or fp32 heads of 40, 80 or 160 against 1 to 512 keys; anything
     else raises before a launch. ``match`` None: the 512 keys are taken, also
     at heads of 160."""
     q, k = _meta(2, 1024, 320), _meta(2, 257, 320)
     if case == "dtype":
-        q = _meta(2, 1024, 320, dtype=torch.float32)
+        q = _meta(2, 1024, 320, dtype=torch.float16)
     elif case == "width":
         q, k = _meta(2, 1024, 384), _meta(2, 257, 384)  # heads of 48
     elif case == "many-keys":
@@ -1024,8 +1024,8 @@ def test_conv_wrapper_refuses_what_the_kernel_does_not_take(case, match):
     ("flash_attention_fullc_t", "odd-heads", None),
 ])
 def test_anchored_wrappers_refuse_what_the_kernels_do_not_take(fn, case, match, monkeypatch):
-    """K10, K11 and K12 (one kernel under three entry points) take bf16
-    self-attention at head widths 40 and 80, any head count, on a 16-byte
+    """K10, K11 and K12 (one kernel under three entry points) take bf16 or
+    fp32 (not fp16) self-attention at head widths 40 and 80, any head count, on a 16-byte
     aligned base and row stride (TMA's rule for the K/V copies). ``match``
     None: the wrapper takes the operands and launches."""
     q = k = v = _meta(2, 1024, 320)
@@ -1042,7 +1042,7 @@ def test_anchored_wrappers_refuse_what_the_kernels_do_not_take(fn, case, match, 
     elif case == "offset-16":
         q = k = v = _meta(8 + 1024 * 320)[8:].view(1, 1024, 320)
     elif case == "dtype":
-        q = _meta(2, 1024, 320, dtype=torch.float32)
+        q = _meta(2, 1024, 320, dtype=torch.float16)
     if case != "device":  # let the meta tensors past the device check
         monkeypatch.setattr(pfa, "_check_cuda", lambda name, *a: pfa._check_operands(name, *a))
     launched = []
