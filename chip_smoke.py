@@ -11,6 +11,8 @@
     python3 chip_smoke.py --request-i   # phases 1-2, then request I (the toolbox) alone
     python3 chip_smoke.py --request-i --profile   # ... with UniPose's device time by part
     python3 chip_smoke.py --request-j   # phases 1-2, then request J (fp32, the SD-width gate) alone
+    python3 chip_smoke.py --request-k   # phases 1-2, the NCCL and all_to_all probes, then
+                                        # request K (4 ranks on the card) alone
 
 Phases, in order, one line each; any failure exits non-zero:
 
@@ -53,6 +55,30 @@ Phases, in order, one line each; any failure exits non-zero:
    plain version that rounds where its TPU body does, its bound counting 4
    bytes for q and o; the anchored kernels also run on bf16-rounded q, which
    must land farther from it. The record keeps these under ``fp32``;
+3b. request K, multi-GPU serving on the one card: each part once in a
+    process of its own with no process group (the reference) and on 4 gloo
+    ranks, each running ``VideoPipeline(..., mesh=make_mesh())`` on the same
+    seeded weights and inputs, 2 steps: K1 request B's geometry in bf16
+    (mesh win 2 x frame 2: an all_to_all pair a motion module, the 16-frame
+    chunk decoded 4 frames a rank with halos and summed moments); then the
+    same modules in fp32, TF32 off: K1 fp32 (B's geometry at 384^2), K2
+    request D's geometry with per-step banks, with cached banks between the
+    budget and 4x it (sharded on the ranks, streamed on one) and with
+    cached_q8 (two windows padded to four of weight 0, fusion sums
+    all-reduced), K3 a 64^2 clip (its 1 x 1 level gathers frames). Every
+    rank's latents must be bit-identical and its frames' digest equal; each
+    part's latents and decoded frames (floats) are held to the reference's
+    by relative L2 (``K_BF16_REL_L2`` for K1; the fp32 parts
+    ``K_F32_REL_L2``, ``K_F32_FRAMES_REL_L2``), with controls that must land
+    above (the all_to_all left out in K1 and K1 fp32, K2 per_step's pad
+    windows at weight 1, K1 fp32 decoded with zero halos), and K1's
+    attention and LayerNorm launches a rank must equal the reference's. The
+    line before the parts gives world size, backend, each rank's memory
+    cap (an equal share of the card, ``K_CONTEXT_GIB``) and the meshes (with
+    ``--request-k``, first the probes: NCCL with two ranks on the card,
+    refused, and gloo's all_to_all on CUDA tensors against a host-staged
+    one); each rank logs wall, phases, peak and launches. The ranks
+    time-share one card: the seconds measure no scaling;
 4. request A: ``VideoPipeline.__call__`` at the headline geometry (16 uint8
    frames at 768^2, SD1.5 widths, context 30/8, CFG 3.5, 20 DDIM steps,
    absent face/hand streams, ready-made CLIP tokens and zero flow, SD-VAE
@@ -289,6 +315,43 @@ K3_K13_LAUNCHES = {"request A": (840, 0), "request B": (840, 0), "image request"
                    "request F (default)": (378, 0), "request F (transposed)": (378, 0),
                    "stage-1 steps": (0, 0)}
 
+
+# Request K: multi-GPU serving on the one card. K_RANKS processes share it
+# over gloo (NCCL refuses two ranks on one device), each running the sampler
+# on a mesh of all of them, K_STEPS DDIM steps, against the same inputs'
+# one-rank run (a process of its own, no process group).
+# - K1: request B's geometry in bf16, the serving dtype. The ranks' UNet
+#   batches are a quarter of one device's, so bf16 roundings differ (2.4e-2
+#   measured on an H100): its limit K_BF16_REL_L2 and its control (the
+#   motion modules' all_to_all left out: 6.5e-2) show that the path runs,
+#   and no more.
+# - The gate is the fp32 parts, TF32 off, where only the order of fp32 sums
+#   differs (1.1e-4 to 4.1e-4 measured on an H100: the attention kernels
+#   still round K, V and P to bf16): K1 fp32, B's geometry at
+#   K1_F32_SIZE^2 (four fp32 ranks at 768^2 would not fit the card, one
+#   takes 33 GiB); K2 request D's geometry with per-step
+#   banks, with cached banks (a budget between the clip and K_RANKS times
+#   it: cached sharded on the ranks, streamed on one) and with cached_q8; K3
+#   a K3_SIZE^2 clip. Latents are held to the one-rank run at K_F32_REL_L2,
+#   the decoded frames (float, before the uint8 rounding) at
+#   K_F32_FRAMES_REL_L2. Controls, each of which must land above its limit:
+#   K1 fp32 without the all_to_all and K2 per_step with its pad windows at
+#   weight 1 (latents), K1 fp32's latents decoded with zero halos (frames).
+# Each rank's caching allocator is capped at an equal share of what the card
+# has free when the ranks start, less K_CONTEXT_GIB a rank for what lies
+# outside the allocator (its CUDA context, library handles). Without a cap
+# cuDNN's fp32 convolutions (TF32 off) take the largest workspace they can
+# allocate, the first rank to ask keeps it in its cache, and a later
+# allocation of another rank runs the card out of memory (K2 cached's banks
+# phase peaked at 13.75 to 20.57 GiB a rank, measured on an H100, and a run
+# could fail there); under a cap cuDNN takes a plan whose workspace fits
+# (17.11 GiB on every rank).
+K_RANKS, K_STEPS, K3_SIZE, K1_F32_SIZE = 4, 2, 64, 384
+K_CONTEXT_GIB = 1.5
+K_PARTS = ("K1", "K1 fp32", "K2 per_step", "K2 cached", "K2 cached_q8", "K3")
+K_BF16_REL_L2 = 4e-2
+K_F32_REL_L2 = 1e-3
+K_F32_FRAMES_REL_L2 = 1e-3
 
 # Request I: the toolbox's networks, fp32 with random seeded weights, as the
 # tool wrappers run them. UniPose: bench.py's XPose batch (10 frames at
@@ -697,6 +760,13 @@ def attention_cases(dev, only=()):
         (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(1, 20, 5184, 320)] * 3, 8),
         (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(1, 32, 576, 1280)] * 3, 8),
         (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(2, 1, 2304, 640)] * 3, 8),
+        # request K, one rank of B's geometry on (win 2, frame 2): after the
+        # motion modules' all_to_all a rank holds every frame of half the
+        # positions of one CFG half
+        (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(1, 16, 4608, 320)] * 3, 8),
+        (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(1, 16, 1152, 640)] * 3, 8),
+        (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(1, 16, 288, 1280)] * 3, 8),
+        (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(1, 16, 72, 1280)] * 3, 8),
         (fa.K4, fa.flash_attention_wide, fa.dot_product_attention, [(8, 9216, 512)] * 3, 1),
         (fa.K4, fa.flash_attention_wide, fa.dot_product_attention, [(4, 5184, 512)] * 3, 1),
         # the VAE encoder's chunk of 8 frames at 1024^2 (request H)
@@ -1702,9 +1772,9 @@ def run_request(pipe, inputs, steps: int, decode: bool = True):
     seen = []
     decode_to_host = pipe.decode_to_host
 
-    def spy(latents):  # the latents on their way to the decoder
+    def spy(latents, *mesh):  # the latents on their way to the decoder
         seen.append(latents)
-        return decode_to_host(latents)
+        return decode_to_host(latents, *mesh)
 
     pipe.decode_to_host = spy
     try:
@@ -1730,7 +1800,7 @@ def row_major_without_bank(pipe, inputs, steps: int):
         layers.TransformerBlock._chain = chain
 
 
-def run_request_b(pipe, seed: int, steps: int):
+def run_request_b(pipe, seed: int, steps: int, decode: bool = True, size: int = 0):
     """The CLI-shaped request: camera matrices and depth -> flow on the card,
     reference picture -> CLIP tokens through the bundle's tower, then the
     sampler with the bundle's decoder. Returns (frames, latents, timer, flow,
@@ -1738,8 +1808,9 @@ def run_request_b(pipe, seed: int, steps: int):
     from mikudance_tpu_torch.pipelines.scene_motion import scene_motion_flow
     from mikudance_tpu_torch.utils.profiling import Timer
 
-    w2c, c2w, depth, picture = make_camera(seed, T, H, W)
-    inputs = list(make_inputs(seed, T, H, W))
+    height, width = (size, size) if size else (H, W)
+    w2c, c2w, depth, picture = make_camera(seed, T, height, width)
+    inputs = list(make_inputs(seed, T, height, width))
     before = Timer(pipe.device)
     before.start()
     flow = scene_motion_flow(w2c, c2w, depth, device=pipe.device)
@@ -1747,7 +1818,7 @@ def run_request_b(pipe, seed: int, steps: int):
     tokens = pipe.clip_context(picture)
     before.mark("clip")
     inputs[0], inputs[5], inputs[6] = picture, flow, tokens
-    frames, latents, timer = run_request(pipe, inputs, steps)
+    frames, latents, timer = run_request(pipe, inputs, steps, decode)
     timer.phases = {**before.phases, **timer.phases}
     return frames, latents, timer, flow, tokens
 
@@ -2272,6 +2343,304 @@ def request_i(dev, profile: bool = False) -> dict:
     return out
 
 
+def kernel_list():
+    """K1-K14, in order."""
+    from mikudance_tpu_torch.kernels import conv2d as cv
+    from mikudance_tpu_torch.kernels import flash_attention as fa
+    from mikudance_tpu_torch.kernels import group_norm as gn
+    from mikudance_tpu_torch.kernels import layer_norm as ln
+    from mikudance_tpu_torch.kernels import linear as lin
+    from mikudance_tpu_torch.kernels import mega_block as mb
+    from mikudance_tpu_torch.kernels import temporal_attention as ta
+
+    return (fa.K1, fa.K2, ta.K3, fa.K4, gn.K5, ln.K6, lin.K7, cv.K8, fa.K9, fa.K10, fa.K11,
+            fa.K12, ta.K13, mb.K14)
+
+
+def request_k_rank(control: bool, probe: bool, memory_fraction: float = 1.0) -> dict:
+    """One rank of request K (in a world of one, its reference): the bundles
+    of requests A and B built from their seeds; K1 in bf16, then the same
+    modules in fp32 for K1 fp32, K2 (per_step, cached, cached_q8) and K3,
+    each through ``VideoPipeline`` with ``mesh=make_mesh()`` and decoded to
+    the host, the kernel counts at 0 before each; the rank's allocator capped
+    at ``memory_fraction`` of the card. Returns, per part, the
+    latents, the decoded frames as floats (rank 0), the uint8 frames'
+    digest, launches, wall seconds, phases and peak memory; with
+    ``control``, the controls' latents and frames; with ``probe``, gloo's
+    all_to_all on CUDA tensors against a host-staged one."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from mikudance_tpu_torch.core import mesh as mesh_lib
+    from mikudance_tpu_torch.core.configs import ContextConfig, PipelineConfig
+    from mikudance_tpu_torch.kernels import _build
+    from mikudance_tpu_torch.pipelines import video as video_lib
+    from mikudance_tpu_torch.pipelines.video import ModelBundle, VideoPipeline
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent process
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.cuda.set_per_process_memory_fraction(memory_fraction, dev)
+    _build.load()
+    kernels = kernel_list()
+    mesh = mesh_lib.make_mesh()
+    out = {"rank": mesh.rank, "world": mesh.size, "backend": mesh.backend}
+    if probe and mesh.size > 1:
+        # a rank's level-0 motion-module tokens in K1
+        x = torch.randn(1, 8, 9216, 320, device=dev).to(torch.bfloat16)
+        src = x.movedim(2, 0).reshape((mesh.size, -1) + x.shape[:2] + x.shape[3:]).contiguous()
+
+        def seconds(fn):
+            times = []
+            for _ in range(3):
+                dist.barrier()
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize(dev)
+                times.append(time.perf_counter() - t0)
+            return float(np.median(times))
+
+        def staged():
+            host = src.cpu()
+            got = torch.empty_like(host)
+            dist.all_to_all_single(got, host)
+            return got.to(dev)
+
+        native_s = seconds(lambda: dist.all_to_all_single(torch.empty_like(src), src))
+        out["all_to_all"] = (f"{src.numel() * 2 / 2**20:.0f} MiB a rank: on the CUDA tensors "
+                             f"{native_s * 1e3:.1f} ms, staged through host memory "
+                             f"{seconds(staged) * 1e3:.1f} ms")
+        del x, src
+    t0 = time.perf_counter()
+    bundle = build_bundle(0, dev)
+    clip, temporal = build_slice_b_parts(10, dev)
+    bundle_b = ModelBundle(bundle.guide, bundle.den, bundle.vae_enc, temporal, clip)
+    out["built_s"] = time.perf_counter() - t0
+
+    decoded = []  # the decoder's float output, chunk by chunk
+    decode_frames = video_lib.decode_frames
+
+    def spy_decode(*args, **kwargs):
+        y = decode_frames(*args, **kwargs)
+        decoded.append(y)
+        return y
+
+    video_lib.decode_frames = spy_decode
+
+    def pipe(b, size, **change):
+        return VideoPipeline(b, PipelineConfig(
+            width=size, height=size, num_inference_steps=K_STEPS, guidance_scale=3.5,
+            context=ContextConfig(frames=30, overlap=8), **change), device=dev, mesh=mesh)
+
+    def run_part(name, p, run):
+        for k in kernels:
+            k.launches = 0
+        decoded.clear()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        frames, latents, timer = run(p)
+        wall = time.perf_counter() - t0
+        chosen = [m.shape for m in p._meshes.values() if m is not None]
+        floats = torch.cat(decoded).float().cpu().numpy()
+        out[name] = {"latents": latents.float().cpu().numpy(),
+                     "frames": floats if mesh.rank == 0 else None,
+                     "frames_sha": hashlib.sha256(frames.tobytes()).hexdigest(),
+                     "frames_shape": frames.shape,
+                     "launches": {k.name: k.launches for k in kernels}, "wall": wall,
+                     "phases": phase_text(timer), "peak": max(timer.peaks.values()),
+                     "mesh": chosen[0] if chosen else None}
+        decoded.clear()
+        return latents
+
+    def without(cls, name, replacement, run):
+        """``run()`` with ``cls.name`` replaced (a control)."""
+        kept = getattr(cls, name)
+        setattr(cls, name, replacement)
+        try:
+            return run()
+        finally:
+            setattr(cls, name, kept)
+
+    # K1 in bf16, the serving dtype, and its control
+    k1 = pipe(bundle_b, H)
+    run_part("K1", k1, lambda p: run_request_b(p, 2, K_STEPS)[:3])
+    if control:
+        lat = without(mesh_lib.Mesh, "all_to_all", lambda self, x, *args: x,
+                      lambda: run_request_b(k1, 2, K_STEPS, decode=False)[1])
+        out["K1 control"] = lat.float().cpu().numpy()
+    del k1
+    torch.cuda.empty_cache()
+
+    # the same modules in fp32
+    for m in (bundle.guide, bundle.den, bundle.vae_enc, bundle.vae_dec, temporal, clip):
+        m.float()
+    torch.cuda.empty_cache()
+    d_budgets = dict(max_denoise_frame_batch=64, cached_bank_positions=64)
+    k1f = pipe(bundle_b, K1_F32_SIZE)
+
+    def request_b_f32(p, decode=True):
+        return run_request_b(p, 2, K_STEPS, decode, size=K1_F32_SIZE)
+
+    lat_k1f = run_part("K1 fp32", k1f, lambda p: request_b_f32(p)[:3])
+    k2 = pipe(bundle_b, D_SIZE, bank_mode="per_step", **d_budgets)
+    parts = (
+        ("K2 per_step", k2, lambda p: run_request_d(p, 8, K_STEPS, D_FRAMES, D_SIZE)[:3]),
+        ("K2 cached", pipe(bundle_b, D_SIZE, max_denoise_frame_batch=64,
+                           cached_bank_positions=32),
+         lambda p: run_request_d(p, 8, K_STEPS, D_FRAMES, D_SIZE)[:3]),
+        ("K2 cached_q8", pipe(bundle_b, D_SIZE, bank_mode="cached_q8", **d_budgets),
+         lambda p: run_request_d(p, 8, K_STEPS, D_FRAMES, D_SIZE)[:3]),
+        ("K3", pipe(bundle, K3_SIZE),
+         lambda p: run_request(p, make_inputs(11, T, K3_SIZE, K3_SIZE), K_STEPS)))
+    for name, p, run in parts:
+        run_part(name, p, run)
+        torch.cuda.empty_cache()
+    video_lib.decode_frames = decode_frames
+    if control:
+        # the motion modules' all_to_all left out
+        lat = without(mesh_lib.Mesh, "all_to_all", lambda self, x, *args: x,
+                      lambda: request_b_f32(k1f, decode=False)[1])
+        out["K1 fp32 control"] = lat.float().cpu().numpy()
+        # the pad windows at weight 1
+        streamed = k2._denoise_streamed
+
+        def padded_at_one(*args, win_w=None, **kwargs):
+            return streamed(*args, win_w=None if win_w is None else np.ones_like(win_w),
+                            **kwargs)
+
+        k2._denoise_streamed = padded_at_one
+        lat = run_request_d(k2, 8, K_STEPS, D_FRAMES, D_SIZE)[1]
+        del k2._denoise_streamed
+        out["K2 per_step control"] = lat.float().cpu().numpy()
+        # K1 fp32's latents decoded with zero halos
+        k1_mesh = next(m for m in k1f._meshes.values() if m is not None)
+        torch.cuda.empty_cache()
+        with torch.inference_mode():  # as the pipeline decodes
+            frames = without(mesh_lib.Mesh, "halo",
+                             lambda self, x, axis=None: (torch.zeros_like(x[:1]),) * 2,
+                             lambda: decode_frames(k1f.bundle.vae_dec, lat_k1f, k1_mesh))
+        out["K1 fp32 halo control"] = frames.float().cpu().numpy()
+    return out
+
+
+def nccl_probe_rank() -> float:
+    """One all_reduce over NCCL, every rank on card 0."""
+    x = torch.ones(8, device=torch.device("cuda", 0))
+    torch.distributed.all_reduce(x)
+    torch.cuda.synchronize()
+    return x[0].item()
+
+
+def request_k(dev, probe: bool = False) -> dict:
+    """Request K on the one card: the one-rank reference, then K_RANKS ranks
+    over gloo; each part's latents and decoded frames held to the
+    reference's, every rank's result identical, the controls beyond the
+    limits. With ``probe``: first NCCL with two ranks on the card (refused)
+    and gloo's all_to_all on CUDA tensors timed against a host-staged one.
+    Returns rank 0's launches in K1."""
+    from mikudance_tpu_torch.core import mesh as mesh_lib
+    from mikudance_tpu_torch.kernels import flash_attention as fa
+    from mikudance_tpu_torch.kernels import layer_norm as ln
+    from mikudance_tpu_torch.kernels import temporal_attention as ta
+
+    torch.cuda.empty_cache()
+    probes = ""
+    if probe:
+        try:
+            mesh_lib.spawn(2, nccl_probe_rank, backend="nccl", timeout=120)
+            nccl = "accepted"
+        except (RuntimeError, TimeoutError) as e:
+            # the last line of the first failing rank's traceback, before the
+            # message's closing line
+            lines = [s.strip() for s in str(e).splitlines() if s.strip()]
+            nccl = "refused: " + lines[-2 if len(lines) > 1 else -1][:300]
+        probes = f" | NCCL with 2 ranks on one card: {nccl}"
+    t0 = time.perf_counter()
+    ref = mesh_lib.spawn(1, request_k_rank, (False, False), timeout=600)[0]
+    ref_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    share = (free / 2**30 - K_RANKS * K_CONTEXT_GIB) / K_RANKS
+    t0 = time.perf_counter()
+    got = mesh_lib.spawn(K_RANKS, request_k_rank, (True, probe, share * 2**30 / total),
+                         timeout=900)
+    ranks_s = time.perf_counter() - t0
+    r0 = got[0]
+    if probe:
+        probes += f" | gloo's all_to_all of {r0['all_to_all']}"
+    log(f"request K: world {r0['world']}, backend {r0['backend']}; CUDA tensors staged "
+        f"through host memory for point-to-point only (the halos), gloo's collectives take "
+        f"them{probes} | each rank's allocator capped at {share:.2f} GiB ({free / 2**30:.2f} "
+        f"of {total / 2**30:.2f} GiB free, less {K_CONTEXT_GIB} GiB a rank, in "
+        f"{K_RANKS}) | meshes { {p: r0[p]['mesh'] for p in K_PARTS} } | one-rank process "
+        f"{ref_s:.1f} s, {K_RANKS} ranks {ranks_s:.1f} s (processes, bundles built in "
+        f"{[round(r['built_s'], 1) for r in got]} s); the ranks time-share one card and "
+        f"move their collectives through the host: no scaling is measured")
+    controls = {"K1": ("K1 control", "the all_to_all left out"),
+                "K1 fp32": ("K1 fp32 control", "the all_to_all left out"),
+                "K2 per_step": ("K2 per_step control", "the pad windows at weight 1")}
+    for part in K_PARTS:
+        want, mine = ref[part], r0[part]
+        for r in got:
+            check(np.array_equal(r[part]["latents"], mine["latents"])
+                  and r[part]["frames_sha"] == mine["frames_sha"],
+                  f"request K, {part}: rank {r['rank']}'s result differs from rank 0's")
+        lat, lat_ref = torch.from_numpy(mine["latents"]), torch.from_numpy(want["latents"])
+        check(lat.shape == lat_ref.shape and bool(torch.isfinite(lat).all())
+              and mine["frames_shape"] == want["frames_shape"]
+              and mine["frames"].shape == want["frames"].shape,
+              f"request K, {part}: latents {tuple(lat.shape)}, frames {mine['frames_shape']}")
+        fp32 = part != "K1"
+        limit = K_F32_REL_L2 if fp32 else K_BF16_REL_L2
+        rel = rel_l2(lat, lat_ref)
+        frames_rel = rel_l2(torch.from_numpy(mine["frames"]), torch.from_numpy(want["frames"]))
+        frames_max = float(np.abs(mine["frames"] - want["frames"]).max())
+        text = (f"request K, {part}: {mine['frames_shape'][0]}x{mine['frames_shape'][1]}^2, "
+                f"mesh {mine['mesh']}; against the one-rank run: latents relative L2 "
+                f"{rel:.3e} (limit {limit}), decoded frames relative L2 {frames_rel:.3e}"
+                + (f" (limit {K_F32_FRAMES_REL_L2})" if fp32 else "")
+                + f", max abs {frames_max:.3e} (frames in [-1, 1])"
+                + f" | one rank: {want['wall']:.3f} s | {want['phases']} | peak "
+                f"{want['peak']:.2f} GiB | launches {want['launches']}")
+        if part in controls:
+            key, what = controls[part]
+            rel_ctl = rel_l2(torch.from_numpy(r0[key]), lat_ref)
+            text += f" | control, {what}: {rel_ctl:.3e}"
+            check(rel_ctl > limit, f"request K, {part}: the control ({what}) {rel_ctl:.3e} "
+                                   f"under the limit {limit}")
+        if part == "K1 fp32":
+            halo_ctl = rel_l2(torch.from_numpy(r0["K1 fp32 halo control"]),
+                              torch.from_numpy(want["frames"]))
+            text += f" | control, the frames decoded with zero halos: {halo_ctl:.3e}"
+            check(halo_ctl > K_F32_FRAMES_REL_L2,
+                  f"request K, K1 fp32: the zero-halo control {halo_ctl:.3e} under the limit "
+                  f"{K_F32_FRAMES_REL_L2}")
+        log(text)
+        for r in got:
+            log(f"request K, {part}, rank {r['rank']}: {r[part]['wall']:.3f} s | "
+                f"{r[part]['phases']} | peak {r[part]['peak']:.2f} GiB | launches "
+                f"{r[part]['launches']}")
+        check(rel < limit, f"request K, {part}: latents {rel:.3e} from the one-rank run")
+        check(not fp32 or frames_rel < K_F32_FRAMES_REL_L2,
+              f"request K, {part}: decoded frames {frames_rel:.3e} from the one-rank run")
+        check(all(r[part]["launches"][ta.K3.name] > 0 for r in got),
+              f"request K, {part}: K3 launched on every rank")
+    # K1: every rank runs the UNets as often as one device does, at the same
+    # token counts, so the attention and LayerNorm kernels launch as often
+    for r in got:
+        for kern in (fa.K1, fa.K2, ta.K3, ln.K6):
+            n, n_ref = r["K1"]["launches"][kern.name], ref["K1"]["launches"][kern.name]
+            check(n == n_ref, f"request K, K1, rank {r['rank']}: {kern.name} launched {n} "
+                              f"times, the one-rank run {n_ref}")
+        ran = {k for k, n in r["K1"]["launches"].items() if n}
+        check(ran == {k for k, n in ref["K1"]["launches"].items() if n},
+              f"request K, K1, rank {r['rank']}: kernels {sorted(ran)}")
+    return r0["K1"]["launches"]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2291,6 +2660,9 @@ def main() -> int:
     ap.add_argument("--request-j", action="store_true",
                     help="build, then request J (fp32 requests, the SD-width fidelity gate, "
                          "verify_parity --selfcheck) alone")
+    ap.add_argument("--request-k", action="store_true",
+                    help="build, then request K (4 ranks on the card over gloo: the sharded "
+                         "sampler against its one-rank run) alone")
     args = ap.parse_args()
     # one card, the first visible one, fixed before CUDA initialises
     card = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0].strip()
@@ -2311,8 +2683,7 @@ def main() -> int:
     from mikudance_tpu_torch.pipelines.video import ModelBundle, VideoPipeline
 
     dev = torch.device("cuda", 0)
-    kernels = (fa.K1, fa.K2, ta.K3, fa.K4, gn.K5, ln.K6, lin.K7, cv.K8, fa.K9, fa.K10, fa.K11,
-               fa.K12, ta.K13, mb.K14)
+    kernels = kernel_list()
     # the row-major configuration's kernels launch only inside row_major();
     # K12 only inside transposed(); K14 is the probe's and on no model's path
     row_major_only = (lin.K7, cv.K8, fa.K10, fa.K11)
@@ -2715,6 +3086,9 @@ def main() -> int:
     if args.request_j:
         request_j(build_bundle(0, dev))
         return 0
+    if args.request_k:
+        request_k(dev, probe=True)
+        return 0
     if args.kernels:
         log((lib.with_suffix(".log")).read_text())
         phase_kernels(dev, tuple(args.kernels.split(",")))
@@ -2722,6 +3096,10 @@ def main() -> int:
 
     # 3. kernels against plain versions
     record = phase_kernels(dev)
+
+    # 3b. request K: the sampler on 4 ranks of the card, before the bundles
+    # below take the card's memory
+    launches_k = request_k(dev)
 
     # 4. request A at the headline geometry
     bundle, pipe, bundle_b, pipe_b = headline_pipes()
@@ -3013,6 +3391,7 @@ def main() -> int:
         rec["launches_request_h_row_major"] = launches_h_rm[rec["name"]]
         rec["launches_image_request"] = launches_i[rec["name"]]
         rec["launches_request_j3_fp32"] = launches_j3[rec["name"]]
+        rec["launches_request_k1_rank0"] = launches_k[rec["name"]]
     kern_line = {"kernels": list(record.values())}
     print(json.dumps(kern_line))
     print(smi)

@@ -11,16 +11,27 @@ Port of ``mikudance_tpu/models/motion_module.py`` (reference
 - the sinusoidal positional encoding (max_len 32) is added to the query
   path only: K/V come from the pre-PE tokens (`motion_module.py:404-417`);
 - ``proj_out`` starts at zero, so a fresh module is the identity.
+
+Frame sharding (``frame_axis``, a ``core.mesh.Axis``): when the frames of
+the map are split over the ranks of a mesh axis, everything here but the
+temporal attention is frame-local. One ``all_to_all`` turns frame-local
+tokens into position-sharded tokens that hold every frame, the attention
+blocks run on whole sequences with the whole positional encoding, and the
+inverse ``all_to_all`` restores the frame split; where the positions do not
+split over the ranks (tiny deep levels), the frames are gathered, every rank
+computes all of them and keeps its own. Both give the unsharded result.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..core.mesh import Axis
 from .layers import Attention, GEGLUFeedForward, GroupNorm, LayerNorm, remat_call
 
 
@@ -83,12 +94,23 @@ class TemporalTransformer(nn.Module):
         nn.init.zeros_(self.proj_out.weight)  # zero_initialize (reference :73-75)
         nn.init.zeros_(self.proj_out.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frame_axis: Optional[Axis] = None) -> torch.Tensor:
         B, T, H, W, C = x.shape
         h = self.norm(x.reshape(B * T, H, W, C)).reshape(B, T, H * W, C)
         h = self.proj_in(h)
+        sp = frame_axis.size if frame_axis is not None else 1
+        gathered = sp > 1 and (H * W) % sp != 0
+        if gathered:
+            h = frame_axis.all_gather(h, dim=1)
+        elif sp > 1:  # frame-local -> position-sharded, every frame present
+            h = frame_axis.all_to_all(h, split_dim=2, concat_dim=1)
         for block in self.transformer_blocks:
             h = block(h)
+        if gathered:
+            i = frame_axis.index()
+            h = h[:, i * T:(i + 1) * T]
+        elif sp > 1:
+            h = frame_axis.all_to_all(h, split_dim=1, concat_dim=2)
         h = self.proj_out(h).reshape(B, T, H, W, C)
         return h + x
 
@@ -104,5 +126,7 @@ class MotionModule(nn.Module):
             dim, heads, num_transformer_blocks, attention_layers, max_len, use_pe,
             norm_groups, remat)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.temporal_transformer(x)
+    def forward(self, x: torch.Tensor, frame_axis: Optional[Axis] = None) -> torch.Tensor:
+        """x: (B, T, H, W, C), the rank's T frames where ``frame_axis``
+        shards them."""
+        return self.temporal_transformer(x, frame_axis)

@@ -29,6 +29,7 @@ import torch
 from torch import nn
 
 from ..core.configs import DenoisingUNetConfig, GuidanceUNetConfig, UNetConfig
+from ..core.mesh import Axis
 from .layers import (GroupNorm, SpatialTransformer, TimestepEmbed, get_timestep_embedding,
                      remat_call)
 from .man import MANBlock
@@ -161,8 +162,11 @@ class _UNetBody(nn.Module):
             write: bool = False, motion_map: Optional[torch.Tensor] = None,
             banks_kv: Optional[Dict[str, KV]] = None,
             ctx_kv: Optional[Dict[str, KV]] = None,
-            ref_banks: Optional[Dict[str, torch.Tensor]] = None):
-        """x: (B*frames, H, W, C_in) NHWC. Returns (h, banks)."""
+            ref_banks: Optional[Dict[str, torch.Tensor]] = None,
+            frame_axis: Optional[Axis] = None):
+        """x: (B*frames, H, W, C_in) NHWC. Returns (h, banks). ``frame_axis``:
+        the mesh axis that shards the frames, threaded to every motion
+        module (all else here is frame-local)."""
         u = self.u
         dtype = self.conv_in.weight.dtype
         banks: Dict[str, torch.Tensor] = {}
@@ -174,7 +178,7 @@ class _UNetBody(nn.Module):
         def motion(mod, h):
             BT, hh, ww, c = h.shape
             h5 = h.reshape(BT // frames, frames, hh, ww, c)
-            return remat_call(self.remat, mod, h5).reshape(BT, hh, ww, c)
+            return remat_call(self.remat, mod, h5, frame_axis).reshape(BT, hh, ww, c)
 
         def attn(key, h):
             kv = None
@@ -252,15 +256,19 @@ class DenoisingUNet(_UNetBody):
                 context: Optional[torch.Tensor] = None,
                 banks_kv: Optional[Dict[str, KV]] = None,
                 ctx_kv: Optional[Dict[str, KV]] = None,
-                banks: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+                banks: Optional[Dict[str, torch.Tensor]] = None,
+                frame_axis: Optional[Axis] = None) -> torch.Tensor:
         """sample: (B, T, H, W, 4); timesteps: (B,); context: (B, S, 768),
         unused where ``ctx_kv`` (each (B, S, C_l)) is given; the banks either
         projected (``banks_kv``, pairs of (B*T, S_l, C_l)) or raw (``banks``,
         each (B*T, S_l, C_l)); with neither, plain self-attention. Returns
-        (B, T, H, W, 4)."""
+        (B, T, H, W, 4). Inside a mesh whose ``frame_axis`` shards the frames,
+        T is the rank's share and the motion modules reshard (the JAX
+        package's ``frame_axis`` / ``frame_shards``); the weights are the same."""
         B, T = sample.shape[:2]
         h, _ = self.run(sample.reshape((B * T,) + sample.shape[2:]), timesteps, context,
-                        frames=T, banks_kv=banks_kv, ctx_kv=ctx_kv, ref_banks=banks)
+                        frames=T, banks_kv=banks_kv, ctx_kv=ctx_kv, ref_banks=banks,
+                        frame_axis=frame_axis)
         h = conv_nhwc(self.conv_out, self.conv_norm_out(h))
         return h.reshape((B, T) + h.shape[1:])
 

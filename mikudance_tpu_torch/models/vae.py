@@ -171,6 +171,7 @@ class Decoder(nn.Module):
     # frames are independent; the chunk is a memory knob (the reference
     # decodes frame-at-a-time, `pipeline_mikudance.py:115-130`)
     decode_chunk = 4
+    frames_coupled = False
 
     def __init__(self, cfg: VAEConfig = VAEConfig()):
         super().__init__()

@@ -17,17 +17,25 @@ Layout: the decoder takes one chunk (T, h, w, 4), channels last. The temporal
 ResnetBlock's GroupNorms pool jointly over frames: the chunk goes through
 the GroupNorm kernel as one image (1, T, H, W, C).
 
-One chunk's frames on one device only: sharding a chunk's frames over
-devices (halo exchange, summed moments) is multi-GPU work and not here.
+Frame sharding (``frame_axis``, a ``core.mesh.Axis``): a chunk's frames
+split over the ranks of a mesh axis, consecutive frames a rank. A temporal
+convolution then takes its left neighbour's last frame and its right
+neighbour's first (zeros at the chunk's ends, torch's padding (1,0,0)) and
+runs with no temporal padding; a temporal block's GroupNorms sum their
+moments over the ranks (``joint_group_norm``, plain math as in the JAX
+package). The result is the unsharded decode's.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..core.configs import VAEConfig
+from ..core.mesh import Axis
 from .layers import GroupNorm
 from .resnet import conv3x3, conv_nhwc
 from .vae import VAEAttention, VAEResnetBlock, VAEUpsample
@@ -42,17 +50,42 @@ class TemporalConv(nn.Conv3d):
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__(in_channels, out_channels, (3, 1, 1), padding=(1, 0, 0))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frame_axis: Optional[Axis] = None) -> torch.Tensor:
         T, H, W, C = x.shape
-        plane = x.reshape(1, T, H * W, C).permute(0, 3, 1, 2)  # (1, C, T, H*W) view
-        y = F.conv2d(plane, self.weight[..., 0], self.bias, padding=(1, 0))
+        pad = 1
+        if frame_axis is not None and frame_axis.size > 1:
+            left, right = frame_axis.halo(x)  # the neighbours' edge frames, zeros at the ends
+            x, pad = torch.cat([left, x, right]), 0
+        plane = x.reshape(1, T + 2 - 2 * pad, H * W, C).permute(0, 3, 1, 2)  # (1, C, T', H*W)
+        y = F.conv2d(plane, self.weight[..., 0], self.bias, padding=(pad, 0))
         return y.permute(0, 2, 3, 1).reshape(T, H, W, self.out_channels)
+
+
+def joint_group_norm(norm: GroupNorm, x: torch.Tensor, frame_axis: Axis) -> torch.Tensor:
+    """``norm`` on the (T, H, W, C) frames of every rank of ``frame_axis``
+    pooled as one image: each rank's per-group sums of x and x^2 (fp32) are
+    summed over the ranks, then the affine (+SiLU) map runs on the rank's
+    own frames (the JAX package's ``JointGroupNorm``)."""
+    T, H, W, C = x.shape
+    G = norm.groups
+    xf = x.float().reshape(T * H * W, G, C // G)
+    moments = frame_axis.psum(torch.stack([xf.sum(dim=(0, 2)), xf.square().sum(dim=(0, 2))]))
+    cnt = float(T * H * W * (C // G) * frame_axis.size)
+    mu = moments[0] / cnt
+    a = torch.rsqrt(moments[1] / cnt - mu.square() + norm.eps)  # (G,)
+    a_c = a.repeat_interleave(C // G) * norm.weight.float()
+    b_c = norm.bias.float() - mu.repeat_interleave(C // G) * a_c
+    y = x.float() * a_c + b_c
+    if norm.silu:
+        y = y * torch.sigmoid(y)
+    return y.to(x.dtype)
 
 
 class TemporalResnetBlock(nn.Module):
     """GN-silu-temporal conv twice, plus the input. torch applies GroupNorm
     to the (B, C, T, H, W) video tensor: the statistics pool over frames
-    too, unlike the per-frame spatial norms."""
+    too, unlike the per-frame spatial norms (unsharded: kernel K5 on the
+    chunk as one image)."""
 
     def __init__(self, channels: int, norm_groups: int = 32):
         super().__init__()
@@ -61,9 +94,15 @@ class TemporalResnetBlock(nn.Module):
         self.norm2 = GroupNorm(norm_groups, channels, 1e-6, silu=True)
         self.conv2 = TemporalConv(channels, channels)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = self.conv1(self.norm1(x[None])[0])
-        h = self.conv2(self.norm2(h[None])[0])
+    def forward(self, x: torch.Tensor, frame_axis: Optional[Axis] = None) -> torch.Tensor:
+        if frame_axis is not None and frame_axis.size > 1:
+            def norm(m, v):
+                return joint_group_norm(m, v, frame_axis)
+        else:
+            def norm(m, v):
+                return m(v[None])[0]
+        h = self.conv1(norm(self.norm1, x), frame_axis)
+        h = self.conv2(norm(self.norm2, h), frame_axis)
         return x + h
 
 
@@ -83,9 +122,9 @@ class SpatioTemporalResBlock(nn.Module):
         self.temporal_res_block = TemporalResnetBlock(out_channels, norm_groups)
         self.time_mixer = _TimeMixer()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frame_axis: Optional[Axis] = None) -> torch.Tensor:
         spatial = self.spatial_res_block(x)  # frames are the batch axis
-        temporal = self.temporal_res_block(spatial)
+        temporal = self.temporal_res_block(spatial, frame_axis)
         alpha = torch.sigmoid(self.time_mixer.mix_factor.float())[0].to(spatial.dtype)
         return alpha * spatial + (1.0 - alpha) * temporal
 
@@ -97,8 +136,9 @@ class _TemporalMid(nn.Module):
             [SpatioTemporalResBlock(channels, channels, norm_groups) for _ in range(2)])
         self.attentions = nn.ModuleList([VAEAttention(channels, norm_groups)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.resnets[1](self.attentions[0](self.resnets[0](x)))
+    def forward(self, x: torch.Tensor, frame_axis: Optional[Axis] = None) -> torch.Tensor:
+        x = self.attentions[0](self.resnets[0](x, frame_axis))
+        return self.resnets[1](x, frame_axis)
 
 
 class _TemporalUp(nn.Module):
@@ -111,9 +151,9 @@ class _TemporalUp(nn.Module):
         if upsample:
             self.upsamplers = nn.ModuleList([VAEUpsample(channels)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, frame_axis: Optional[Axis] = None) -> torch.Tensor:
         for r in self.resnets:
-            x = r(x)
+            x = r(x, frame_axis)
         return self.upsamplers[0](x) if hasattr(self, "upsamplers") else x
 
 
@@ -132,16 +172,17 @@ class _TemporalDecoderBody(nn.Module):
         self.conv_out = conv3x3(rev[-1], cfg.out_channels)
         self.time_conv_out = TemporalConv(cfg.out_channels, cfg.out_channels)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        h = self.mid_block(conv_nhwc(self.conv_in, z))
+    def forward(self, z: torch.Tensor, frame_axis: Optional[Axis] = None) -> torch.Tensor:
+        h = self.mid_block(conv_nhwc(self.conv_in, z), frame_axis)
         for b in self.up_blocks:
-            h = b(h)
-        return self.time_conv_out(conv_nhwc(self.conv_out, self.conv_norm_out(h)))
+            h = b(h, frame_axis)
+        return self.time_conv_out(conv_nhwc(self.conv_out, self.conv_norm_out(h)), frame_axis)
 
 
 class TemporalDecoder(nn.Module):
     """Drop-in replacement for ``models.vae.Decoder``: one chunk of unscaled
-    latents (T, h, w, 4) -> images (T, 8h, 8w, 3) in about [-1, 1]."""
+    latents (T, h, w, 4) -> images (T, 8h, 8w, 3) in about [-1, 1]; with
+    ``frame_axis``, the rank's consecutive share of the chunk's frames."""
 
     # The chunk size is part of the numerical contract: temporal convs couple
     # the frames of a chunk, so 16 matches the reference
@@ -154,5 +195,5 @@ class TemporalDecoder(nn.Module):
         self.cfg = cfg
         self.decoder = _TemporalDecoderBody(cfg)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        return self.decoder(z.to(self.decoder.conv_in.weight.dtype))
+    def forward(self, z: torch.Tensor, frame_axis: Optional[Axis] = None) -> torch.Tensor:
+        return self.decoder(z.to(self.decoder.conv_in.weight.dtype), frame_axis)

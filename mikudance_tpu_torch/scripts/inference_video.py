@@ -11,6 +11,16 @@ files that the YAML names and the disk lacks leave their module at random
 init ("smoke mode"), so the whole path can be driven without checkpoints. A
 clip longer than one 30-frame window takes the long-clip bank tiers of
 ``VideoPipeline`` by itself (``PipelineConfig.bank_mode = "auto"``).
+
+On N cards, one process a card:
+
+    torchrun --nproc-per-node N -m mikudance_tpu_torch.scripts.inference_video \\
+        --config configs/inference/inference_video.yaml
+
+Under ``torchrun`` (``WORLD_SIZE`` > 1) the ranks join a process group (NCCL,
+card ``LOCAL_RANK``; gloo with ``--device cpu``), every rank loads the same
+weights and runs the same request over a mesh of all of them (the JAX CLI's
+multi-device path), and rank 0 alone writes the video.
 """
 
 from __future__ import annotations
@@ -99,11 +109,13 @@ def read_inference_config(path: str):
     return motion_cfg, sched_cfg
 
 
-def main(argv: Optional[Sequence[str]] = None) -> str:
-    """Runs one request; returns the path of the video it wrote."""
+def main(argv: Optional[Sequence[str]] = None) -> Optional[str]:
+    """Runs one request; returns the path of the video it wrote (None on a
+    rank other than 0)."""
     import yaml
 
     from ..core import loaders
+    from ..core import mesh as mesh_lib
     from ..core.configs import ContextConfig, PipelineConfig
     from ..core.params import resolve_device
     from ..pipelines.scene_motion import scene_motion_flow
@@ -113,7 +125,10 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     args = parse_args(argv)
     with open(args.config) as f:
         cfg = yaml.safe_load(f)
-    device = resolve_device(args.device)
+    # several processes under torchrun: one process group, one device a rank
+    device = mesh_lib.init_from_env(args.device) or resolve_device(args.device)
+    mesh = mesh_lib.make_mesh() if torch.distributed.is_initialized() else None
+    writer = mesh is None or mesh.rank == 0
 
     width, height = args.W, args.H
     assert width % 8 == 0 and height % 8 == 0, "W/H must be divisible by 8 (f8 VAE)"
@@ -184,7 +199,8 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         guidance_scale=args.cfg, context=ContextConfig(frames=30, overlap=8),
         **({"scheduler": sched_cfg} if sched_cfg else {}),
     )
-    pipe = VideoPipeline(ModelBundle(guide, den, enc, dec, clip), pcfg, device=device)
+    pipe = VideoPipeline(ModelBundle(guide, den, enc, dec, clip), pcfg, device=device,
+                         mesh=mesh)
 
     clip_ctx = pipe.clip_context(ref_pil)
     # torch's CPU generator, for bit-parity with the reference's randn_tensor
@@ -192,6 +208,8 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     noise = np.moveaxis(noise_ref[0], 0, -1)  # (T, h, w, 4)
 
     video = pipe(ref, skel, pose, face, hand, motion, clip_ctx, noise, to_host=True)
+    if not writer:  # every rank holds the video; rank 0 writes it
+        return None
 
     # ------------------------------------------------------------- save
     out = args.output
