@@ -13,6 +13,9 @@
     python3 chip_smoke.py --request-j   # phases 1-2, then request J (fp32, the SD-width gate) alone
     python3 chip_smoke.py --request-k   # phases 1-2, the NCCL and all_to_all probes, then
                                         # request K (4 ranks on the card) alone
+    python3 chip_smoke.py --request-l   # phases 1-2, then request L (the trainers on gloo
+                                        # ranks of the card, the graft entry) alone
+    python3 chip_smoke.py --request-d   # phases 1-2, then request D alone, D_RUNS times
 
 Phases, in order, one line each; any failure exits non-zero:
 
@@ -79,6 +82,32 @@ Phases, in order, one line each; any failure exits non-zero:
     refused, and gloo's all_to_all on CUDA tensors against a host-staged
     one); each rank logs wall, phases, peak and launches. The ranks
     time-share one card: the seconds measure no scaling;
+3c. request L, multi-GPU training on the one card: each part once in a
+    process of its own with no process group (the references of all parts
+    in one process) and on gloo ranks capped as request K's, every one running the trainer's ``main``
+    on synthetic batches from the same seeds (so the same global batch and
+    draws; the seeded init's all-zero tensors refilled, as everywhere in the
+    smoke, so that the motion modules' interior and their collectives'
+    backward carry a gradient from the first step). L1: request F's
+    geometry (``train_stage2``, 20 x 576^2, batch 1, bf16, remat on) on 4
+    ranks, the mesh ``choose_train_mesh`` picks (data 1 x frame 4: the
+    motion modules reshard by ``all_to_all`` and gather at 9 x 9), two
+    default steps and one inside ``kernels.transposed()``; L2: the same in
+    fp32, TF32 off, at 256^2 on 2 ranks; L3: ``train_stage1`` at 384^2, full
+    widths, batch 2 on 2 ranks, replicated and ZeRO. Held to the reference:
+    losses and gradient norms (the global ones every rank logs) and the
+    relative L2 of Adam's first moment, (1 - b1) times the clipped summed
+    gradient, over every trained tensor; L3's ZeRO step to the replicated
+    one (its final master values; its optimizer state at most 0.55x the
+    replicated bytes a rank); every rank's trained weights identical.
+    Controls beyond the limits: the all_to_all without its backward (L1, L2,
+    a step of its own), the gradients not all-reduced (L1, L2: the moment
+    the first step would take from this rank's gradients alone, read in the
+    default run), the clip's norm from the local shards alone (L3: the
+    moment rescaled by that clip). Each rank logs its phases (batch, forward, backward,
+    all-reduce, optimizer), peaks, optimizer-state bytes and launches (K1-K6,
+    K10 and K12 must launch on L's ranks). L4: ``graft_entry.entry()``'s
+    forward and ``graft_entry.dryrun_multichip(4)`` on the card's ranks;
 4. request A: ``VideoPipeline.__call__`` at the headline geometry (16 uint8
    frames at 768^2, SD1.5 widths, context 30/8, CFG 3.5, 20 DDIM steps,
    absent face/hand streams, ready-made CLIP tokens and zero flow, SD-VAE
@@ -185,8 +214,8 @@ those read when it was added (``H_LAUNCHES``).
 It prints the kernel record (one JSON object; ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` at each kernel's first shape; ``launches``
 from request B, for K9 and K13 from request D, for K7, K8, K10 and K11 from
-request E, for K12 from request F, for K14 from request G), the nvidia-smi
-line, and
+request E, for K12 from request F, for K14 from request G; request L's rank
+0 beside them), the nvidia-smi line, and
 last the result line. Uses one card, the first visible one; imports nothing
 of JAX.
 
@@ -244,6 +273,7 @@ LONG_STEPS = 2  # request C, the long clips
 # same cache back with its scales doubled and must land above the limit.
 Q8_REL_L2 = 1e-1
 D_FRAMES, D_SIZE, D_STEPS = 40, 256, 4  # request D, the CLI-shaped long clip
+D_RUNS = 3  # --request-d: request D alone, this many times in one process
 # Request E against warm request A, relative L2: the same function through
 # other kernels and another order of bf16 roundings, four steps deep at full
 # size (1.6e-2 for the latents and 1.1e-2 for the decoded frames measured on
@@ -352,6 +382,42 @@ K_PARTS = ("K1", "K1 fp32", "K2 per_step", "K2 cached", "K2 cached_q8", "K3")
 K_BF16_REL_L2 = 4e-2
 K_F32_REL_L2 = 1e-3
 K_F32_FRAMES_REL_L2 = 1e-3
+
+# Request L: multi-GPU training on the one card, gloo ranks time-sharing it
+# (capped as request K's), each part against its one-rank run (one process
+# for every part's reference, no process group) on the same seeds, so the
+# same global batch and draws:
+# - L1: request F's geometry, train_stage2 --synthetic (20 x 576^2, batch 1,
+#   remat on, bf16) on L1_RANKS ranks, the mesh choose_train_mesh picks (data
+#   1 x frame 4: the motion modules reshard by all_to_all at 5184, 1296 and
+#   324 positions and gather the frames at 81); L1_STEPS default steps and
+#   one inside kernels.transposed();
+# - L2: the same in fp32 (TF32 off) at L2_SIZE^2 on L2_RANKS ranks (four
+#   fp32 ranks do not fit the caps); its spread sets L1's limits;
+# - L3: train_stage1 --synthetic at L3_SIZE^2, full widths, batch L3_RANKS
+#   (one a rank: 768^2 does not fit two ranks), ZeRO against the replicated
+#   step on the same ranks (only the norm's sum order differs) and against
+#   the one-rank batch-2 step.
+# Held: the losses and gradient norms (the global ones every rank logs), and
+# the relative L2 of Adam's first moment mu after the steps, (1 - b1) times
+# the clipped summed gradient (after one step), over every trained tensor:
+# unlike the first update, lr g / (|g| + eps), it keeps the gradient's scale
+# and does not lift sum-order noise near eps. Controls, which must land
+# beyond the limits: the motion modules' all_to_all without its backward
+# (L1, L2); the gradients not all-reduced (L1, L2: the first moment this
+# rank's own gradients give, read in the default run); the clip on the
+# local shard's norm (L3: the moment rescaled by that clip over the global
+# one).
+L1_RANKS, L2_RANKS, L3_RANKS = 4, 2, 2
+L1_STEPS = 2
+L2_SIZE, L3_SIZE = 256, 384
+L_LIMITS = {  # relative: loss, gradient norm, first moment (relative L2)
+    "L2": (1e-5, 1e-5, 1e-3),
+    "L1": (1e-4, 1e-4, 6e-2),
+    "L3": (3e-4, 1e-3, 6e-2),
+}
+L3_ZERO_REL_L2, L3_ZERO_NORM_REL = 1e-5, 1e-5
+L_ZERO_BYTES = 0.55
 
 # Request I: the toolbox's networks, fp32 with random seeded weights, as the
 # tool wrappers run them. UniPose: bench.py's XPose batch (10 frames at
@@ -767,6 +833,13 @@ def attention_cases(dev, only=()):
         (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(1, 16, 1152, 640)] * 3, 8),
         (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(1, 16, 288, 1280)] * 3, 8),
         (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(1, 16, 72, 1280)] * 3, 8),
+        # request L1, one rank of the stage-2 step on (data 1, frame 4) at 576^2:
+        # after the all_to_all a rank holds all 20 frames of a quarter of the
+        # positions of levels 0-2 (5184, 1296, 324 -> 1296, 324, 81); the 9 x 9
+        # level gathers the frames (81 % 4 != 0), the last shape again
+        (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(1, 20, 1296, 320)] * 3, 8),
+        (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(1, 20, 324, 640)] * 3, 8),
+        (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(1, 20, 81, 1280)] * 3, 8),
         (fa.K4, fa.flash_attention_wide, fa.dot_product_attention, [(8, 9216, 512)] * 3, 1),
         (fa.K4, fa.flash_attention_wide, fa.dot_product_attention, [(4, 5184, 512)] * 3, 1),
         # the VAE encoder's chunk of 8 frames at 1024^2 (request H)
@@ -2641,6 +2714,528 @@ def request_k(dev, probe: bool = False) -> dict:
     return r0["K1"]["launches"]
 
 
+def local_copy(tensors: dict) -> dict:
+    """This rank's fp32 ``tensors`` (an optimizer's master values or first
+    moment: the whole tensors, or under ZeRO its shards), copied to host
+    memory."""
+    return {n: t.detach().to("cpu", torch.float32, copy=True) for n, t in tensors.items()}
+
+
+def l_training(stage: str, n_steps: int, out_dir: str, dev, keep=(), snap_steps=(),
+               **sections) -> dict:
+    """The trainer's ``main([...])`` on ``n_steps`` synthetic batches on every
+    rank of the process group (one rank without one), with a clock at the
+    borders of a step's phases: batch (host data, VAE and CLIP encoders),
+    forward, backward, all-reduce (none on one rank), optimizer. Returns the
+    losses and gradient norms of each optimizer step (the global ones on
+    every rank), the norm the clip would take from this rank's shards alone
+    (``local_norms``), phases, peaks, launches, the optimizer's state bytes,
+    the chosen mesh, a digest of the trained weights (and of the master
+    values where they are whole), the ZeRO plan and whole shapes, the clip's
+    ``max_grad_norm``, and on the host this rank's part of what ``keep``
+    names: ``"moment"``, Adam's first moment of the trained tensors (final,
+    and at ``snap_steps`` under ``"snaps"``); ``"unreduced"``, the first
+    moment the first step would take from this rank's gradients alone, not
+    all-reduced (``(1 - b1)`` times them, clipped by their own norm);
+    ``"update"``, the update of the trained tensors (final master values
+    less the initial ones); ``"final"``, their final master values."""
+    import hashlib
+    import shutil
+
+    from mikudance_tpu_torch.core import loaders
+    from mikudance_tpu_torch.scripts import train_stage1, train_stage2
+    from mikudance_tpu_torch.train import runner
+    from mikudance_tpu_torch.train import steps as tsteps
+
+    kernels = kernel_list()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    path = train_config_file(stage, out_dir, **sections)
+    phases, peaks = defaultdict(list), defaultdict(float)
+    clock = {"t": time.perf_counter(), "last": None}
+    losses, norms, local_norms, snaps, initial, chosen, kept = [], [], [], {}, {}, [], {}
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def mark(name):
+        torch.cuda.synchronize(dev)
+        now = time.perf_counter()
+        phases[name].append(now - clock["t"])
+        peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated(dev) / 2**30)
+        torch.cuda.reset_peak_memory_stats(dev)
+        clock["t"], clock["last"] = now, name
+
+    loss_fn, reduce_fn = tsteps.diffusion_loss, tsteps.sum_gradients
+    update, global_norm = tsteps.Optimizer.update, tsteps.Optimizer._global_norm
+    init, make_step = runner.init_train_state, runner.make_train_step
+
+    def timed_loss(*args, **kwargs):
+        mark("batch")
+        out = loss_fn(*args, **kwargs)
+        losses.append(float(out[1]["loss"]))
+        mark("forward")
+        return out
+
+    def timed_reduce(grads, mesh, optimizer):
+        mark("backward")
+        out = reduce_fn(grads, mesh, optimizer)
+        mark("all-reduce")
+        if "unreduced" in keep and "unreduced" not in kept:  # no phase
+            cfg = optimizer.cfg
+            norm = float(torch.linalg.vector_norm(torch.stack(
+                [torch.linalg.vector_norm(g.float()) for g in grads.values()])))
+            clip = 1.0 if norm < cfg.max_grad_norm else cfg.max_grad_norm / norm
+            kept["unreduced"] = {n: (g.float() * ((1.0 - cfg.adam_b1) * clip)).cpu()
+                                 for n, g in grads.items()}
+            clock["t"] = time.perf_counter()
+        return out
+
+    def both_norms(self, g):
+        """The norm the step takes, and the one this rank's shards give alone
+        (request L3's control; the same where nothing is sharded)."""
+        sum_over_shards = self.sum_over_shards
+        self.sum_over_shards = lambda x: x
+        try:
+            local_norms.append(global_norm(self, g))
+        finally:
+            del self.sum_over_shards
+        return global_norm(self, g)
+
+    def timed_update(self, grads):
+        if clock["last"] == "forward":
+            mark("backward")
+        fired = update(self, grads)
+        mark("optimizer")
+        if fired:
+            norms.append(self.last_grad_norm)
+            if "moment" in keep and self.count in snap_steps:
+                snaps[self.count] = local_copy(self.mu)
+            clock["t"] = time.perf_counter()  # the snapshot is no phase
+        return fired
+
+    def recording_init(*args, **kwargs):
+        state = init(*args, **kwargs)
+        if "update" in keep:
+            initial.update(local_copy(state.optimizer.master))
+        return state
+
+    def recording_step(cfg, schedule, state, mesh=None):
+        chosen.append(None if mesh is None else dict(mesh.shape))
+        return make_step(cfg, schedule, state, mesh)
+
+    def refilled(load, seed):
+        """The loader's seeded module with every all-zero tensor (the motion
+        modules' proj_out above all) refilled with seeded N(0, 1e-2), as
+        ``seeded_modules`` does: at zero, proj_out would leave the motion
+        modules' interior, and so their collectives' backward, without a
+        gradient in the first step."""
+        def load_refilled(*args, **kwargs):
+            module = load(*args, **kwargs)
+            g = None
+            with torch.no_grad():
+                for p in module.parameters():
+                    if not p.any():
+                        g = g or torch.Generator(device=p.device).manual_seed(seed)
+                        p.normal_(0.0, 1e-2, generator=g)
+            return module
+        return load_refilled
+
+    load_guidance, load_denoising = loaders.load_guidance, loaders.load_denoising
+    loaders.load_guidance = refilled(load_guidance, 11)
+    loaders.load_denoising = refilled(load_denoising, 12)
+    tsteps.diffusion_loss, tsteps.sum_gradients = timed_loss, timed_reduce
+    tsteps.Optimizer.update, tsteps.Optimizer._global_norm = timed_update, both_norms
+    runner.init_train_state, runner.make_train_step = recording_init, recording_step
+    t0 = time.perf_counter()
+    try:
+        main = {"stage1": train_stage1.main, "stage2": train_stage2.main}[stage]
+        state = main(["--config", path, "--synthetic", str(n_steps), "--max_steps",
+                      str(n_steps)])
+    finally:
+        tsteps.diffusion_loss, tsteps.sum_gradients = loss_fn, reduce_fn
+        tsteps.Optimizer.update, tsteps.Optimizer._global_norm = update, global_norm
+        runner.init_train_state, runner.make_train_step = init, make_step
+        loaders.load_guidance, loaders.load_denoising = load_guidance, load_denoising
+    wall = time.perf_counter() - t0
+    opt = state.optimizer
+    digest = hashlib.sha256()
+    for n in opt.names:
+        digest.update(opt.params[n].detach().float().cpu().numpy().tobytes())
+        if opt.mesh is None:
+            digest.update(opt.master[n].detach().cpu().numpy().tobytes())
+    out = {"losses": losses, "norms": norms, "local_norms": local_norms,
+           "phases": dict(phases), "peaks": dict(peaks),
+           "launches": {k.name: k.launches for k in kernels}, "wall": wall,
+           "state_bytes": opt.state_bytes, "mesh": chosen[0] if chosen else None,
+           "digest": digest.hexdigest(), "trained": len(opt.names),
+           "elements": sum(p.numel() for p in opt.params.values()),
+           "plan": dict(opt.plan) if opt.mesh is not None else {n: None for n in opt.names},
+           "shapes": {n: tuple(p.shape) for n, p in opt.params.items()},
+           "max_grad_norm": opt.cfg.max_grad_norm, **kept}
+    check(len(losses) == n_steps == len(norms) == opt.count
+          and all(math.isfinite(v) for v in losses + norms),
+          f"{stage}: losses {losses}, gradient norms {norms}")
+    if "moment" in keep:
+        out["moment"], out["snaps"] = local_copy(opt.mu), snaps
+    if "update" in keep or "final" in keep:
+        final = local_copy(opt.master)
+        if "update" in keep:
+            out["update"] = {n: final[n] - initial.pop(n) for n in list(final)}
+        if "final" in keep:
+            out["final"] = final
+        del final
+    del state, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def save_flat(path: str, tensors: dict) -> None:
+    """Whole tensors as one flat fp32 array, in name order."""
+    total = sum(t.numel() for t in tensors.values())
+    flat = np.lib.format.open_memmap(path, mode="w+", dtype=np.float32, shape=(total,))
+    at = 0
+    for n in sorted(tensors):
+        size = tensors[n].numel()
+        flat[at:at + size] = tensors[n].reshape(-1).numpy()
+        at += size
+    flat.flush()
+    del flat
+
+
+def distance(run: dict, ref, key: str, den=None, scale: float = 1.0) -> tuple:
+    """Relative L2 of the whole ``run[key]`` times ``scale`` from ``ref`` (a
+    path to ``save_flat``'s array, or a dict of whole tensors), the ranks'
+    parts summed over the process group (this rank's shards of the sharded
+    leaves; rank 0 the whole ones), over ``den`` where given (a squared
+    norm) or ``ref``'s; on rank 0, the tensors that hold most of the squared
+    distance; and ``ref``'s squared norm."""
+    import torch.distributed as dist
+
+    mine_all = run.get(key)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    flat = np.load(ref, mmap_mode="r") if isinstance(ref, str) else None
+    sums, per = np.zeros(2), []
+    at = 0
+    for n in sorted(run["shapes"]):
+        shape, d = run["shapes"][n], run["plan"][n]
+        size = int(np.prod(shape))
+        if mine_all is not None and (d is not None or rank == 0):
+            want = (ref[n] if flat is None else
+                    torch.from_numpy(np.array(flat[at:at + size])).view(shape))
+            if d is not None:  # this rank's shard of the whole leaf
+                part = shape[d] // world
+                want = want.narrow(d, rank * part, part)
+            diff = mine_all[n] * scale - want
+            sq = float(diff.square().sum(dtype=torch.float64))
+            sums += (sq, float(want.square().sum(dtype=torch.float64)))
+            per.append((sq, n))
+        at += size
+    if dist.is_initialized():
+        t = torch.from_numpy(sums)
+        dist.all_reduce(t)
+        sums = t.numpy()
+    per.sort(reverse=True)
+    top = "; ".join(f"{n} {sq / max(sums[0], 1e-300):.0%}" for sq, n in per[:3])
+    return math.sqrt(sums[0] / (sums[1] if den is None else den)), top, float(sums[1])
+
+
+def clip_factor(norm: float, max_norm: float) -> float:
+    """The factor the clip scales a gradient of this norm by (optax's rule)."""
+    return 1.0 if norm < max_norm else max_norm / norm
+
+
+# (stage, sections of the YAML, ranks)
+L_PARTS = {
+    "L1": ("stage2", {}, L1_RANKS),
+    "L2": ("stage2", {"data": {"train_width": L2_SIZE, "train_height": L2_SIZE},
+                      "solver": {"mixed_precision": "no"}}, L2_RANKS),
+    "L3": ("stage1", {"data": {"train_bs": L3_RANKS, "train_width": L3_SIZE,
+                               "train_height": L3_SIZE}}, L3_RANKS),
+}
+UNREDUCED = "control: gradients not all-reduced"
+
+
+def request_l_rank(parts: tuple, ref_dir: str, memory_fraction: float = 1.0) -> dict:
+    """One rank of request L's ``parts`` (in a world of one, their
+    reference), one after the other. The reference trains and writes its
+    first moments to ``ref_dir``; the ranks train, and the distances of
+    their moments are summed over them. Runs: L1 two default steps and one
+    inside ``kernels.transposed()``; L2 one step; L3 the replicated step,
+    then the ZeRO one; and on the ranks L1's and L2's all_to_all control
+    (one step each; the not-all-reduced control is read in the default
+    run, L3's in the ZeRO step). Returns per part and run what
+    ``l_training`` reads, without the tensors, and the distances."""
+    import torch.distributed as dist
+
+    from mikudance_tpu_torch.core import mesh as mesh_lib
+    from mikudance_tpu_torch.kernels import _build, transposed
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent process
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.cuda.set_per_process_memory_fraction(memory_fraction, dev)
+    _build.load()
+    mesh = mesh_lib.make_mesh()
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // mesh.size))  # the host math
+    out = {"rank": mesh.rank, "world": mesh.size, "backend": mesh.backend}
+    work = os.path.join(ref_dir, f"rank{mesh.rank}")
+    nullcontext = contextlib.nullcontext
+
+    def without(obj, attr, replacement):
+        kept = getattr(obj, attr)
+        setattr(obj, attr, replacement)
+        return lambda: setattr(obj, attr, kept)
+
+    no_backward = lambda: without(mesh_lib.Mesh, "all_to_all",  # noqa: E731
+                                  mesh_lib.Mesh.all_to_all_values)
+    for part in parts:
+        stage, sections, _ = L_PARTS[part]
+        part_dir = os.path.join(ref_dir, part)
+        os.makedirs(part_dir, exist_ok=True)
+        out[part] = {}
+        if mesh.size == 1:  # the reference
+            runs = {"L1": [("default", L1_STEPS, nullcontext, (1,)),
+                           ("transposed", 1, transposed, ())],
+                    "L2": [("default", 1, nullcontext, ())],
+                    "L3": [("one rank, batch 2", 1, nullcontext, ())]}[part]
+            for name, n, configuration, snap in runs:
+                with configuration():
+                    got = l_training(stage, n, work, dev, ("moment",), snap, **sections)
+                save_flat(os.path.join(part_dir, f"{name}.npy"), got.pop("moment"))
+                for count, moment in got.pop("snaps").items():
+                    save_flat(os.path.join(part_dir, f"{name}_{count}.npy"), moment)
+                out[part][name] = got
+            continue
+        # (run, steps, configuration, patch, YAML solver changes, held to)
+        runs = {
+            "L1": [("default", L1_STEPS, nullcontext, None, {}, "default"),
+                   ("transposed", 1, transposed, None, {}, "transposed"),
+                   ("control: all_to_all without its backward", 1, nullcontext, no_backward,
+                    {}, "default_1")],
+            "L2": [("default", 1, nullcontext, None, {}, "default"),
+                   ("control: all_to_all without its backward", 1, nullcontext, no_backward,
+                    {}, "default")],
+            "L3": [("replicated", 1, nullcontext, None, {"optimizer_state_sharding": False},
+                    "one rank, batch 2"),
+                   ("zero", 1, nullcontext, None, {"optimizer_state_sharding": True},
+                    "one rank, batch 2")],
+        }[part]
+        replicated = None
+        for name, n, configuration, patch, solver, against in runs:
+            restore = patch() if patch else None
+            if part != "L3":  # the sharded steps' moments: rank 0 holds them whole
+                keep = ("moment",) + (("unreduced",) if name == "default" else ())
+                keep = keep if mesh.rank == 0 else ()
+            elif name == "replicated":  # rank 0 the whole moment; every rank the final values
+                keep = ("final",) + (("moment", "update") if mesh.rank == 0 else ())
+            else:  # ZeRO: every rank its shards of the moment and of the final values
+                keep = ("final", "moment")
+            try:
+                with configuration():
+                    run_sections = dict(sections,
+                                        solver={**sections.get("solver", {}), **solver})
+                    got = l_training(stage, n, work, dev, keep, (), **run_sections)
+            finally:
+                if restore:
+                    restore()
+            got["rel_l2"], got["top"], _ = distance(
+                got, os.path.join(part_dir, f"{against}.npy"), "moment")
+            if name == "default":  # the not-all-reduced control, from its first step
+                first = "default_1" if part == "L1" else "default"
+                control = {k: v for k, v in got.items() if k != "unreduced"}
+                control["moment"] = got.pop("unreduced", None)
+                control["rel_l2"], control["top"], _ = distance(
+                    control, os.path.join(part_dir, f"{first}.npy"), "moment")
+                out[part][UNREDUCED] = {k: control[k] for k in ("rel_l2", "top")}
+            if name == "replicated":  # the update's squared norm, the final values
+                got["update_sq"] = distance(got, got.get("update"), "update")[2]
+                replicated = got.pop("final")
+            elif name == "zero":
+                # ZeRO's final values against the replicated step's
+                rep_sq = out[part]["replicated"]["update_sq"]
+                got["rel_l2_replicated"], got["top_replicated"], _ = distance(
+                    got, replicated, "final", den=rep_sq)
+                replicated = None
+                # the control: the clip from this rank's shards alone
+                cap = got["max_grad_norm"]
+                scale = (clip_factor(got["local_norms"][0], cap)
+                         / clip_factor(got["norms"][0], cap))
+                got["rel_l2_local_clip"], _, _ = distance(
+                    got, os.path.join(part_dir, f"{against}.npy"), "moment", scale=scale)
+            for key in ("moment", "snaps", "update", "final"):
+                got.pop(key, None)
+            dist.barrier()
+            out[part][name] = got
+        torch.cuda.empty_cache()
+    return out
+
+
+def l_phase_text(run: dict) -> str:
+    """Seconds of each phase, step by step (the first step's batch phase
+    holds the build of the networks), and each phase's peak GiB."""
+    return (" ".join(f"{k} {[round(x, 3) for x in v]}" for k, v in run["phases"].items())
+            + " s | peak " + " ".join(f"{k} {v:.2f}" for k, v in run["peaks"].items()) + " GiB")
+
+
+def request_l(dev) -> dict:
+    """Request L on the one card: for each group of parts, the one-rank
+    reference (a process of its own, no process group), then the parts' gloo
+    ranks, each capped at an equal share of the card; every rank's trained
+    weights identical, the losses, gradient norms and first moments held to
+    the reference's, the controls beyond the limits; then L4, the graft
+    entry. Returns rank 0's launches by run."""
+    import shutil
+
+    from mikudance_tpu_torch import graft_entry
+    from mikudance_tpu_torch.core import mesh as mesh_lib
+    from mikudance_tpu_torch.kernels import flash_attention as fa
+    from mikudance_tpu_torch.kernels import group_norm as gn
+    from mikudance_tpu_torch.kernels import layer_norm as ln
+    from mikudance_tpu_torch.kernels import temporal_attention as ta
+
+    kernels = kernel_list()
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                        "request_l")
+    failures, launches, ran = [], {}, set()
+
+    def hold(ok: bool, what: str) -> None:
+        log(("" if ok else "FAILED: ") + what)
+        if not ok:
+            failures.append(what)
+
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    apart = lambda a, b: max(rel(x, y) for x, y in zip(a, b))  # noqa: E731
+    nonzero = lambda counts: {k: v for k, v in counts.items() if v}  # noqa: E731
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref = mesh_lib.spawn(1, request_l_rank, (tuple(L_PARTS), root), timeout=900)[0]
+    log(f"request L: the one-rank references of {', '.join(L_PARTS)} in one process, "
+        f"{time.perf_counter() - t0:.1f} s (the process and its builds included)")
+    for parts in (("L1",), ("L2", "L3")):
+        n = L_PARTS[parts[0]][2]
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info(dev)
+        share = (free / 2**30 - n * K_CONTEXT_GIB) / n
+        t0 = time.perf_counter()
+        got = mesh_lib.spawn(n, request_l_rank, (parts, root, share * 2**30 / total),
+                             timeout=1500)
+        ranks_s = time.perf_counter() - t0
+        if parts == ("L1",):  # one rank, one step through K1 and through K10 / K12
+            routes, _, _ = distance(
+                {"moment": {"all": torch.from_numpy(np.load(os.path.join(root, "L1",
+                                                                         "transposed.npy")))},
+                 "shapes": {"all": (-1,)}, "plan": {"all": None}},
+                {"all": torch.from_numpy(np.load(os.path.join(root, "L1", "default_1.npy")))},
+                "moment")
+            log(f"request L, L1: one rank, the first step's moment through K1 against through "
+                f"K10 / K12 (transposed()): relative L2 {routes:.3e}, the spread of bf16 "
+                f"rounding over two routes of one function")
+        r0 = got[0]
+        log(f"request L, {' and '.join(parts)}: world {r0['world']}, backend {r0['backend']}, "
+            f"each rank's allocator capped at {share:.2f} GiB ({free / 2**30:.2f} of "
+            f"{total / 2**30:.2f} GiB free, less {K_CONTEXT_GIB} GiB a rank) | {n} ranks "
+            f"{ranks_s:.1f} s (processes and builds included); the ranks time-share one card "
+            f"and move their collectives through the host: no scaling is measured")
+        for part in parts:
+            stage, sections, _ = L_PARTS[part]
+            loss_lim, norm_lim, moment_lim = L_LIMITS[part]
+            logged = set()
+            for name, mine in r0[part].items():
+                if name == UNREDUCED:
+                    hold(mine["rel_l2"] > moment_lim,
+                         f"request L, {part}, {name}, the first step's moment from rank 0's "
+                         f"own gradients (read in the default run): relative L2 "
+                         f"{mine['rel_l2']:.3e} (limit {moment_lim}) | control beyond the limit")
+                    continue
+                control = name.startswith("control")
+                base = {"L1": "transposed" if name == "transposed" else "default",
+                        "L2": "default", "L3": "one rank, batch 2"}[part]
+                want = ref[part][base]
+                k = len(mine["losses"])
+                d_loss = apart(mine["losses"], want["losses"][:k])
+                d_norm = apart(mine["norms"], want["norms"][:k])
+                text = (f"request L, {part} ({stage} {sections}), {name}: mesh {mine['mesh']}, "
+                        f"{mine['trained']} trained tensors ({mine['elements'] / 1e9:.3f} G "
+                        f"elements), optimizer state {mine['state_bytes'] / 2**30:.3f} GiB a rank "
+                        f"(one rank: {want['state_bytes'] / 2**30:.3f}) | losses "
+                        f"{mine['losses']} against {want['losses'][:k]} (apart by {d_loss:.3e}, "
+                        f"limit {loss_lim}), gradient norms {mine['norms']} against "
+                        f"{want['norms'][:k]} (apart by {d_norm:.3e}, limit {norm_lim}) | first "
+                        f"moment relative L2 {mine['rel_l2']:.3e} (limit {moment_lim}; most of "
+                        f"it in: {mine['top']})")
+                if control:
+                    hold(mine["rel_l2"] > moment_lim, text + " | control beyond the limit")
+                    continue
+                same = all(r[part][name]["digest"] == mine["digest"] for r in got)
+                text += f" | every rank's trained weights identical: {same}"
+                ok = (same and d_loss < loss_lim and d_norm < norm_lim
+                      and mine["rel_l2"] < moment_lim)
+                if part == "L1" and name == "default":
+                    ok = ok and mine["mesh"] == {"data": 1, "frame": L1_RANKS}
+                if part == "L3" and name == "zero":
+                    rep = r0[part]["replicated"]
+                    l_rep, n_rep = apart(mine["losses"], rep["losses"]), apart(mine["norms"],
+                                                                               rep["norms"])
+                    ratio = mine["state_bytes"] / rep["state_bytes"]
+                    ctl = mine["rel_l2_local_clip"]
+                    text += (f" | against the replicated step: final master values relative "
+                             f"to its update {mine['rel_l2_replicated']:.3e} (limit "
+                             f"{L3_ZERO_REL_L2}; most of it in: {mine['top_replicated']}), loss "
+                             f"apart by {l_rep:.3e}, gradient norm by {n_rep:.3e} (limits "
+                             f"{L3_ZERO_NORM_REL}); state {ratio:.3f}x the replicated (limit "
+                             f"{L_ZERO_BYTES}) | control, the clip's norm from the local "
+                             f"shards alone ({mine['local_norms']}): first moment relative L2 "
+                             f"{ctl:.3e} (limit {moment_lim})")
+                    ok = (ok and mine["rel_l2_replicated"] < L3_ZERO_REL_L2
+                          and l_rep < L3_ZERO_NORM_REL and n_rep < L3_ZERO_NORM_REL
+                          and ratio <= L_ZERO_BYTES and ctl > moment_lim)
+                hold(ok, text)
+                if base not in logged:
+                    logged.add(base)
+                    log(f"request L, {part}, {base}, one rank: {want['wall']:.1f} s | "
+                        f"{l_phase_text(want)} | launches {nonzero(want['launches'])}")
+                for r in got:
+                    run = r[part][name]
+                    log(f"request L, {part}, {name}, rank {r['rank']}: {run['wall']:.1f} s | "
+                        f"{l_phase_text(run)} | launches {nonzero(run['launches'])}")
+                    ran |= {k for k, v in run["launches"].items() if v}
+                launches[f"{part} {name}"] = mine["launches"]
+        del got
+    shutil.rmtree(root, ignore_errors=True)
+    del ref
+    on_l = [fa.K1, fa.K2, ta.K3, fa.K4, gn.K5, ln.K6, fa.K10, fa.K12]
+    hold(all(k.name in ran for k in on_l),
+         f"request L: kernels launched on the ranks: {sorted(ran)}")
+
+    # L4: the graft entry's forward, then its dry run on 4 ranks of the card
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    for k in kernels:
+        k.launches = 0
+    out = fn(*args)
+    torch.cuda.synchronize(dev)
+    entry_s = time.perf_counter() - t0
+    launches["L4 entry"] = {k.name: k.launches for k in kernels}
+    hold(out.shape == (1, 4, 64, 64, 4) and out.dtype == torch.bfloat16
+         and bool(torch.isfinite(out.float()).all()),
+         f"request L, L4: entry() forward {tuple(out.shape)} {out.dtype}, finite, built and "
+         f"run in {entry_s:.1f} s, launches {nonzero(launches['L4 entry'])}")
+    del fn, args, out
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    lines = graft_entry.dryrun_multichip(4)
+    hold(len(lines) == 5, f"request L, L4: dryrun_multichip(4) on the card in "
+                          f"{time.perf_counter() - t0:.1f} s: {lines}")
+    check(not failures, f"request L: {failures}")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2663,6 +3258,12 @@ def main() -> int:
     ap.add_argument("--request-k", action="store_true",
                     help="build, then request K (4 ranks on the card over gloo: the sharded "
                          "sampler against its one-rank run) alone")
+    ap.add_argument("--request-l", action="store_true",
+                    help="build, then request L (gloo ranks on the card: the sharded trainers "
+                         "against their one-rank runs, the graft entry) alone")
+    ap.add_argument("--request-d", action="store_true",
+                    help=f"build, then request D alone, {D_RUNS} times in one process (its "
+                         f"run-to-run spread)")
     args = ap.parse_args()
     # one card, the first visible one, fixed before CUDA initialises
     card = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0].strip()
@@ -2747,6 +3348,10 @@ def main() -> int:
 
     cfg = PipelineConfig(width=W, height=H, num_inference_steps=STEPS, guidance_scale=3.5,
                          context=ContextConfig(frames=30, overlap=8))
+    d_config = PipelineConfig(  # request D
+        width=D_SIZE, height=D_SIZE, num_inference_steps=D_STEPS, guidance_scale=3.5,
+        context=ContextConfig(frames=30, overlap=8), max_denoise_frame_batch=64,
+        cached_bank_positions=64)
 
     def headline_pipes():
         """Request A's pipeline (SD VAE) and request B's (same UNets and
@@ -3089,6 +3694,20 @@ def main() -> int:
     if args.request_k:
         request_k(dev, probe=True)
         return 0
+    if args.request_l:
+        request_l(dev)
+        return 0
+    if args.request_d:
+        bundle = build_bundle(0, dev)
+        clip, temporal = build_slice_b_parts(10, dev)
+        d_pipe = VideoPipeline(ModelBundle(bundle.guide, bundle.den, bundle.vae_enc, temporal,
+                                           clip), d_config)
+        for i in range(D_RUNS):
+            t0 = time.perf_counter()
+            _, latents, timer, _ = run_request_d(d_pipe, 8, D_STEPS, D_FRAMES, D_SIZE)
+            log(f"request D, run {i + 1} of {D_RUNS}: {time.perf_counter() - t0:.3f} s | "
+                f"{phase_text(timer)} | latents std {latents.std().item():.4f}")
+        return 0
     if args.kernels:
         log((lib.with_suffix(".log")).read_text())
         phase_kernels(dev, tuple(args.kernels.split(",")))
@@ -3100,6 +3719,9 @@ def main() -> int:
     # 3b. request K: the sampler on 4 ranks of the card, before the bundles
     # below take the card's memory
     launches_k = request_k(dev)
+
+    # 3c. request L: the trainers on gloo ranks of the card, the graft entry
+    launches_l = request_l(dev)
 
     # 4. request A at the headline geometry
     bundle, pipe, bundle_b, pipe_b = headline_pipes()
@@ -3261,10 +3883,7 @@ def main() -> int:
     del lat_step, lat_q8, lat_ctl, lat_grouped, lat_step40, clip48, clip40
 
     # 11. request D: the CLI's steps at 256^2, 40 frames, both windows in one batch
-    d_pipe = VideoPipeline(bundle_b, PipelineConfig(
-        width=D_SIZE, height=D_SIZE, num_inference_steps=D_STEPS, guidance_scale=3.5,
-        context=ContextConfig(frames=30, overlap=8), max_denoise_frame_batch=64,
-        cached_bank_positions=64))
+    d_pipe = VideoPipeline(bundle_b, d_config)
     reset_counts()
     t0 = time.perf_counter()
     frames, latents, timer, flow = run_request_d(d_pipe, 8, D_STEPS, D_FRAMES, D_SIZE)
@@ -3392,6 +4011,10 @@ def main() -> int:
         rec["launches_image_request"] = launches_i[rec["name"]]
         rec["launches_request_j3_fp32"] = launches_j3[rec["name"]]
         rec["launches_request_k1_rank0"] = launches_k[rec["name"]]
+        for run, key in (("L1 default", "l1"), ("L1 transposed", "l1_transposed"),
+                         ("L2 default", "l2"), ("L3 zero", "l3_zero"), ("L4 entry", "l4_entry")):
+            rec[f"launches_request_{key}" + ("" if key == "l4_entry" else "_rank0")] = \
+                launches_l[run][rec["name"]]
     kern_line = {"kernels": list(record.values())}
     print(json.dumps(kern_line))
     print(smi)

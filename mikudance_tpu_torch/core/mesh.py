@@ -1,10 +1,10 @@
 """Process meshes and their collectives over ``torch.distributed``.
 
-Port of ``mikudance_tpu/core/mesh.py``'s inference half. One process is one
-device. Where the JAX package runs a ``shard_map`` over a ``jax.sharding.Mesh``,
-the port runs the same program on every rank of a process group, each rank
-computing its shard; the collectives below rebuild what ``shard_map``'s
-``out_specs`` give, so that every rank ends with the whole result.
+Port of ``mikudance_tpu/core/mesh.py``. One process is one device. Where the
+JAX package runs a ``shard_map`` over a ``jax.sharding.Mesh``, the port runs
+the same program on every rank of a process group, each rank computing its
+shard; the collectives below rebuild what ``shard_map``'s ``out_specs`` give,
+so that every rank ends with the whole result.
 
 - ``Mesh``: a grid of global ranks with named axes, and one process group per
   line of each axis, plus one over the whole grid (axis ``None``: the grid
@@ -18,6 +18,20 @@ computing its shard; the collectives below rebuild what ``shard_map``'s
   ``broadcast``. Gloo's point-to-point takes no CUDA tensor: there a CUDA
   tensor is staged through host memory, which changes the transport only
   (its collectives take CUDA tensors and copy through the host themselves).
+  With gradients on and an input that needs one, ``all_to_all``,
+  ``all_gather`` and ``psum`` are autograd functions whose backward is the
+  transpose ``shard_map`` takes: the inverse ``all_to_all``, the sum of
+  every rank's cotangent sliced to this rank's part (``reduce_scatter`` on
+  NCCL; ``all_reduce`` and a slice on gloo, which has no reduce-scatter),
+  and a ``psum``. Without them the forward is the same call.
+  ``reduce_scatter`` (the same fallback on gloo) and ``gather_first`` (to
+  the axis's first rank) serve the ZeRO optimizer.
+- the training half: ``shard_train_batch`` (this rank's slice of a global
+  batch: the (B, T, ...) streams over ('data', 'frame'), per-sample arrays
+  over 'data'), ``zero_shard_plan`` / ``zero_shard_state`` (the JAX
+  package's ZeRO rule: each leaf along its largest dimension that ``n``
+  divides, replicated otherwise), ``all_reduce_`` (in place) and
+  ``gather_parts`` for the optimizer.
 - ``choose_2d_mesh`` / ``choose_train_mesh``: the JAX package's choice of
   axis sizes for the same ``n``, including a subset of the ranks.
 - ``init_from_env``: the process group under ``torchrun``; ``spawn``: ranks
@@ -25,8 +39,9 @@ computing its shard; the collectives below rebuild what ``shard_map``'s
   gloo, several ranks on one card).
 
 A rank's shard is a slice by its coordinate: there is no counterpart of
-``shard_batch`` or ``replicate``. The training half (``zero_shard_state``,
-``shard_train_batch``) is not ported here.
+``shard_batch`` or ``replicate``, and the module weights stay whole on every
+rank (the JAX package also shards the parameters and lets XLA gather them;
+the port shards the optimizer state only).
 """
 
 from __future__ import annotations
@@ -36,7 +51,7 @@ import tempfile
 import time
 import traceback
 from datetime import timedelta
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -123,26 +138,60 @@ class Mesh:
                                f"{self}")
         return self._groups[axis][0]
 
-    def _point_to_point(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` as ``isend`` / ``irecv`` take it: contiguous, and in host
-        memory on gloo, whose point-to-point takes no CUDA tensor."""
+    def _staged(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` as ``isend`` / ``irecv`` and ``gather`` take it: contiguous,
+        and in host memory on gloo, whose point-to-point and gather take no
+        CUDA tensor."""
         x = x.contiguous()
         return x.cpu() if x.is_cuda and self.backend == "gloo" else x
 
     def all_gather(self, x: torch.Tensor, axis: Optional[str] = None, dim: int = 0):
         """Every rank's ``x`` along ``axis``, concatenated along ``dim`` in
-        axis order (``all_gather(tiled=True)``)."""
+        axis order (``all_gather(tiled=True)``). Its backward hands each rank
+        the sum of every rank's cotangent of its part."""
         if self.axis_size(axis) == 1:
             return x
+        if _needs_grad(x):
+            return _AllGather.apply(x, self, axis, dim)
+        return torch.cat(self.gather_parts(x, axis), dim=dim)
+
+    def gather_parts(self, x: torch.Tensor, axis: Optional[str] = None) -> List[torch.Tensor]:
+        """Every rank's ``x`` along ``axis``, in axis order (no autograd)."""
         src = x.contiguous()
+        if self.axis_size(axis) == 1:
+            return [src]
         parts = [torch.empty_like(src) for _ in range(self.axis_size(axis))]
         dist.all_gather(parts, src, group=self._group(axis))
-        return torch.cat(parts, dim=dim)
+        return parts
+
+    def gather_first(self, x: torch.Tensor,
+                     axis: Optional[str] = None) -> Optional[List[torch.Tensor]]:
+        """Every rank's ``x`` along ``axis``, in axis order, on the axis's
+        first rank alone (None on the others): a ``gather``, through host
+        memory on gloo."""
+        src = self._staged(x)
+        if self.axis_size(axis) == 1:
+            return [src]
+        group, line = self._group(axis), self._groups[axis][1]
+        first = self.rank == line[0]
+        parts = [torch.empty_like(src) for _ in line] if first else None
+        dist.gather(src, parts, dst=line[0], group=group)
+        return parts
 
     def all_to_all(self, x: torch.Tensor, axis: str, split_dim: int, concat_dim: int):
         """``all_to_all(tiled=True)``: ``x`` split along ``split_dim`` into one
         part per rank of ``axis``; part j goes to rank j, and the parts a rank
-        receives are concatenated along ``concat_dim`` in axis order."""
+        receives are concatenated along ``concat_dim`` in axis order. Its
+        backward is the inverse ``all_to_all``."""
+        if self.axis_size(axis) == 1:
+            return x
+        if _needs_grad(x):
+            return _AllToAll.apply(x, self, axis, split_dim, concat_dim)
+        return self.all_to_all_values(x, axis, split_dim, concat_dim)
+
+    def all_to_all_values(self, x: torch.Tensor, axis: str, split_dim: int,
+                          concat_dim: int) -> torch.Tensor:
+        """``all_to_all``'s forward alone: its result carries no gradient."""
         n = self.axis_size(axis)
         if n == 1:
             return x
@@ -167,11 +216,40 @@ class Mesh:
         return out
 
     def psum(self, x: torch.Tensor, axis: Optional[str] = None) -> torch.Tensor:
+        """The sum of every rank's ``x`` along ``axis``; its backward is a
+        ``psum`` of the cotangents."""
         if self.axis_size(axis) == 1:
             return x
-        y = x.clone(memory_format=torch.contiguous_format)  # all_reduce writes in place
-        dist.all_reduce(y, group=self._group(axis))
-        return y
+        if _needs_grad(x):
+            return _Psum.apply(x, self, axis)
+        # all_reduce writes in place
+        return self.all_reduce_(x.clone(memory_format=torch.contiguous_format), axis)
+
+    def all_reduce_(self, x: torch.Tensor, axis: Optional[str] = None) -> torch.Tensor:
+        """``x`` (contiguous) replaced by the sum over ``axis``, in place."""
+        if self.axis_size(axis) > 1:
+            dist.all_reduce(x, group=self._group(axis))
+        return x
+
+    def reduce_scatter(self, x: torch.Tensor, axis: Optional[str] = None,
+                       dim: int = 0) -> torch.Tensor:
+        """The sum over ``axis`` of every rank's ``x``, of which this rank
+        keeps its part along ``dim`` (``x.shape[dim]`` split one part a
+        rank). NCCL's ``reduce_scatter``; on gloo, which has none, an
+        ``all_reduce`` and a slice."""
+        n = self.axis_size(axis)
+        if n == 1:
+            return x
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split {n} ways")
+        part = x.shape[dim] // n
+        if self.backend == "nccl":
+            src = x.movedim(dim, 0).contiguous()
+            out = src.new_empty((part,) + src.shape[1:])
+            dist.reduce_scatter_tensor(out, src, group=self._group(axis))
+            return out.movedim(0, dim)
+        summed = self.all_reduce_(x.contiguous().clone(), axis)
+        return summed.narrow(dim, self.index(axis) * part, part)
 
     def halo(self, x: torch.Tensor, axis: Optional[str] = None):
         """(left, right): the last slice along dim 0 of the previous rank on
@@ -187,7 +265,7 @@ class Mesh:
         ops, got = [], {}
         for side, j, edge in (("left", i - 1, x[:1]), ("right", i + 1, x[-1:])):
             if 0 <= j < n:
-                edge = self._point_to_point(edge)
+                edge = self._staged(edge)
                 got[side] = torch.empty_like(edge)
                 ops += [dist.P2POp(dist.isend, edge, line[j], group),
                         dist.P2POp(dist.irecv, got[side], line[j], group)]
@@ -204,6 +282,53 @@ class Mesh:
         y = x.contiguous()
         dist.broadcast(y, src=src, group=self._group(None))
         return y
+
+
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _AllToAll(torch.autograd.Function):
+    """``Mesh.all_to_all`` with its transpose, the inverse ``all_to_all``."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, split_dim, concat_dim):
+        ctx.mesh, ctx.axis, ctx.dims = mesh, axis, (split_dim, concat_dim)
+        return mesh.all_to_all_values(x, axis, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim = ctx.dims
+        return ctx.mesh.all_to_all_values(g, ctx.axis, concat_dim, split_dim), None, None, None, \
+            None
+
+
+class _AllGather(torch.autograd.Function):
+    """``Mesh.all_gather`` with its transpose: the sum over the axis of every
+    rank's cotangent, this rank's part of it."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return torch.cat(mesh.gather_parts(x, axis), dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.reduce_scatter(g, ctx.axis, ctx.dim), None, None, None
+
+
+class _Psum(torch.autograd.Function):
+    """``Mesh.psum``; its transpose is a ``psum`` of the cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return mesh.all_reduce_(x.clone(memory_format=torch.contiguous_format), axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.all_reduce_(g.clone(memory_format=torch.contiguous_format),
+                                    ctx.axis), None, None
 
 
 class Axis(NamedTuple):
@@ -278,6 +403,72 @@ def choose_train_mesh(ranks: Sequence[int], batch: int, frames: int) -> Optional
     """('data', 'frame') mesh for a training batch (B, T, ...): data shards
     first, then frame shards (one 20-frame sample cannot split over data)."""
     return _choose_2d_mesh(ranks, (batch, frames), (DATA_AXIS, FRAME_AXIS))
+
+
+# ------------------------------------------------------------ training half
+
+FRAME_SHARDED_KEYS = ("latents", "cond20", "motion")
+
+
+def shard_slice(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's consecutive part of ``x`` along ``dim``, one part a rank of
+    ``axis`` (the whole of ``x`` on an axis of one, or one the mesh lacks)."""
+    n = mesh.shape.get(axis, 1)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split over the {n} ranks "
+                         f"of axis {axis!r}")
+    part = x.shape[dim] // n
+    return x.narrow(dim, mesh.index(axis) * part, part)
+
+
+def shard_train_batch(batch: Mapping[str, torch.Tensor], mesh: Mesh) -> Dict[str, torch.Tensor]:
+    """This rank's slice of a global training batch (the JAX package's
+    ``shard_train_batch``): on a ('data', 'frame') mesh the (B, T, ...)
+    streams ``latents``, ``cond20`` and ``motion`` split over both axes and
+    every per-sample array (``clip_ctx``, ``uncond``, ...) over 'data' only;
+    on a 1-D mesh everything splits along its first dimension."""
+    if FRAME_AXIS not in mesh.axis_names:
+        axis = mesh.axis_names[0]
+        return {k: shard_slice(v, mesh, axis, 0) for k, v in batch.items()}
+    out = {}
+    for k, v in batch.items():
+        v = shard_slice(v, mesh, DATA_AXIS, 0)
+        if v.ndim >= 2 and k in FRAME_SHARDED_KEYS:
+            v = shard_slice(v, mesh, FRAME_AXIS, 1)
+        out[k] = v
+    return out
+
+
+def zero_shard_dim(shape: Sequence[int], n: int) -> Optional[int]:
+    """The dimension along which the JAX package's ``zero_shard_state``
+    shards a leaf of ``shape`` over ``n`` ranks: the largest one that ``n``
+    divides and that holds at least ``n`` (the first of equal ones); None
+    (replicated) for ``n = 1``, a scalar, or no such dimension."""
+    best = None  # (size, dim)
+    for i, d in enumerate(shape):
+        if d % n == 0 and d >= n and (best is None or d > best[0]):
+            best = (d, i)
+    if n == 1 or len(shape) == 0 or best is None:
+        return None
+    return best[1]
+
+
+def zero_shard_plan(tree: Mapping[str, torch.Tensor], n: int) -> Dict[str, Optional[int]]:
+    """{name: ``zero_shard_dim`` of the leaf} for a dict of tensors (or of
+    anything with a ``shape``)."""
+    return {k: zero_shard_dim(tuple(v.shape), n) for k, v in tree.items()}
+
+
+def zero_shard_state(tree: Mapping[str, torch.Tensor], mesh: Mesh,
+                     axis: str = DATA_AXIS) -> Dict[str, torch.Tensor]:
+    """ZeRO-style sharding over ``axis`` (the JAX package's
+    ``zero_shard_state``): this rank's part of each leaf along
+    ``zero_shard_dim``, the whole leaf where it is replicated."""
+    n = mesh.shape.get(axis, 1)
+    return {k: v if d is None else shard_slice(v, mesh, axis, d)
+            for (k, v), d in zip(tree.items(), zero_shard_plan(tree, n).values())}
 
 
 # ----------------------------------------------------------------- processes

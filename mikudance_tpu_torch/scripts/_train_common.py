@@ -68,7 +68,8 @@ def make_train_config(cfg: dict, batch_size: int, trainable_substrings):
     accum = int(solver.get("gradient_accumulation_steps", 1))
     lr = float(solver.get("learning_rate", 1e-5))
     if solver.get("scale_lr"):
-        lr *= accum * batch_size  # one device: the host batch is the global batch
+        # the batch is global (the ranks split it): no device-count factor
+        lr *= accum * batch_size
     zero_snr = bool(cfg.get("enable_zero_snr", True))
     return TrainConfig(
         learning_rate=lr,

@@ -11,7 +11,13 @@ device.
 
 It runs on the CUDA card; ``--device cpu`` asks for the CPU by name. Weight
 files that the YAML names and the disk lacks leave their module at a seeded
-random init.
+random init. Under ``torchrun`` the ranks split the batch over a 'data' mesh
+(``train_bs`` a multiple of the ranks) and shard the optimizer state
+(``solver.optimizer_state_sharding``, default on):
+
+    torchrun --nproc-per-node 8 -m mikudance_tpu_torch.scripts.train_stage1 --config ...
+    torchrun --nproc-per-node 2 -m mikudance_tpu_torch.scripts.train_stage1 --config ... \
+        --synthetic 2 --device cpu
 """
 
 from __future__ import annotations
@@ -46,11 +52,13 @@ def main(argv: Optional[Sequence[str]] = None):
     cfg = common.read_yaml(args.config)
 
     from ..core import loaders
+    from ..core import mesh as mesh_lib
     from ..core.params import resolve_device
     from ..train import checkpoint as ckpt_lib
     from ..train.runner import make_encoder_fns, train_loop
 
-    device = resolve_device(args.device)
+    # under torchrun: one rank a card over NCCL, or gloo ranks with --device cpu
+    device = mesh_lib.init_from_env(args.device) or resolve_device(args.device)
     data_cfg = cfg.get("data", {})
     solver = cfg.get("solver", {})
     size = int(data_cfg.get("train_width", 768))
@@ -158,8 +166,13 @@ def main(argv: Optional[Sequence[str]] = None):
         save_model_steps=int(cfg.get("save_model_step_interval", 3000)),
         validation_fn=validation_fn, validation_steps=common.validation_steps(cfg),
         frozen_dtype=dtype,
+        # stage 1 trains both UNets (~1.7B parameters): on several ranks the
+        # fp32 master copies and Adam moments shard over 'data' (ZeRO)
+        zero_shard=bool(solver.get("optimizer_state_sharding", True)),
     )
 
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

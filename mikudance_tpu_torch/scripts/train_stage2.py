@@ -12,7 +12,13 @@ and exports a motion-module-only deployable dict.
 
 It runs on the CUDA card; ``--device cpu`` asks for the CPU by name. Weight
 files that the YAML names and the disk lacks leave their module at a seeded
-random init.
+random init. Under ``torchrun`` the ranks take a ('data', 'frame') mesh: the
+batch over 'data', each clip's frames over 'frame' where the batch does not
+fill the ranks (a 20-frame clip of batch 1 on 4 ranks: 5 frames a rank):
+
+    torchrun --nproc-per-node 4 -m mikudance_tpu_torch.scripts.train_stage2 --config ...
+    torchrun --nproc-per-node 2 -m mikudance_tpu_torch.scripts.train_stage2 --config ... \
+        --synthetic 2 --device cpu
 """
 
 from __future__ import annotations
@@ -49,11 +55,13 @@ def main(argv: Optional[Sequence[str]] = None):
     cfg = common.read_yaml(args.config)
 
     from ..core import loaders
+    from ..core import mesh as mesh_lib
     from ..core.params import resolve_device
     from ..train import checkpoint as ckpt_lib
     from ..train.runner import make_encoder_fns, train_loop
 
-    device = resolve_device(args.device)
+    # under torchrun: one rank a card over NCCL, or gloo ranks with --device cpu
+    device = mesh_lib.init_from_env(args.device) or resolve_device(args.device)
     data_cfg = cfg.get("data", {})
     solver = cfg.get("solver", {})
     size = int(data_cfg.get("train_width", 576))
@@ -182,6 +190,10 @@ def main(argv: Optional[Sequence[str]] = None):
         save_model_steps=int(cfg.get("save_model_step_interval", 3000)),
         save_model_epochs=int(cfg.get("save_model_epoch_interval", 0)),
         validation_fn=validation_fn, validation_steps=common.validation_steps(cfg),
+        # several ranks: the batch over 'data' and each clip's frames over
+        # 'frame' (sequence parallelism, core/mesh.py::choose_train_mesh)
+        batch_size=bs,
+        clip_frames=T,
         # the frozen SD weights are stored in the compute dtype; fp32 master
         # copies exist only for the trained tensors (train/steps.py)
         frozen_dtype=dtype,
@@ -190,3 +202,5 @@ def main(argv: Optional[Sequence[str]] = None):
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()

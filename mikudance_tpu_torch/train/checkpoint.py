@@ -3,7 +3,8 @@
 Port of ``mikudance_tpu/train/checkpoint.py`` (orbax and msgpack there):
 
 - the full training state at a cadence with last-3 retention and
-  resume-from-newest: ``CheckpointManager``, ``save_state``, ``restore_state``;
+  resume-from-newest: ``CheckpointManager``, ``save_state``, ``restore_state``
+  (whole on disk whatever the ranks held, as ``jax.device_get(state)``);
 - deployable per-component weights as plain ``state_dict`` files, including
   the stage-2 motion-module-only dict filtered by key substring:
   ``export_params``, ``import_params``, ``filter_by_substring``.
@@ -71,15 +72,25 @@ def make_manager(directory: str, keep: int = 3) -> CheckpointManager:
     return CheckpointManager(directory, keep)
 
 
-def save_state(mgr: CheckpointManager, step: int, state) -> None:
-    """The whole ``TrainState``: both modules, the optimizer, the step count."""
-    mgr.save(step, {"guide": state.guide.state_dict(), "den": state.den.state_dict(),
-                    "optimizer": state.optimizer.state_dict(), "step": state.step})
+def save_state(mgr: CheckpointManager, step: int, state, write: bool = True) -> None:
+    """The whole ``TrainState``: both modules, the optimizer, the step count.
+    A ZeRO optimizer's state is gathered whole to the first rank of its
+    'data' axis first, so every rank of its mesh calls this; only the one
+    with ``write``, which must be that first rank, writes the file."""
+    optimizer = state.optimizer.state_dict()
+    if write:
+        if optimizer is None:
+            raise ValueError("under ZeRO only the first rank of the 'data' axis holds the "
+                             "whole optimizer state: write from that rank")
+        mgr.save(step, {"guide": state.guide.state_dict(), "den": state.den.state_dict(),
+                        "optimizer": optimizer, "step": state.step})
 
 
 def restore_state(mgr: CheckpointManager, state) -> Tuple[object, int]:
     """Load the newest checkpoint into ``state`` (in place); returns the state
-    and the checkpoint's step, 0 where there is none."""
+    and the checkpoint's step, 0 where there is none. The file holds the
+    whole state; a ZeRO optimizer keeps its shards of it, so a checkpoint of
+    one rank and one of n ranks resume each other."""
     step = mgr.latest_step()
     if step is None:
         return state, 0

@@ -1,10 +1,19 @@
-"""Shared training-loop runner for both stages, on one device.
+"""Shared training-loop runner for both stages, on one device or on the
+ranks of a process group.
 
-Port of ``mikudance_tpu/train/runner.py`` without its meshes and donation: a
-JSONL metrics log (mlflow attaches when importable), checkpoint cadence with
+Port of ``mikudance_tpu/train/runner.py`` without its donation: a JSONL
+metrics log (mlflow attaches when importable), checkpoint cadence with
 last-3 retention, resume from the newest checkpoint, deployable weight export
 at step and epoch cadences, and the reference's counting rule: ``max_steps``
 and every cadence count optimizer steps, not micro-batches.
+
+Under a process group the mesh is the JAX package's: ``batch_size`` > 0
+chooses a ('data', 'frame') mesh (``choose_train_mesh``), with sequence
+parallelism where 'frame' > 1; otherwise a 1-D 'data' mesh over every rank.
+``zero_shard`` shards the optimizer state over 'data', only without
+sequence parallelism. Every rank materializes the same global batch (same
+seeds) and keeps its slice; rank 0 alone logs, validates, exports and writes
+the checkpoints, which hold the whole state.
 """
 
 from __future__ import annotations
@@ -17,7 +26,9 @@ import time
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
+from ..core import mesh as mesh_lib
 from ..diffusion.ddim import DDIMSchedule
 from ..models.vae import latent_mean, latent_sample
 from ..pipelines.video import SD_LATENT_SCALE
@@ -111,18 +122,42 @@ def train_loop(
     export_fn: Optional[Callable[[int, TrainState], None]] = None,
     save_model_steps: int = 3000,
     save_model_epochs: int = 0,  # 0 = off
+    batch_size: int = 0,
+    clip_frames: int = 1,
     frozen_dtype: Optional[torch.dtype] = None,
+    zero_shard: bool = False,
 ) -> TrainState:
     """Train ``guide`` and ``den`` where they are (the modules' device) until
-    ``max_steps`` optimizer steps; returns the final ``TrainState``."""
-    state = init_train_state(cfg, guide, den, frozen_dtype=frozen_dtype)
+    ``max_steps`` optimizer steps; returns the final ``TrainState``.
+    ``prepare_batch`` gives the global batch; under a process group every
+    rank calls this (module docstring)."""
+    grouped = dist.is_available() and dist.is_initialized()
+    rank, world = (dist.get_rank(), dist.get_world_size()) if grouped else (0, 1)
+    # batch_size > 0 activates the ('data', 'frame') training mesh: frames of
+    # one clip shard too (sequence parallelism), which is what lets stage 2
+    # train 20-frame clips that one card cannot hold. 1-D data mesh otherwise.
+    mesh = None
+    if batch_size > 0:
+        mesh = mesh_lib.choose_train_mesh(range(world), batch_size, clip_frames)
+    sp = mesh is not None and mesh.shape.get(mesh_lib.FRAME_AXIS, 1) > 1
+    if mesh is None:
+        mesh = mesh_lib.make_mesh()
+    zero = zero_shard and not sp and mesh.shape.get(mesh_lib.DATA_AXIS, 1) > 1
+    if rank == 0 and mesh.size > 1:
+        print(f"training mesh: {mesh.shape}" + (" (sequence-parallel frames)" if sp else "")
+              + (" (optimizer state sharded over 'data')" if zero else ""))
+    state = init_train_state(cfg, guide, den, frozen_dtype=frozen_dtype,
+                             zero_mesh=mesh if zero else None)
+    if rank not in mesh:  # a subset of the ranks makes the mesh: this one idles
+        print(f"rank {rank} is outside the training mesh {mesh}: no steps")
+        return state
     mgr = ckpt_lib.make_manager(os.path.join(output_dir, "checkpoints"), keep=3)
     state, start_step = ckpt_lib.restore_state(mgr, state)
-    if start_step:
+    if start_step and rank == 0:
         print(f"resumed from checkpoint step {start_step}")
 
-    step_fn = make_train_step(cfg, schedule, state)
-    logger = MetricsLogger(output_dir, run_name)
+    step_fn = make_train_step(cfg, schedule, state, mesh if mesh.size > 1 else None)
+    logger = MetricsLogger(output_dir, run_name) if rank == 0 else None
     host_rng = random.Random(seed)
     device = den.conv_in.weight.device
     generator = torch.Generator(device=device).manual_seed(seed)
@@ -145,13 +180,16 @@ def train_loop(
             except StopIteration:
                 break
             saw_batch = True
-            metrics = step_fn(prepare_batch(batch, host_rng), generator)
+            dev_batch = prepare_batch(batch, host_rng)
+            if mesh.size > 1:
+                dev_batch = mesh_lib.shard_train_batch(dev_batch, mesh)
+            metrics = step_fn(dev_batch, generator)
             micro += 1
             if micro % accum:
                 continue  # mid-accumulation: no optimizer step happened
             step += 1
 
-            if step % log_every == 0:
+            if step % log_every == 0 and logger is not None:
                 loss = float(metrics["loss"])
                 dt = (time.time() - t0) / log_every
                 t0 = time.time()
@@ -159,16 +197,16 @@ def train_loop(
                                   "sec_per_step": dt, "epoch": epoch})
                 print(f"step {step}: loss={loss:.5f} ({dt:.2f}s/step)")
             if step % checkpointing_steps == 0:
-                ckpt_lib.save_state(mgr, step, state)
-            if validation_fn and step % validation_steps == 0:
+                ckpt_lib.save_state(mgr, step, state, write=rank == 0)
+            if validation_fn and step % validation_steps == 0 and rank == 0:
                 artifact = validation_fn(step, state)
                 if isinstance(artifact, str):
                     logger.log_artifact(step, artifact)
-            if export_fn and step % save_model_steps == 0:
+            if export_fn and step % save_model_steps == 0 and rank == 0:
                 export_fn(step, state)
         if not saw_batch:
             break  # exhausted generator or empty dataset: no more data
         epoch += 1
-        if export_fn and save_model_epochs and epoch % save_model_epochs == 0:
+        if export_fn and save_model_epochs and epoch % save_model_epochs == 0 and rank == 0:
             export_fn(step, state)
     return state
