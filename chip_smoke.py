@@ -10,6 +10,7 @@
     python3 chip_smoke.py --request-h   # phases 1-2, then request H alone
     python3 chip_smoke.py --request-i   # phases 1-2, then request I (the toolbox) alone
     python3 chip_smoke.py --request-i --profile   # ... with UniPose's device time by part
+                                                  # and a driver frame's host time by op
     python3 chip_smoke.py --request-j   # phases 1-2, then request J (fp32, the SD-width gate) alone
     python3 chip_smoke.py --request-k   # phases 1-2, the NCCL and all_to_all probes, then
                                         # request K (4 ranks on the card) alone
@@ -59,7 +60,8 @@ Phases, in order, one line each; any failure exits non-zero:
    bytes for q and o; the anchored kernels also run on bf16-rounded q, which
    must land farther from it. The record keeps these under ``fp32``;
 3b. request K, multi-GPU serving on the one card: each part once in a
-    process of its own with no process group (the reference) and on 4 gloo
+    process of a world of one (the reference; the process then runs request
+    L's references too) and on 4 gloo (ranks that then run request L1)
     ranks, each running ``VideoPipeline(..., mesh=make_mesh())`` on the same
     seeded weights and inputs, 2 steps: K1 request B's geometry in bf16
     (mesh win 2 x frame 2: an all_to_all pair a motion module, the 16-frame
@@ -83,8 +85,8 @@ Phases, in order, one line each; any failure exits non-zero:
     one); each rank logs wall, phases, peak and launches. The ranks
     time-share one card: the seconds measure no scaling;
 3c. request L, multi-GPU training on the one card: each part once in a
-    process of its own with no process group (the references of all parts
-    in one process) and on gloo ranks capped as request K's, every one running the trainer's ``main``
+    process of a world of one (the references of all parts in request K's
+    reference process) and on gloo ranks (L1's: request K's four) capped as request K's, every one running the trainer's ``main``
     on synthetic batches from the same seeds (so the same global batch and
     draws; the seeded init's all-zero tensors refilled, as everywhere in the
     smoke, so that the motion modules' interior and their collectives'
@@ -114,6 +116,17 @@ Phases, in order, one line each; any failure exits non-zero:
    decode to the host) with random seeded weights in bf16; checks shape,
    dtype, finite latents and that every kernel launched;
 5. request A again, warm, with another seed and 4 steps;
+5b. request A at 2 steps through ``scripts/profile_pipeline.py``'s body
+    (warm-up, steady state, phases with their peaks, a call under the
+    profiler), the report logged, then checked: (a) each kernel's calls in
+    the profile (its device symbol, by ``PROFILE_CATEGORIES``' tags) equal
+    its wrapper's launches over the traced call, K1 at hd 40 and 80; the
+    control, the table without K1's tags, must fail it; (b) the categories
+    add up to every kernel's device time, "other" under 2% of it; (c) each
+    category's depth-3 rows (the elementwise ones named by the ATen op that
+    launched them, with dtypes and shapes) add up to it within 1%; (d) the
+    busy share in (0, 1]; (e) the phases start with h2d_normalize and add up
+    to their call's wall within 5%;
 6. request B, the CLI-shaped one: camera matrices and a depth map ->
    ``scene_motion_flow`` on the card; a reference picture -> CLIP tower
    (ViT-L/14 widths) -> tokens; the same sampler, 20 steps, with the
@@ -224,7 +237,9 @@ of JAX.
 2-step and a 6-step request E (request A inside ``row_major()``), and prints
 device time by kernel category, per request and per denoise step, and the
 top kernels; then one request-F train step (forward, backward and optimizer
-shares, device time by category).
+shares, device time by category). The categories, the per-op rows and the
+trace are ``mikudance_tpu_torch/utils/profiling.py``'s; a user's command for
+one request's profile is ``python -m mikudance_tpu_torch.scripts.profile_pipeline``.
 """
 
 import argparse
@@ -240,6 +255,13 @@ from collections import defaultdict
 
 import numpy as np
 import torch
+
+from mikudance_tpu_torch.scripts._synthetic import build_bundle, make_inputs, seeded_modules
+from mikudance_tpu_torch.utils.profiling import (ELEMENTWISE, PROFILE_CATEGORIES, RUN_IN,
+                                                 PeakTimer, category, device_ms,
+                                                 host_and_kernels_ms, kernel_calls,
+                                                 op_profile_rows, profile_request, profile_text,
+                                                 trace)
 
 STEPS = 20  # DDIM steps of each request, as the headline configuration
 T, H, W = 16, 768, 768
@@ -282,6 +304,15 @@ D_RUNS = 3  # --request-d: request D alone, this many times in one process
 E_REL_L2 = SMALL_REL_L2
 E_DECODED_REL_L2 = SMALL_DECODED_REL_L2
 PROFILE_E_STEPS = 6
+# The default smoke's profiled request A (scripts/profile_pipeline.py's body at
+# 2 steps), held to the kernels' own counters: the categories may leave at
+# most OTHER_SHARE of the device time to "other"; the depth-3 rows of a
+# category add up to its total (by the profiler's per-kernel averages)
+# within ROWS_REL; the phases add up to the call's wall within PHASES_REL.
+PROFILED_STEPS = 2
+OTHER_SHARE = 0.02
+ROWS_REL = 0.01
+PHASES_REL = 0.05
 # Request H: SD1.5's level 2 (1280 channels in 8 heads of 160) takes a flash
 # route from 1024 tokens, so 16 frames at 1024^2, 2 DDIM steps, the SD decoder
 H_SIZE, H_STEPS = 1024, 2
@@ -418,6 +449,8 @@ L_LIMITS = {  # relative: loss, gradient norm, first moment (relative L2)
 }
 L3_ZERO_REL_L2, L3_ZERO_NORM_REL = 1e-5, 1e-5
 L_ZERO_BYTES = 0.55
+L_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
+                      "request_l")
 
 # Request I: the toolbox's networks, fp32 with random seeded weights, as the
 # tool wrappers run them. UniPose: bench.py's XPose batch (10 frames at
@@ -483,39 +516,6 @@ def cuda_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def seeded_modules(seed: int, device, make):
-    """``make()`` builds modules under PyTorch's default init and a seed; every
-    tensor that starts at zero (biases, norm shifts, the motion modules'
-    proj_out) is refilled with seeded N(0, 1e-2) so that every branch, K3's
-    included, reaches the output. Then cast to bf16."""
-    from mikudance_tpu_torch.core.params import cast_params
-
-    torch.manual_seed(seed)
-    with torch.device(device):
-        mods = make()
-    g = torch.Generator(device=device).manual_seed(seed + 1)
-    with torch.no_grad():
-        for m in mods:
-            for p in m.parameters():
-                if not p.any():
-                    p.normal_(0.0, 1e-2, generator=g)
-            cast_params(m.eval(), torch.bfloat16)
-    return mods
-
-
-def build_bundle(seed: int, device):
-    """SD1.5-width guidance UNet (MAN), denoising UNet (motion modules) and SD
-    VAE, random seeded weights in bf16."""
-    from mikudance_tpu_torch.core.configs import DenoisingUNetConfig, GuidanceUNetConfig
-    from mikudance_tpu_torch.models.unet import DenoisingUNet, GuidanceUNet
-    from mikudance_tpu_torch.models.vae import Decoder, Encoder
-    from mikudance_tpu_torch.pipelines.video import ModelBundle
-
-    return ModelBundle(*seeded_modules(seed, device, lambda: [
-        GuidanceUNet(GuidanceUNetConfig()), DenoisingUNet(DenoisingUNetConfig()),
-        Encoder(), Decoder()]))
-
-
 def build_slice_b_parts(seed: int, device):
     """The CLI-shaped request's extra networks at full width: the CLIP
     ViT-L/14 tower and the temporal decoder."""
@@ -535,21 +535,6 @@ def build_stage1_unets(seed: int, device):
 
     return seeded_modules(seed, device, lambda: [GuidanceUNet(GUIDANCE_MIX_CHAR),
                                                  DenoisingUNet(DENOISING_2D)])
-
-
-def make_inputs(seed: int, frames: int, height: int, width: int):
-    """uint8 media as a serving request brings it; absent face/hand streams
-    arrive as black frames; scene motion zero; CLIP tokens and noise N(0, 1)."""
-    rng = np.random.default_rng(seed)
-    h, w = height // 8, width // 8
-    return (rng.integers(0, 256, (height, width, 3), dtype=np.uint8),
-            rng.integers(0, 256, (height, width, 3), dtype=np.uint8),
-            rng.integers(0, 256, (frames, height, width, 3), dtype=np.uint8),
-            np.zeros((frames, height, width, 3), np.uint8),
-            np.zeros((frames, height, width, 3), np.uint8),
-            np.zeros((frames, h, w, 2), np.float32),
-            rng.normal(0, 1, (1, 257, 768)).astype(np.float32),
-            rng.normal(0, 1, (frames, h, w, 4)).astype(np.float32))
 
 
 def make_camera(seed: int, frames: int, height: int, width: int):
@@ -686,40 +671,6 @@ def host_and_device_ms(fn, reps: int = 100) -> tuple[float, float]:
     device time of the kernels the same number of calls launch), in ms."""
     host, by_kernel = host_and_kernels_ms(fn, reps)
     return host, sum(by_kernel.values())
-
-
-def host_and_kernels_ms(fn, reps: int = 100) -> tuple[float, dict]:
-    """As ``host_and_device_ms``, with the device time a call split by
-    kernel name (the name up to its template arguments)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    host = (time.perf_counter() - t0) / reps * 1e3
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    by_kernel = defaultdict(float)
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            by_kernel[kernel_name(e.key)] += e.self_device_time_total / reps / 1e3
-    return host, dict(by_kernel)
-
-
-def kernel_name(key: str) -> str:
-    """A profiler key's kernel name without its namespaces, template and
-    function arguments ("void (anonymous namespace)::gn_kernel<8>(...)" ->
-    "gn_kernel"); a key that is no function's (a copy) as it is."""
-    import re
-
-    found = re.search(r"(\w+)\s*[<(]", key.replace("(anonymous namespace)::", ""))
-    return found.group(1) if found else key
 
 
 def host_parts_ms(parts: dict, reps: int = 1000) -> str:
@@ -1609,89 +1560,6 @@ def phase_kernels(dev, only=()):
     return record
 
 
-# kernel-name substrings -> category, first match wins
-PROFILE_CATEGORIES = [
-    # K1, K10, K11 and K12 are one kernel, K4 and K9 another; the tag in the
-    # template arguments parts them
-    ("K1 hd 40 (S=9216 self)", ("anchor_wg_kernel<40, 1>",)),
-    ("K1 hd 80 (S=2304 self)", ("anchor_wg_kernel<80, 1>",)),
-    ("K1 hd 160 (S=1024 self)", ("anchor_wg_kernel<160, 1>",)),
-    ("K2 hd 40 (S=9216 cross)", ("flash_cross_kernel<40>",)),
-    ("K2 hd 80 (S=2304 cross)", ("flash_cross_kernel<80>",)),
-    ("K2 hd 160 (S=1024 cross)", ("flash_cross_kernel<160>",)),
-    ("K4 hd 512 (VAE)", ("flash_wide_kernel<4>",)),
-    ("K9 hd 512 (VAE under 512^2)", ("flash_wide_kernel<9>",)),
-    # K3 and K13 are one kernel; the tag (3 or 13) leads its template arguments
-    ("K3 temporal attention", ("short_attention_kernel<3, ",)),
-    ("K13 small-sequence attention", ("short_attention_kernel<13, ",)),
-    ("K5 GroupNorm (resident; streamed statistics, apply)", ("gn_resident_kernel",
-                                                             "gn_stream_stats_kernel",
-                                                             "gn_stream_apply_kernel")),
-    ("K6 LayerNorm", ("ln_kernel",)),
-    ("K7 linear (the chain's products)", ("linear_kernel",)),
-    ("K8 conv3x3", ("conv3x3_kernel",)),
-    ("K12 anchored attention, bf16 anchor", ("anchor_wg_kernel<40, 12>",
-                                             "anchor_wg_kernel<80, 12>",
-                                             "anchor_wg_kernel<160, 12>")),
-    ("K14 mega-block", ("mega_kernel",)),
-    ("K10 anchored attention", ("anchor_wg_kernel<40, 10>", "anchor_wg_kernel<80, 10>",
-                                "anchor_wg_kernel<160, 10>")),
-    ("K11 anchored attention", ("anchor_wg_kernel<40, 11>", "anchor_wg_kernel<80, 11>",
-                                "anchor_wg_kernel<160, 11>")),
-    # cuDNN's FFT algorithm (its transforms and gemvx products) before the
-    # other convolutions, whose names it shares
-    ("FFT convolution (cuDNN)", ("fft", "gemvx", "region_transform")),
-    ("conv (cuDNN)", ("fprop", "conv", "implicit_gemm", "cudnn", "nhwc")),
-    ("GEMM (cuBLAS)", ("nvjet", "gemm", "cutlass", "Kernel2", "sm90_xmma", "dot")),
-    ("deformable sampling (grid_sample)", ("grid_sampler",)),
-    ("softmax", ("softmax",)),
-    ("norms (LayerNorm, GroupNorm)", ("layer_norm", "group_norm", "LayerNorm", "GroupNorm")),
-    ("sort (top-k)", ("sort", "Sort", "radix")),
-    ("reduce (norm statistics, sums)", ("reduce_kernel",)),
-    ("elementwise / copies", ("elementwise", "vectorized", "copy", "Cat", "index", "fill",
-                              "gather", "roll", "where")),
-]
-
-
-def device_ms(prof):
-    """A torch.profiler run's device milliseconds by PROFILE_CATEGORIES and
-    [(ms, calls, kernel name)] sorted by time."""
-    from torch.autograd import DeviceType
-
-    sums, top = defaultdict(float), []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
-            continue
-        ms = e.self_device_time_total / 1e3
-        cat = next((c for c, keys in PROFILE_CATEGORIES if any(k in e.key for k in keys)),
-                   "other")
-        sums[cat] += ms
-        top.append((ms, e.count, e.key))
-    return sums, sorted(top, reverse=True)
-
-
-def profile_request(run, steps: int):
-    """``run(steps)`` (one request, returning its Timer) under torch.profiler:
-    (wall s, phases, ms by category, [(ms, calls, kernel name)] sorted by time)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        timer = run(steps)
-        wall = time.perf_counter() - t0
-    return (wall, timer.phases) + device_ms(prof)
-
-
-def log_profile(name: str, steps: int, res) -> None:
-    wall, phases, sums, _ = res
-    busy = sum(sums.values())
-    log(f"profile: {name}, {steps} steps: wall {wall:.3f} s, kernel time {busy / 1e3:.3f} s "
-        f"(busy {busy / 1e3 / wall:.1%}), phases "
-        + " ".join(f"{k} {v:.3f}s" for k, v in phases.items()))
-    for cat, ms in sorted(sums.items(), key=lambda kv: -kv[1]):
-        log(f"   {cat:44s} {ms:10.1f} ms  {ms / busy:6.1%}")
-
-
 def profile_train_step(dev) -> None:
     """One request-F step under torch.profiler: stage 2 at 20 x 576^2 in the
     transposed configuration, on a ready batch (random latents, condition
@@ -1749,7 +1617,7 @@ def profile_train_step(dev) -> None:
             res = profile_request(one_step, 1)
     finally:
         tsteps.diffusion_loss, tsteps.Optimizer.update = loss_fn, update
-    log_profile("request F, one stage-2 step (transposed)", 1, res)
+    log(profile_text("request F, one stage-2 step (transposed)", 1, res))
     total = sum(res[1].values())
     log("profile: request F shares of the step: " + ", ".join(
         f"{k} {v / total:.1%}" for k, v in res[1].items())
@@ -1769,7 +1637,7 @@ def phase_profile(pipe, request_b) -> None:
     request_a(1)  # warm-up
     res = {s: profile_request(request_a, s) for s in (2, 20)}
     for s, r in res.items():
-        log_profile("request A", s, r)
+        log(profile_text("request A", s, r))
     s2, s20 = res[2][2], res[20][2]
     per_step = {c: (s20.get(c, 0.0) - s2.get(c, 0.0)) / 18 for c in set(s2) | set(s20)}
     tot = sum(per_step.values())
@@ -1782,7 +1650,7 @@ def phase_profile(pipe, request_b) -> None:
     del res
     request_b(1)  # warm-up: the CLIP tower, the temporal decoder's convolutions
     res_b = profile_request(lambda steps: request_b(steps)[2], STEPS)
-    log_profile("request B", STEPS, res_b)
+    log(profile_text("request B", STEPS, res_b))
     log("profile: top kernels, request B, 20 steps (ms, calls, name)")
     for ms, n, name in res_b[3][:20]:
         log(f"   {ms:10.1f} {n:6d}  {name[:110]}")
@@ -1794,7 +1662,7 @@ def phase_profile(pipe, request_b) -> None:
         request_a(1)  # warm-up: the packed conv weights
         res_e = {s: profile_request(request_a, s) for s in (2, PROFILE_E_STEPS)}
     for s, r in res_e.items():
-        log_profile("request E (row-major)", s, r)
+        log(profile_text("request E (row-major)", s, r))
     e2, e6 = res_e[2][2], res_e[PROFILE_E_STEPS][2]
     per_step = {c: (e6.get(c, 0.0) - e2.get(c, 0.0)) / (PROFILE_E_STEPS - 2)
                 for c in set(e2) | set(e6)}
@@ -1808,26 +1676,81 @@ def phase_profile(pipe, request_b) -> None:
         log(f"   {ms:10.1f} {n:6d}  {name[:110]}")
 
 
-def peak_timer(device):
-    """A ``Timer`` that also keeps each phase's peak device memory in GiB
-    (``max_memory_allocated``, reset at every mark) in ``peaks``."""
-    from mikudance_tpu_torch.utils.profiling import Timer
+def launch_mismatches(res: dict, kernels, categories=PROFILE_CATEGORIES) -> list:
+    """Check (a) of the profiled request: the kernels whose profiler calls
+    (their device symbols, by ``categories``' tags) differ from the wrappers'
+    launches over the same call."""
+    calls = kernel_calls(res["kernels_by_key"], categories)
+    return [f"{k.name}: {calls.get(k.name.split(' ')[0], 0)} calls in the profile, "
+            f"{res['launches'][k.name]} launches" for k in kernels
+            if calls.get(k.name.split(" ")[0], 0) != res["launches"][k.name]]
 
-    class PeakTimer(Timer):
-        peaks = None
 
-        def start(self):
-            super().start()
-            self.peaks = {}
-            torch.cuda.reset_peak_memory_stats(self.device)
+def profiled_request_a(pipe, kernels, expect) -> dict:
+    """Request A at PROFILED_STEPS steps through ``profile_pipeline`` (warm-up,
+    steady state, phases, a traced call), checked: (a) each kernel's calls
+    in the profile equal its launches over the traced call, K1 at hd 40 and
+    80 (control: the category table without K1's tags must fail it); (b) the
+    categories add up to the device time of every kernel, "other" under
+    OTHER_SHARE of it; (c) each category's depth-3 rows add up to it within
+    ROWS_REL; (d) the busy share in (0, 1]; (e) the phases start with
+    h2d_normalize and add up to their call's wall within PHASES_REL. Logs the
+    report and the elementwise category's rows; returns the result."""
+    from mikudance_tpu_torch.scripts.profile_pipeline import profile_pipeline, profile_report
 
-        def mark(self, name):
-            super().mark(name)
-            peak = torch.cuda.max_memory_allocated(self.device) / 2**30
-            self.peaks[name] = max(self.peaks.get(name, 0.0), peak)
-            torch.cuda.reset_peak_memory_stats(self.device)
-
-    return PeakTimer(device)
+    t0 = time.perf_counter()
+    res = profile_pipeline(pipe, make_inputs(0, T, H, W), PROFILED_STEPS, kernels=kernels)
+    seconds = time.perf_counter() - t0
+    log(f"profiled request A: {T}x{H}x{W} {PROFILED_STEPS} steps, profile_pipeline in "
+        f"{seconds:.1f} s (warm-up, steady state, phases, traced call)")
+    log(profile_report(res, top=20))
+    cats, total = res["categories"], res["total_ms"]
+    # (a) against the wrappers' own counters, and its control
+    missing = [k.name for k in expect if res["launches"][k.name] == 0]
+    stray = [k.name for k in kernels if k not in expect and res["launches"][k.name]]
+    check(not missing and not stray, f"profiled request A: kernels not launched {missing}, "
+                                     f"launched off the path {stray}")
+    wrong = launch_mismatches(res, kernels)
+    hd = {w: cats.get(next((c for c, _ in PROFILE_CATEGORIES if c.startswith(f"K1 hd {w} ")),
+                           ""), [0.0, 0])[1] for w in (40, 80)}
+    control = [c for c in PROFILE_CATEGORIES if not c[0].startswith("K1 ")]
+    wrong_ctl = launch_mismatches(res, kernels, control)
+    log(f"profiled request A, (a): launches {res['launches']}; profiler calls by the category "
+        f"tags {kernel_calls(res['kernels_by_key'])}, K1 at hd 40 / 80 {hd[40]} / {hd[80]}; "
+        f"mismatches {wrong}; control, the table without K1's tags: {wrong_ctl}; records of "
+        f"the trace's run-in the profiler dropped: {res['run_in_lost']} of {RUN_IN}")
+    check(not wrong and hd[40] > 0 and hd[80] > 0, f"profiled request A, (a): {wrong}, K1 {hd}")
+    check(any(m.startswith("K1 ") for m in wrong_ctl),
+          f"profiled request A, (a)'s control passed: {wrong_ctl}")
+    # (b) the categories cover every kernel's time (the profiler's averages by kernel)
+    by_key = sum(ms for ms, _, _ in res["kernels_by_key"])
+    other = cats.get("other", [0.0, 0])[0]
+    log(f"profiled request A, (b): categories {total:.3f} ms, every kernel {by_key:.3f} ms, "
+        f"other {other:.3f} ms ({other / total:.2%}, limit {OTHER_SHARE:.0%})")
+    check(abs(total - by_key) <= 1e-3 * by_key and other < OTHER_SHARE * total,
+          f"profiled request A, (b): {total} against {by_key}, other {other}")
+    # (c) each category's rows against its total by kernel
+    of_keys = {}
+    for ms, _, key in res["kernels_by_key"]:
+        of_keys[category(key)] = of_keys.get(category(key), 0.0) + ms
+    apart = {c: abs(v[0] - of_keys.get(c, 0.0)) / max(of_keys.get(c, 0.0), 1e-9)
+             for c, v in cats.items()}
+    rows = [r for r in res["rows"] if r[2] == ELEMENTWISE]
+    log(f"profiled request A, (c): {ELEMENTWISE} {cats[ELEMENTWISE][0]:.3f} ms in {len(rows)} "
+        f"rows, by kernel {of_keys.get(ELEMENTWISE, 0.0):.3f} ms; largest gap of a category "
+        f"{max(apart.values()):.2e} (limit {ROWS_REL}); its top rows (ms, calls, op):")
+    for ms, n, _, name in rows[:15]:
+        log(f"   {ms:10.3f} {n:6d}  {name[:150]}")
+    check(max(apart.values()) < ROWS_REL, f"profiled request A, (c): {apart}")
+    # (d) the busy share; (e) the phases
+    phases = list(res["phases"])
+    gap = abs(sum(res["phases"].values()) - res["phase_wall_s"]) / res["phase_wall_s"]
+    log(f"profiled request A, (d): busy {res['busy']:.1%}; (e): phases {phases}, their sum "
+        f"{gap:.2%} from the call's wall {res['phase_wall_s']:.3f} s (limit {PHASES_REL:.0%})")
+    check(0 < res["busy"] <= 1, f"profiled request A, (d): busy {res['busy']}")
+    check(phases[:1] == ["h2d_normalize"] and gap < PHASES_REL,
+          f"profiled request A, (e): {phases}, {gap}")
+    return res
 
 
 def phase_text(timer) -> str:
@@ -1839,7 +1762,7 @@ def phase_text(timer) -> str:
 def run_request(pipe, inputs, steps: int, decode: bool = True):
     """One ``__call__`` (decode to the host, or the latents alone); returns
     (frames or None, latents, timer)."""
-    timer = peak_timer(pipe.device)
+    timer = PeakTimer(pipe.device)
     if not decode:
         return None, pipe(*inputs, num_inference_steps=steps, decode=False, timer=timer), timer
     seen = []
@@ -2032,9 +1955,7 @@ def unipose_inputs(seed: int, frames: int, size: int, real_tokens: int, real_poi
 
 def kernel_categories(fn) -> dict:
     """Device milliseconds of one ``fn()`` by kernel category (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with trace(None) as prof:
         fn()
         torch.cuda.synchronize()
     return dict(device_ms(prof)[0])
@@ -2237,6 +2158,18 @@ def request_i(dev, profile: bool = False) -> dict:
             out["detect_frame_split_ms"] = split
             out["detect_frame_categories_ms"] = cats
             del one
+            # a whole driver frame (person vocabulary): its host time by op
+            with tf32_convolutions(), trace(None, dev) as prof:
+                t0 = time.perf_counter()
+                detect_clip(det, frames[:1], {"person": vocabs["person"]})
+                wall = time.perf_counter() - t0
+            rows = op_profile_rows(prof, depth=3, host=True)
+            log(f"request I, profile: a driver frame (Detector.detect, person), wall "
+                f"{wall * 1e3:.1f} ms under the profiler, ops' self CPU time "
+                f"{sum(r[0] for r in rows):.1f} ms; top host rows (ms, calls, op):")
+            for ms, n, _, name in rows[:20]:
+                log(f"   {ms:10.3f} {n:6d}  {name[:150]}")
+            out["detect_frame_host_rows"] = rows[:20]
         del det, frames
         torch.cuda.empty_cache()
 
@@ -2607,13 +2540,14 @@ def nccl_probe_rank() -> float:
     return x[0].item()
 
 
-def request_k(dev, probe: bool = False) -> dict:
+def request_k(dev, probe: bool = False, ref: dict = None, ranks: tuple = None) -> dict:
     """Request K on the one card: the one-rank reference, then K_RANKS ranks
-    over gloo; each part's latents and decoded frames held to the
-    reference's, every rank's result identical, the controls beyond the
-    limits. With ``probe``: first NCCL with two ranks on the card (refused)
-    and gloo's all_to_all on CUDA tensors timed against a host-staged one.
-    Returns rank 0's launches in K1."""
+    over gloo (``ref`` and ``ranks``, ``shared_processes``' readings, where
+    they were run, else processes of their own); each part's latents and
+    decoded frames held to the reference's, every rank's result identical,
+    the controls beyond the limits. With ``probe``: first NCCL with two ranks
+    on the card (refused) and gloo's all_to_all on CUDA tensors timed
+    against a host-staged one. Returns rank 0's launches in K1."""
     from mikudance_tpu_torch.core import mesh as mesh_lib
     from mikudance_tpu_torch.kernels import flash_attention as fa
     from mikudance_tpu_torch.kernels import layer_norm as ln
@@ -2631,16 +2565,20 @@ def request_k(dev, probe: bool = False) -> dict:
             lines = [s.strip() for s in str(e).splitlines() if s.strip()]
             nccl = "refused: " + lines[-2 if len(lines) > 1 else -1][:300]
         probes = f" | NCCL with 2 ranks on one card: {nccl}"
-    t0 = time.perf_counter()
-    ref = mesh_lib.spawn(1, request_k_rank, (False, False), timeout=600)[0]
-    ref_s = time.perf_counter() - t0
-    torch.cuda.empty_cache()
-    free, total = torch.cuda.mem_get_info(dev)
-    share = (free / 2**30 - K_RANKS * K_CONTEXT_GIB) / K_RANKS
-    t0 = time.perf_counter()
-    got = mesh_lib.spawn(K_RANKS, request_k_rank, (True, probe, share * 2**30 / total),
-                         timeout=900)
-    ranks_s = time.perf_counter() - t0
+    ref_text = "one-rank reference in request L's references' process"
+    if ref is None:
+        t0 = time.perf_counter()
+        ref = mesh_lib.spawn(1, request_k_rank, (False, False), timeout=600)[0]
+        ref_text = f"one-rank process {time.perf_counter() - t0:.1f} s"
+    if ranks is None:
+        share, free, total = rank_share(dev, K_RANKS)
+        t0 = time.perf_counter()
+        got = mesh_lib.spawn(K_RANKS, request_k_rank, (True, probe, share * 2**30 / total),
+                             timeout=900)
+        ranks_text = f"{K_RANKS} ranks {time.perf_counter() - t0:.1f} s"
+    else:
+        got, share, free, total, ranks_s = ranks
+        ranks_text = f"{K_RANKS} ranks with L1's {ranks_s:.1f} s"
     r0 = got[0]
     if probe:
         probes += f" | gloo's all_to_all of {r0['all_to_all']}"
@@ -2648,8 +2586,8 @@ def request_k(dev, probe: bool = False) -> dict:
         f"through host memory for point-to-point only (the halos), gloo's collectives take "
         f"them{probes} | each rank's allocator capped at {share:.2f} GiB ({free / 2**30:.2f} "
         f"of {total / 2**30:.2f} GiB free, less {K_CONTEXT_GIB} GiB a rank, in "
-        f"{K_RANKS}) | meshes { {p: r0[p]['mesh'] for p in K_PARTS} } | one-rank process "
-        f"{ref_s:.1f} s, {K_RANKS} ranks {ranks_s:.1f} s (processes, bundles built in "
+        f"{K_RANKS}) | meshes { {p: r0[p]['mesh'] for p in K_PARTS} } | {ref_text}, "
+        f"{ranks_text} (processes, bundles built in "
         f"{[round(r['built_s'], 1) for r in got]} s); the ranks time-share one card and "
         f"move their collectives through the host: no scaling is measured")
     controls = {"K1": ("K1 control", "the all_to_all left out"),
@@ -3080,10 +3018,74 @@ def l_phase_text(run: dict) -> str:
             + " s | peak " + " ".join(f"{k} {v:.2f}" for k, v in run["peaks"].items()) + " GiB")
 
 
-def request_l(dev) -> dict:
-    """Request L on the one card: for each group of parts, the one-rank
-    reference (a process of its own, no process group), then the parts' gloo
-    ranks, each capped at an equal share of the card; every rank's trained
+def fresh_l_root() -> str:
+    """Request L's working directory, emptied: the references write their
+    first moments there, the ranks read them."""
+    import shutil
+
+    shutil.rmtree(L_ROOT, ignore_errors=True)
+    os.makedirs(L_ROOT)
+    return L_ROOT
+
+
+def references_rank(l_root: str) -> tuple:
+    """Request K's one-rank reference, then request L's (writing L's first
+    moments under ``l_root``), in one process of a world of one."""
+    import gc
+
+    ref_k = request_k_rank(False, False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref_k, request_l_rank(tuple(L_PARTS), l_root)
+
+
+def k_and_l1_rank(l_root: str, memory_fraction: float) -> tuple:
+    """One of K_RANKS (= L1_RANKS) gloo ranks: request K's parts, then request
+    L1's, in one process, process group and memory cap."""
+    import gc
+
+    got_k = request_k_rank(True, False, memory_fraction)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return got_k, request_l_rank(("L1",), l_root, memory_fraction)
+
+
+def rank_share(dev, n: int) -> tuple:
+    """A rank's memory cap for ``n`` ranks on the card, in GiB: an equal share
+    of the free memory less K_CONTEXT_GIB a rank; and the free and total
+    bytes."""
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    return (free / 2**30 - n * K_CONTEXT_GIB) / n, free, total
+
+
+def shared_processes(dev) -> tuple:
+    """The processes requests K and L can share: the one-rank references of
+    both in one process, then K's and L1's ranks in one spawn of K_RANKS.
+    Returns K's reference, L's, and for K and for L1 the ranks' readings with
+    (cap GiB, free, total bytes, seconds of the spawn)."""
+    from mikudance_tpu_torch.core import mesh as mesh_lib
+
+    check(K_RANKS == L1_RANKS, f"K and L1 share their ranks: {K_RANKS} and {L1_RANKS}")
+    root = fresh_l_root()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref_k, ref_l = mesh_lib.spawn(1, references_rank, (root,), timeout=1500)[0]
+    log(f"requests K and L: the one-rank references of K's parts and of "
+        f"{', '.join(L_PARTS)} in one process, {time.perf_counter() - t0:.1f} s (the "
+        f"process and its builds included)")
+    share, free, total = rank_share(dev, K_RANKS)
+    t0 = time.perf_counter()
+    got = mesh_lib.spawn(K_RANKS, k_and_l1_rank, (root, share * 2**30 / total), timeout=2100)
+    placed = (share, free, total, time.perf_counter() - t0)
+    return (ref_k, ref_l, ([g[0] for g in got],) + placed, ([g[1] for g in got],) + placed)
+
+
+def request_l(dev, ref: dict = None, l1: tuple = None) -> dict:
+    """Request L on the one card: the one-rank reference of every part, then
+    for each group of parts the gloo ranks, each capped at an equal share of
+    the card (``ref`` and L1's ranks ``l1``, ``shared_processes``' readings,
+    where they were run, else processes of their own); every rank's trained
     weights identical, the losses, gradient norms and first moments held to
     the reference's, the controls beyond the limits; then L4, the graft
     entry. Returns rank 0's launches by run."""
@@ -3097,8 +3099,7 @@ def request_l(dev) -> dict:
     from mikudance_tpu_torch.kernels import temporal_attention as ta
 
     kernels = kernel_list()
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke",
-                        "request_l")
+    root = L_ROOT
     failures, launches, ran = [], {}, set()
 
     def hold(ok: bool, what: str) -> None:
@@ -3109,22 +3110,24 @@ def request_l(dev) -> dict:
     rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
     apart = lambda a, b: max(rel(x, y) for x, y in zip(a, b))  # noqa: E731
     nonzero = lambda counts: {k: v for k, v in counts.items() if v}  # noqa: E731
-    shutil.rmtree(root, ignore_errors=True)
-    os.makedirs(root)
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    ref = mesh_lib.spawn(1, request_l_rank, (tuple(L_PARTS), root), timeout=900)[0]
-    log(f"request L: the one-rank references of {', '.join(L_PARTS)} in one process, "
-        f"{time.perf_counter() - t0:.1f} s (the process and its builds included)")
+    if ref is None:
+        fresh_l_root()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ref = mesh_lib.spawn(1, request_l_rank, (tuple(L_PARTS), root), timeout=900)[0]
+        log(f"request L: the one-rank references of {', '.join(L_PARTS)} in one process, "
+            f"{time.perf_counter() - t0:.1f} s (the process and its builds included)")
     for parts in (("L1",), ("L2", "L3")):
         n = L_PARTS[parts[0]][2]
-        torch.cuda.empty_cache()
-        free, total = torch.cuda.mem_get_info(dev)
-        share = (free / 2**30 - n * K_CONTEXT_GIB) / n
-        t0 = time.perf_counter()
-        got = mesh_lib.spawn(n, request_l_rank, (parts, root, share * 2**30 / total),
-                             timeout=1500)
-        ranks_s = time.perf_counter() - t0
+        if parts == ("L1",) and l1 is not None:
+            got, share, free, total, ranks_s = l1
+            ranks_text = f"{n} ranks with K's {ranks_s:.1f} s"
+        else:
+            share, free, total = rank_share(dev, n)
+            t0 = time.perf_counter()
+            got = mesh_lib.spawn(n, request_l_rank, (parts, root, share * 2**30 / total),
+                                 timeout=1500)
+            ranks_text = f"{n} ranks {time.perf_counter() - t0:.1f} s"
         if parts == ("L1",):  # one rank, one step through K1 and through K10 / K12
             routes, _, _ = distance(
                 {"moment": {"all": torch.from_numpy(np.load(os.path.join(root, "L1",
@@ -3138,8 +3141,8 @@ def request_l(dev) -> dict:
         r0 = got[0]
         log(f"request L, {' and '.join(parts)}: world {r0['world']}, backend {r0['backend']}, "
             f"each rank's allocator capped at {share:.2f} GiB ({free / 2**30:.2f} of "
-            f"{total / 2**30:.2f} GiB free, less {K_CONTEXT_GIB} GiB a rank) | {n} ranks "
-            f"{ranks_s:.1f} s (processes and builds included); the ranks time-share one card "
+            f"{total / 2**30:.2f} GiB free, less {K_CONTEXT_GIB} GiB a rank) | {ranks_text} "
+            f"(processes and builds included); the ranks time-share one card "
             f"and move their collectives through the host: no scaling is measured")
         for part in parts:
             stage, sections, _ = L_PARTS[part]
@@ -3717,11 +3720,13 @@ def main() -> int:
     record = phase_kernels(dev)
 
     # 3b. request K: the sampler on 4 ranks of the card, before the bundles
-    # below take the card's memory
-    launches_k = request_k(dev)
+    # below take the card's memory; its one-rank reference and request L's
+    # in one process, its ranks and request L1's in one spawn
+    ref_k, ref_l, ranks_k, ranks_l1 = shared_processes(dev)
+    launches_k = request_k(dev, ref=ref_k, ranks=ranks_k)
 
     # 3c. request L: the trainers on gloo ranks of the card, the graft entry
-    launches_l = request_l(dev)
+    launches_l = request_l(dev, ref=ref_l, l1=ranks_l1)
 
     # 4. request A at the headline geometry
     bundle, pipe, bundle_b, pipe_b = headline_pipes()
@@ -3745,6 +3750,10 @@ def main() -> int:
     check_video(frames_warm, lat_warm, T, "request A, warm")
     phases = phase_text(timer)
     log(f"request A, warm, {WARM_STEPS} steps: {wall:.3f} s | {phases}")
+
+    # 5b. request A at 2 steps through the profile script's body, the profile
+    # checked against the kernels' own counters
+    profiled_request_a(pipe, kernels, at_768)
 
     # 6. request B: scene motion, CLIP tower, sampler, temporal decoder
     reset_counts()

@@ -637,6 +637,7 @@ class VideoPipeline:
         else:
             all_frames = torch.cat([to_unit_float(raw[0], True, dev)]
                                    + [to_unit_float(p, False, dev) for p in raw[1:]])
+        mark("h2d_normalize")
         lat = encode_frames(self.bundle.vae_enc, all_frames, mesh=mesh)
         mark("vae_encode")
         o = 2 + T
