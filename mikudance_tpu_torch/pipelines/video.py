@@ -69,6 +69,7 @@ from ..models.unet import (DenoisingUNet, GuidanceUNet, bank_keys,
 from ..models.clip_vision import CLIPVisionTower, clip_image_tokens
 from ..models.vae import Decoder, Encoder, latent_mean
 from ..models.vae_temporal import TemporalDecoder
+from ..utils.profiling import span
 from . import context as ctx_sched
 from .interpolation import interpolate_latents
 
@@ -421,31 +422,34 @@ class VideoPipeline:
         def uncond_first(x):
             return torch.cat([x.new_zeros((n_uncond,) + x.shape[1:]), x])
 
-        banks2 = {key: (uncond_first(k), uncond_first(v))
-                  for key, (k, v) in precompute_reference_kv(den, banks, dt).items()}
-        ctx2 = torch.cat([torch.zeros_like(ctx_cond).expand((nw,) + ctx_cond.shape[1:]),
-                          ctx_cond.expand((nw,) + ctx_cond.shape[1:])]).to(dt)
-        ctx_kv2 = precompute_context_kv(den, ctx2[rows[0]:rows[1]], bank_keys(den.cfg.unet), dt)
+        with span("bank_kv"):
+            banks2 = {key: (uncond_first(k), uncond_first(v))
+                      for key, (k, v) in precompute_reference_kv(den, banks, dt).items()}
+            ctx2 = torch.cat([torch.zeros_like(ctx_cond).expand((nw,) + ctx_cond.shape[1:]),
+                              ctx_cond.expand((nw,) + ctx_cond.shape[1:])]).to(dt)
+            ctx_kv2 = precompute_context_kv(den, ctx2[rows[0]:rows[1]],
+                                            bank_keys(den.cfg.unet), dt)
         frame_axis = None if mesh is None else Axis(mesh, FRAME_AXIS)
 
         win_idx = torch.as_tensor(windows, dtype=torch.long, device=self.device)
         flat_idx = win_idx.reshape(-1)
         latents = noise.float()
         for t, t_prev in zip(ts.tolist(), prev_ts.tolist()):
-            win = latents[win_idx]  # (nw, wf, h, w, 4)
-            batch = torch.cat([win, win])[rows[0]:rows[1], frames[0]:frames[1]].to(dt)
-            t_b = torch.full((rows[1] - rows[0],), t, dtype=torch.int32, device=self.device)
-            pred = den(batch, t_b, banks_kv=banks2, ctx_kv=ctx_kv2,
-                       frame_axis=frame_axis).float()
-            if mesh is not None:  # the blocks of every rank -> (2 nw, wf, h, w, 4)
-                grid = mesh.all_gather(pred[None]).reshape((dw, df) + pred.shape)
-                pred = grid.transpose(1, 2).reshape((2 * nw, wf) + pred.shape[2:])
-            pred_u = pred[:nw].reshape((nw * wf,) + pred.shape[2:])
-            pred_c = pred[nw:].reshape((nw * wf,) + pred.shape[2:])
-            sum_u = torch.zeros_like(latents).index_add_(0, flat_idx, pred_u)
-            sum_c = torch.zeros_like(latents).index_add_(0, flat_idx, pred_c)
-            latents = self._fused_cfg_step(sum_u, sum_c, counts, guidance_scale, t, t_prev,
-                                           latents)
+            with span("denoise_step"):
+                win = latents[win_idx]  # (nw, wf, h, w, 4)
+                batch = torch.cat([win, win])[rows[0]:rows[1], frames[0]:frames[1]].to(dt)
+                t_b = torch.full((rows[1] - rows[0],), t, dtype=torch.int32, device=self.device)
+                pred = den(batch, t_b, banks_kv=banks2, ctx_kv=ctx_kv2,
+                           frame_axis=frame_axis).float()
+                if mesh is not None:  # the blocks of every rank -> (2 nw, wf, h, w, 4)
+                    grid = mesh.all_gather(pred[None]).reshape((dw, df) + pred.shape)
+                    pred = grid.transpose(1, 2).reshape((2 * nw, wf) + pred.shape[2:])
+                pred_u = pred[:nw].reshape((nw * wf,) + pred.shape[2:])
+                pred_c = pred[nw:].reshape((nw * wf,) + pred.shape[2:])
+                sum_u = torch.zeros_like(latents).index_add_(0, flat_idx, pred_u)
+                sum_c = torch.zeros_like(latents).index_add_(0, flat_idx, pred_c)
+                latents = self._fused_cfg_step(sum_u, sum_c, counts, guidance_scale, t, t_prev,
+                                               latents)
         return latents
 
     # ------------------------------------------------------ denoise (grouped)
@@ -510,25 +514,26 @@ class VideoPipeline:
             win_w = torch.as_tensor(win_w, dtype=torch.float32, device=self.device)
         latents = noise.float()
         for t, t_prev in zip(ts.tolist(), prev_ts.tolist()):
-            sum_u, sum_c = torch.zeros_like(latents), torch.zeros_like(latents)
-            t_b = torch.full((group,), t, dtype=torch.int32, device=self.device)
-            for g0 in starts:
-                w_g = win_idx[g0:g0 + group]  # (group, wf)
-                flat = w_g.reshape(-1)
-                win = latents[w_g].to(cdt)  # (group, wf, h, w, 4)
-                pred_u = den(win, t_b, ctx_0).float()
-                banks = group_banks(slice(g0 * wf, (g0 + group) * wf), flat)
-                pred_c = den(win, t_b, ctx_b, banks=banks).float()
-                del banks
-                if win_w is not None:  # pad windows (weight 0) stay out of the sums
-                    w = win_w[g0:g0 + group][:, None, None, None, None]
-                    pred_u, pred_c = pred_u * w, pred_c * w
-                sum_u.index_add_(0, flat, pred_u.reshape((group * wf,) + pred_u.shape[2:]))
-                sum_c.index_add_(0, flat, pred_c.reshape((group * wf,) + pred_c.shape[2:]))
-            if mesh is not None:
-                sum_u, sum_c = mesh.psum(sum_u), mesh.psum(sum_c)
-            latents = self._fused_cfg_step(sum_u, sum_c, counts, guidance_scale, t, t_prev,
-                                           latents)
+            with span("denoise_step"):
+                sum_u, sum_c = torch.zeros_like(latents), torch.zeros_like(latents)
+                t_b = torch.full((group,), t, dtype=torch.int32, device=self.device)
+                for g0 in starts:
+                    w_g = win_idx[g0:g0 + group]  # (group, wf)
+                    flat = w_g.reshape(-1)
+                    win = latents[w_g].to(cdt)  # (group, wf, h, w, 4)
+                    pred_u = den(win, t_b, ctx_0).float()
+                    banks = group_banks(slice(g0 * wf, (g0 + group) * wf), flat)
+                    pred_c = den(win, t_b, ctx_b, banks=banks).float()
+                    del banks
+                    if win_w is not None:  # pad windows (weight 0) stay out of the sums
+                        w = win_w[g0:g0 + group][:, None, None, None, None]
+                        pred_u, pred_c = pred_u * w, pred_c * w
+                    sum_u.index_add_(0, flat, pred_u.reshape((group * wf,) + pred_u.shape[2:]))
+                    sum_c.index_add_(0, flat, pred_c.reshape((group * wf,) + pred_c.shape[2:]))
+                if mesh is not None:
+                    sum_u, sum_c = mesh.psum(sum_u), mesh.psum(sum_c)
+                latents = self._fused_cfg_step(sum_u, sum_c, counts, guidance_scale, t, t_prev,
+                                               latents)
         return latents
 
     # ----------------------------------------------------------------- decode
@@ -578,10 +583,11 @@ class VideoPipeline:
         mesh = self.mesh_for(2 * windows.shape[0], windows.shape[1])
         subset = mesh is not None and mesh.size < self.mesh.size
         if mesh is None or mesh.rank in mesh:
-            out = self._sample(ref_image, ref_skel, pose_frames, face_frames, hand_frames,
-                               scene_motion, clip_context, noise, windows, mesh,
-                               num_inference_steps, guidance_scale, decode,
-                               to_host and not subset, timer)
+            with span("clip"):
+                out = self._sample(ref_image, ref_skel, pose_frames, face_frames, hand_frames,
+                                   scene_motion, clip_context, noise, windows, mesh,
+                                   num_inference_steps, guidance_scale, decode,
+                                   to_host and not subset, timer)
         else:  # a rank the chosen mesh leaves out waits for the result
             f = cfgc.interpolation_factor
             n = T if f <= 1 else (T - 1) * 2 ** (f - 1) + 1
@@ -619,27 +625,28 @@ class VideoPipeline:
                 return None
             return frames
 
-        face_frames, hand_frames = collapse_black(face_frames), collapse_black(hand_frames)
-        H_img, W_img = pose_frames.shape[1:3]
-        black = np.zeros((1, H_img, W_img, 3), np.uint8)
-
         def as4(x):
             return x[None] if x.ndim == 3 else x
 
-        raw = [as4(np.asarray(ref_image)), as4(np.asarray(ref_skel)), pose_frames,
-               black if face_frames is None else face_frames,
-               black if hand_frames is None else hand_frames]
-        if all(p.dtype == np.uint8 for p in raw):
-            # one stacked byte transfer; row 0 is the ref image ([-1, 1]),
-            # every later row a [0, 1] condition stream
-            f = torch.from_numpy(np.concatenate(raw, axis=0)).to(dev).float()
-            all_frames = torch.cat([f[:1] / 127.5 - 1.0, f[1:] / 255.0])
-        else:
-            all_frames = torch.cat([to_unit_float(raw[0], True, dev)]
-                                   + [to_unit_float(p, False, dev) for p in raw[1:]])
-        mark("h2d_normalize")
-        lat = encode_frames(self.bundle.vae_enc, all_frames, mesh=mesh)
-        mark("vae_encode")
+        with span("h2d_normalize"):
+            face_frames, hand_frames = collapse_black(face_frames), collapse_black(hand_frames)
+            H_img, W_img = pose_frames.shape[1:3]
+            black = np.zeros((1, H_img, W_img, 3), np.uint8)
+            raw = [as4(np.asarray(ref_image)), as4(np.asarray(ref_skel)), pose_frames,
+                   black if face_frames is None else face_frames,
+                   black if hand_frames is None else hand_frames]
+            if all(p.dtype == np.uint8 for p in raw):
+                # one stacked byte transfer; row 0 is the ref image ([-1, 1]),
+                # every later row a [0, 1] condition stream
+                f = torch.from_numpy(np.concatenate(raw, axis=0)).to(dev).float()
+                all_frames = torch.cat([f[:1] / 127.5 - 1.0, f[1:] / 255.0])
+            else:
+                all_frames = torch.cat([to_unit_float(raw[0], True, dev)]
+                                       + [to_unit_float(p, False, dev) for p in raw[1:]])
+            mark("h2d_normalize")
+        with span("vae_encode"):
+            lat = encode_frames(self.bundle.vae_enc, all_frames, mesh=mesh)
+            mark("vae_encode")
         o = 2 + T
         n_face = raw[3].shape[0]
         ref_l, skel_l, pose_l = lat[0:1], lat[1:2], lat[2:o]
@@ -699,47 +706,53 @@ class VideoPipeline:
 
         # 3. the loop over DDIM steps
         if per_step:
-            group = choose_bank_group(nw_eff, wf, cfgc.cached_bank_positions, n_sh)
-            latents = self._denoise_streamed(noise, cond20, motion, ctx_cond, g_ctx, win_eff,
-                                             counts, ts, prev_ts, float(scale), group,
-                                             win_w=win_w, mesh=stream_mesh)
-            mark("denoise_streamed")
-        else:
-            bank_idx = None
-            if q8:
-                u_frames, u_uncond, bank_idx = unique_bank_index(win_eff,
-                                                                 cfgc.guidance_clip_mode)
-                u_frames = torch.as_tensor(u_frames, dtype=torch.long, device=dev)
-                u_mask = torch.as_tensor(u_uncond, device=dev)[:, None, None]
-                g_ctx_u = torch.where(u_mask, torch.zeros_like(ctx_cond), ctx_cond).to(gdt)
-                banks = self._compute_banks_q8(cond20[u_frames].to(gdt),
-                                               motion[u_frames].to(gdt), g_ctx_u,
-                                               chunk=cfgc.cached_bank_positions, mesh=mesh)
-            elif grouped and stream_mesh is not None:  # the banks of this rank's windows
-                per = nw_eff // stream_mesh.size * wf
-                mine = slice(stream_mesh.index() * per, (stream_mesh.index() + 1) * per)
-                f = torch.as_tensor(win_eff.reshape(-1)[mine], dtype=torch.long, device=dev)
-                banks = self._compute_banks(cond20[f].to(gdt), motion[f].to(gdt), g_ctx[mine])
-            else:  # every window's banks; on a mesh, those of this rank's UNet block
-                spmd = None if grouped else mesh
-                need = None if spmd is None else [_block_positions(mesh, nw, wf, j)
-                                                  for j in range(mesh.size)]
-                banks = self._compute_banks(cond20[flat].to(gdt), motion[flat].to(gdt), g_ctx,
-                                            mesh=spmd, need=need)
-            mark("guidance_banks")
-            if grouped:
-                # cached-grouped: every bank fits, one UNet batch over every
-                # window does not (two 30-frame windows at 768^2)
-                group = choose_bank_group(nw_eff, wf, cfgc.max_denoise_frame_batch, n_sh) or 1
+            with span("denoise_streamed"):
+                group = choose_bank_group(nw_eff, wf, cfgc.cached_bank_positions, n_sh)
                 latents = self._denoise_streamed(noise, cond20, motion, ctx_cond, g_ctx,
                                                  win_eff, counts, ts, prev_ts, float(scale),
-                                                 group, banks_cached=banks, bank_idx=bank_idx,
-                                                 win_w=win_w, mesh=stream_mesh)
-            else:
-                latents = self._denoise(noise, banks, ctx_cond, windows, counts, ts, prev_ts,
-                                        float(scale), mesh=mesh)
-            del banks  # gigabytes of cached banks, freed before the decode
-            mark("denoise")
+                                                 group, win_w=win_w, mesh=stream_mesh)
+                mark("denoise_streamed")
+        else:
+            with span("guidance_banks"):
+                bank_idx = None
+                if q8:
+                    u_frames, u_uncond, bank_idx = unique_bank_index(win_eff,
+                                                                     cfgc.guidance_clip_mode)
+                    u_frames = torch.as_tensor(u_frames, dtype=torch.long, device=dev)
+                    u_mask = torch.as_tensor(u_uncond, device=dev)[:, None, None]
+                    g_ctx_u = torch.where(u_mask, torch.zeros_like(ctx_cond), ctx_cond).to(gdt)
+                    banks = self._compute_banks_q8(cond20[u_frames].to(gdt),
+                                                   motion[u_frames].to(gdt), g_ctx_u,
+                                                   chunk=cfgc.cached_bank_positions, mesh=mesh)
+                elif grouped and stream_mesh is not None:  # the banks of this rank's windows
+                    per = nw_eff // stream_mesh.size * wf
+                    mine = slice(stream_mesh.index() * per, (stream_mesh.index() + 1) * per)
+                    f = torch.as_tensor(win_eff.reshape(-1)[mine], dtype=torch.long, device=dev)
+                    banks = self._compute_banks(cond20[f].to(gdt), motion[f].to(gdt),
+                                                g_ctx[mine])
+                else:  # every window's banks; on a mesh, those of this rank's UNet block
+                    spmd = None if grouped else mesh
+                    need = None if spmd is None else [_block_positions(mesh, nw, wf, j)
+                                                      for j in range(mesh.size)]
+                    banks = self._compute_banks(cond20[flat].to(gdt), motion[flat].to(gdt),
+                                                g_ctx, mesh=spmd, need=need)
+                mark("guidance_banks")
+            with span("denoise"):
+                if grouped:
+                    # cached-grouped: every bank fits, one UNet batch over every
+                    # window does not (two 30-frame windows at 768^2)
+                    group = choose_bank_group(nw_eff, wf, cfgc.max_denoise_frame_batch,
+                                              n_sh) or 1
+                    latents = self._denoise_streamed(noise, cond20, motion, ctx_cond, g_ctx,
+                                                     win_eff, counts, ts, prev_ts, float(scale),
+                                                     group, banks_cached=banks,
+                                                     bank_idx=bank_idx, win_w=win_w,
+                                                     mesh=stream_mesh)
+                else:
+                    latents = self._denoise(noise, banks, ctx_cond, windows, counts, ts,
+                                            prev_ts, float(scale), mesh=mesh)
+                del banks  # gigabytes of cached banks, freed before the decode
+                mark("denoise")
         # 4. optional latent frame-rate upsampling (`pipeline_mikudance.py:688`)
         if cfgc.interpolation_factor > 1:
             latents = interpolate_latents(latents, cfgc.interpolation_factor,
@@ -748,9 +761,11 @@ class VideoPipeline:
         if not decode:
             return latents
         if to_host:
-            out = self.decode_to_host(latents, mesh)
-            mark("decode_d2h")
+            with span("decode_d2h"):
+                out = self.decode_to_host(latents, mesh)
+                mark("decode_d2h")
             return out
-        out = self._decode(latents, mesh)
-        mark("decode")
+        with span("decode"):
+            out = self._decode(latents, mesh)
+            mark("decode")
         return out

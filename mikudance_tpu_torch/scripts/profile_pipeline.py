@@ -12,8 +12,12 @@ widths, context 30/8, CFG 3.5, bf16; seeded random weights, as
    open it in Perfetto, ui.perfetto.dev): the top categories of device time,
    then the top ``--top`` rows by op (an ATen op with its inputs' dtypes and
    shapes, or the kernel's name where no op launched it);
-4. the busy share, device time over the traced call's wall;
-5. with ``--per-step N``: the device time of one denoise step, (N-step -
+4. the busy share: the union of the device records' intervals over the
+   traced call's wall;
+5. the program's spans of the traced call (``utils.profiling.span``) as a
+   tree, host and device ms, self time and host syncs of each, and the
+   device's idle gaps, each named by the innermost span it began in;
+6. with ``--per-step N``: the device time of one denoise step, (N-step -
    2-step) / (N - 2), by category and by op.
 
     python -m mikudance_tpu_torch.scripts.profile_pipeline [--steps 20] \\
@@ -33,8 +37,9 @@ from typing import Optional
 
 import torch
 
-from ..utils.profiling import (PeakTimer, Timer, category_totals, clock_of, device_ms,
-                               op_profile_rows, run_in_lost, trace)
+from ..utils.profiling import (PeakTimer, Timer, busy_ns, category_totals, clock_of, device_ms,
+                               gaps, idle_by_span, op_profile_rows, recorded, records,
+                               run_in_lost, span_tree, trace)
 from .psnr_sd_width import card_name
 
 # bench.py's geometry
@@ -51,7 +56,10 @@ def profile_pipeline(pipe, inputs, steps: int, logdir: Optional[str] = None,
     (``phases``, ``peaks_gib`` on the card, ``phase_wall_s``), then a call
     under ``trace`` (a Chrome trace in ``logdir`` unless None): its wall
     (``wall_s``), the clock read (``clock``: "device" on the card, "cpu"
-    on the CPU), ``total_ms``, ``busy`` (total over wall), ``categories``
+    on the CPU), ``total_ms``, ``busy`` (the union of the records' intervals,
+    device records on the card and CPU ops on the CPU, over the wall),
+    ``spans`` (the program's, ``recorded()``), ``idle_by_span`` {span: idle
+    s} of the device records (the CPU ops on the CPU), ``categories``
     {category: [ms, calls]}, depth-3 ``rows`` [(ms, calls, category, name)],
     ``kernels_by_key`` [(ms, calls, kernel key)] and the ``launches`` of
     ``kernels`` (objects with ``name`` and ``launches``, set to 0 just before
@@ -74,15 +82,18 @@ def profile_pipeline(pipe, inputs, steps: int, logdir: Optional[str] = None,
             k.launches = 0
         with trace(log_dir, dev) as prof:
             sync()
-            t0 = time.perf_counter()
+            lo = time.time_ns()
             call(n)
             sync()
-            wall = time.perf_counter() - t0
+            hi = time.time_ns()
         rows = op_profile_rows(prof, depth=3)
         total = sum(r[0] for r in rows)
-        return {"wall_s": wall, "clock": clock_of(prof), "total_ms": total,
+        recs, spans = records(prof, device=cuda), recorded()
+        return {"wall_s": (hi - lo) / 1e9, "clock": clock_of(prof), "total_ms": total,
                 "run_in_lost": run_in_lost(prof) if cuda else 0,
-                "busy": total / 1e3 / wall, "categories": category_totals(rows), "rows": rows,
+                "busy": busy_ns(recs, lo, hi) / (hi - lo), "spans": spans,
+                "idle_by_span": idle_by_span(gaps(recs, lo, hi), spans),
+                "categories": category_totals(rows), "rows": rows,
                 "kernels_by_key": device_ms(prof)[1] if cuda else [],
                 "launches": {k.name: k.launches for k in kernels}, "trace": prof.trace_path}
 
@@ -141,6 +152,11 @@ def profile_report(res: dict, top: int = 20) -> str:
     lines.append(f"top {top} ops ({clock} ms, calls, category, op or kernel):")
     for ms, n, cat, name in res["rows"][:top]:
         lines.append(f"{ms:14.1f} {n:7d}  {cat[:24]:24s}  {name[:140]}")
+    lines.append("the program's spans, traced call (ms; self: less the children):")
+    lines += span_tree(res["spans"])
+    lines.append(f"idle ({clock} records), by the span it began in:")
+    for name, sec in sorted(res["idle_by_span"].items(), key=lambda kv: -kv[1]):
+        lines.append(f"{sec * 1e3:14.1f} ms  {name}")
     if "per_step" in res:
         ps = res["per_step"]
         tot = ps["total_ms"]

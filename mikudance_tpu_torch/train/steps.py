@@ -60,6 +60,7 @@ from torch import nn
 from ..core import mesh as mesh_lib
 from ..diffusion.ddim import DDIMSchedule, min_snr_loss_weight
 from ..models.unet import DenoisingUNet, GuidanceUNet
+from ..utils.profiling import span
 
 # Elements of one group of the optimizer's update (the clip, the moments and
 # the step run a group of leaves at a time, so their temporaries stay this
@@ -544,22 +545,27 @@ def make_train_step(cfg: TrainConfig, schedule: DDIMSchedule, state: TrainState,
     grid before the optimizer step, which every rank takes alike."""
 
     def step(batch, generator: Optional[torch.Generator] = None, draws=None):
-        params = state.trainable
-        for p in params.values():
-            p.grad = None
-        loss, metrics = diffusion_loss(cfg, schedule, state.guide, state.den, batch,
-                                       generator, draws, mesh)
-        loss.backward()
-        grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-                 for n, p in params.items()}
-        for p in params.values():
-            p.grad = None
-        if mesh is not None:
-            grads = sum_gradients(grads, mesh, state.optimizer)
-        if state.optimizer.update(grads):
-            metrics["grad_norm"] = state.optimizer.last_grad_norm
-        del grads
-        state.step += 1
-        return metrics
+        with span("train_step"):
+            params = state.trainable
+            for p in params.values():
+                p.grad = None
+            with span("forward"):
+                loss, metrics = diffusion_loss(cfg, schedule, state.guide, state.den, batch,
+                                               generator, draws, mesh)
+            with span("backward"):
+                loss.backward()
+            with span("gradients"):
+                grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+                         for n, p in params.items()}
+                for p in params.values():
+                    p.grad = None
+                if mesh is not None:
+                    grads = sum_gradients(grads, mesh, state.optimizer)
+            with span("optimizer"):
+                if state.optimizer.update(grads):
+                    metrics["grad_norm"] = state.optimizer.last_grad_norm
+            del grads
+            state.step += 1
+            return metrics
 
     return step

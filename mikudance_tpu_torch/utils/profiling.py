@@ -4,13 +4,19 @@
 - ``trace(log_dir, device)``: torch.profiler around a block, writing a Chrome
   trace into ``log_dir`` (it opens in Perfetto, ui.perfetto.dev); yields the
   profiler so that the summaries below read it without the file.
+- ``span(name)`` / ``count(name, n)`` / ``recorded()``: the program's own
+  spans and counters, recorded while a profiler session is open (and only
+  then), on the clock of the profiler's device records; see "The program's
+  spans" below.
 - ``force(x)``: synchronise a tensor's device and return a float.
-- ``Timer``: wall time per named phase, ``mark`` (the pipelines) and
-  ``phase`` / ``report`` (the JAX Timer's); ``PeakTimer`` adds each phase's
-  peak device memory.
+- ``Timer``: wall time per named phase, ``mark`` (the pipelines);
+  ``PeakTimer`` adds each phase's peak device memory.
 - ``op_profile_rows`` / ``op_profile_summary``: time by category (depth 2) and
   per op (depth 3) of a profiler run, device time where the run has any, else
   CPU time. ``PROFILE_CATEGORIES`` gives a kernel's category by its name.
+- ``records``, ``union``, ``busy_ns``, ``gaps``, ``idle_by_span``: a
+  profiler run's records as intervals on ``time.time_ns``, and the busy and
+  idle time they leave, each idle gap named by the program span it began in.
 - ``device_ms``, ``profile_request``, ``profile_text``, ``host_and_kernels_ms``,
   ``kernel_calls``: the readings ``chip_smoke.py`` and
   ``scripts/profile_pipeline.py`` print and check.
@@ -18,14 +24,18 @@
 
 from __future__ import annotations
 
+import bisect
 import contextlib
+import dataclasses
 import os
 import re
 import time
+import warnings
 from collections import defaultdict
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
 from torch.autograd import DeviceType
 
 # kernel-name (and, for a run on the CPU, ATen-op-name) substrings ->
@@ -225,6 +235,7 @@ def trace(log_dir: Optional[str], device=None):
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    RECORDER.close()  # the program's spans of this session start a new list
     with profile(activities=activities, record_shapes=True) as prof:
         if cuda:  # the run-in (RUN_IN)
             with torch.cuda.device(dev):
@@ -237,6 +248,330 @@ def trace(log_dir: Optional[str], device=None):
         os.makedirs(log_dir, exist_ok=True)
         prof.trace_path = os.path.join(log_dir, f"trace-{time.time_ns()}.json")
         prof.export_chrome_trace(prof.trace_path)
+
+
+# ------------------------------------------------------ the program's spans
+# The program opens a span at its layers' boundaries (a clip and its phases,
+# a denoise step, a train step and its phases) and charges counters to the
+# innermost open one. The recorder is on exactly while a torch.profiler
+# session is open (the profiler's own flag, ``_is_profiler_enabled``, set
+# whatever activities it records); off, a span site is one check of that flag
+# and the shared no-op context ``_OFF``, and reads no clock.
+#
+# A span keeps its host start and end on ``time.time_ns``, the clock of the
+# profiler's records, and a CUDA event at each end on the current stream.
+# The first request span of a session anchors the events to that clock: it
+# synchronises the card once and times one event against the host clock. No
+# span synchronises the card after that; the events are read when the spans
+# are (``recorded()``), after the caller's own synchronisation.
+#
+# While a request span is open on the card, every synchronisation the host
+# waits on (a blocking copy either way, ``.item()`` or ``float()`` of a card
+# tensor, ``nonzero``) counts as HOST_SYNCS on the innermost open span:
+# PyTorch's sync debug mode "warn", set for that time only, reports each as a
+# warning, which the recorder counts and does not show.
+HOST_SYNCS = "host_syncs"
+SYNC_WARNING = "called a synchronizing CUDA operation"
+_OFF = contextlib.nullcontext()
+
+
+@dataclasses.dataclass(frozen=True)
+class SpanRecord:
+    """A closed span: its ``index`` in the session's list (spans in the order
+    they opened), its ``parent``'s index (None for a request span), its
+    ``request`` (the session's request spans counted from 0; every span
+    inside one shares it), host and device (start, end) in ns on
+    ``time.time_ns`` (device None where the session had no card), and the
+    counters charged to it."""
+
+    name: str
+    index: int
+    parent: Optional[int]
+    request: int
+    host_ns: Tuple[int, int]
+    device_ns: Optional[Tuple[int, int]]
+    counters: Dict[str, int]
+
+    @property
+    def host_ms(self) -> float:
+        return (self.host_ns[1] - self.host_ns[0]) / 1e6
+
+    @property
+    def device_ms(self) -> Optional[float]:
+        return None if self.device_ns is None else (self.device_ns[1] - self.device_ns[0]) / 1e6
+
+
+class _Session:
+    """The spans of one profiler session, and the anchor of their events:
+    where the card is in use, one event recorded on the drained stream and
+    waited for, the host clock read once it is seen done. A device time
+    therefore reads late by at most that wait's wake-up, never early."""
+
+    def __init__(self):
+        self.spans: List[_Span] = []
+        self.requests = 0
+        self.closed = False
+        self.anchor = None  # (host ns, CUDA event)
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            event.synchronize()
+            self.anchor = (time.time_ns(), event)
+
+    def device_ns(self, event) -> int:
+        host, anchor = self.anchor
+        return host + round(anchor.elapsed_time(event) * 1e6)
+
+
+class _Span:
+    """An open span (``Recorder`` fills it in)."""
+
+    __slots__ = ("recorder", "name", "index", "parent", "request", "host", "events", "device",
+                 "counters")
+
+    def __init__(self, recorder: "Recorder", name: str):
+        self.recorder, self.name = recorder, name
+
+    def __enter__(self):
+        self.recorder.enter(self)
+        return self
+
+    def __exit__(self, *exc):
+        self.recorder.exit(self)
+        return False
+
+
+class Recorder:
+    """The program's spans and counters: the newest profiler session's
+    spans, and the spans open now, innermost last (one per process,
+    ``RECORDER``)."""
+
+    def __init__(self):
+        self.session: Optional[_Session] = None
+        self.open: List[_Span] = []
+        self._restore = None  # what an open request span changed: (sync mode, warnings)
+
+    def close(self) -> None:
+        """End the session: the next request span starts a new one."""
+        if self.session is not None:
+            self.session.closed = True
+
+    def enter(self, sp: _Span) -> None:
+        if self.open:
+            sp.parent, sp.request = self.open[-1].index, self.open[-1].request
+        else:
+            if self.session is None or self.session.closed:
+                self.session = _Session()
+            sp.parent, sp.request = None, self.session.requests
+            self.session.requests += 1
+            if self.session.anchor is not None:
+                self._count_syncs()
+        sess = self.session
+        sp.index, sp.counters, sp.device, sp.events = len(sess.spans), {}, None, None
+        sess.spans.append(sp)
+        self.open.append(sp)
+        sp.host = [time.time_ns(), None]
+        if sess.anchor is not None:
+            sp.events = (torch.cuda.Event(enable_timing=True),
+                         torch.cuda.Event(enable_timing=True))
+            sp.events[0].record()
+
+    def exit(self, sp: _Span) -> None:
+        if sp.events is not None:
+            sp.events[1].record()
+        sp.host[1] = time.time_ns()
+        self.open.pop()
+        if not self.open and self._restore is not None:
+            mode, caught = self._restore
+            self._restore = None
+            torch.cuda.set_sync_debug_mode(mode)
+            caught.__exit__(None, None, None)
+
+    def _count_syncs(self) -> None:
+        """Until the request span closes: sync debug mode "warn", its warnings
+        counted as HOST_SYNCS, every one, and not shown."""
+        caught = warnings.catch_warnings()
+        caught.__enter__()
+        warnings.filterwarnings("always", message=".*" + SYNC_WARNING)
+        shown = warnings.showwarning
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            if SYNC_WARNING in str(message):
+                count(HOST_SYNCS)
+            else:
+                shown(message, category, filename, lineno, file, line)
+
+        warnings.showwarning = show
+        self._restore = (torch.cuda.get_sync_debug_mode(), caught)
+        torch.cuda.set_sync_debug_mode("warn")
+
+    def recorded(self) -> List[SpanRecord]:
+        """The closed spans of the newest session. Read with the profiler off,
+        the session ends (``close``). Device times need the spans' work done:
+        a span's end event is waited for."""
+        sess = self.session
+        if sess is None:
+            return []
+        if not _autograd_profiler._is_profiler_enabled:
+            sess.closed = True
+        out = []
+        for sp in sess.spans:
+            if sp.host[1] is None:
+                continue
+            if sp.events is not None:
+                sp.events[1].synchronize()
+                sp.device = (sess.device_ns(sp.events[0]), sess.device_ns(sp.events[1]))
+                sp.events = None
+            out.append(SpanRecord(sp.name, sp.index, sp.parent, sp.request, tuple(sp.host),
+                                  sp.device, dict(sp.counters)))
+        return out
+
+
+RECORDER = Recorder()
+
+
+def span(name: str):
+    """The program's span ``name`` as a context manager: recorded while a
+    profiler session is open, else the shared no-op context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(RECORDER, name)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to counter ``name`` of the innermost open span (while a
+    profiler session is open)."""
+    if _autograd_profiler._is_profiler_enabled and RECORDER.open:
+        counters = RECORDER.open[-1].counters
+        counters[name] = counters.get(name, 0) + n
+
+
+def recorded() -> List[SpanRecord]:
+    """The closed spans of the newest profiler session (``Recorder.recorded``)."""
+    return RECORDER.recorded()
+
+
+def self_ns(spans: List[SpanRecord], device: bool = False) -> Dict[int, int]:
+    """Each span's self time by index: its duration less its children's, on
+    the host clock or (``device``) the card's; spans without device times
+    are left out of the latter."""
+    length = {s.index: ends[1] - ends[0] for s in spans
+              for ends in [s.device_ns if device else s.host_ns] if ends is not None}
+    out = dict(length)
+    for s in spans:
+        if s.parent in out and s.index in length:
+            out[s.parent] -= length[s.index]
+    return out
+
+
+def span_tree(spans: List[SpanRecord]) -> List[str]:
+    """The spans as a tree, one line per path from a request span (repeats
+    summed, their count after the name): host ms, device ms, self host ms,
+    self device ms and host syncs."""
+    by_index = {s.index: s for s in spans}
+    paths: Dict[int, tuple] = {}
+
+    def path(s):
+        if s.index not in paths:
+            up = by_index.get(s.parent)
+            paths[s.index] = (path(up) if up is not None else ()) + (s.name,)
+        return paths[s.index]
+
+    own_host, own_dev = self_ns(spans), self_ns(spans, device=True)
+    rows: Dict[tuple, List[float]] = {}
+    for s in spans:
+        row = rows.setdefault(path(s), [0, 0.0, None, 0.0, None, 0])
+        row[0] += 1
+        row[1] += s.host_ms
+        row[3] += own_host[s.index] / 1e6
+        if s.device_ns is not None:
+            row[2] = (row[2] or 0.0) + s.device_ms
+            row[4] = (row[4] or 0.0) + own_dev[s.index] / 1e6
+        row[5] += s.counters.get(HOST_SYNCS, 0)
+
+    def ms(v):
+        return f"{v:12.1f}" if v is not None else f"{'-':>12s}"
+
+    lines = [f"{'span':40s} {'host ms':>12s} {'device ms':>12s} {'self host':>12s} "
+             f"{'self device':>12s} {'syncs':>7s}"]
+    for p, (n, host, dev, self_host, self_dev, syncs) in rows.items():
+        name = "  " * (len(p) - 1) + p[-1] + (f" x{n}" if n > 1 else "")
+        lines.append(f"{name:40s} {ms(host)} {ms(dev)} {ms(self_host)} {ms(self_dev)} "
+                     f"{syncs:7d}")
+    return lines
+
+
+# ------------------------------------------------ records on the spans' clock
+def records(prof, device: bool = True) -> List[Tuple[int, int, str]]:
+    """(start ns, end ns, name) of a profiler run's records on
+    ``time.time_ns``, the clock of the program's spans: every kernel, copy
+    and memset on the card (the run-in left out) or, with ``device`` False,
+    every CPU op."""
+    want = DeviceType.CUDA if device else DeviceType.CPU
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != want or e.is_async() or e.is_user_annotation() \
+                or RUN_IN_KERNEL in e.name():
+            continue
+        s = e.start_ns()
+        out.append((s, s + e.duration_ns(), e.name()))
+    return out
+
+
+def union(intervals) -> List[Tuple[int, int]]:
+    """Merged [start, end) intervals of (start, end, ...) tuples."""
+    merged: List[List[int]] = []
+    for s, e, *_ in sorted(intervals):
+        if merged and s <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], e)
+        else:
+            merged.append([s, e])
+    return [(s, e) for s, e in merged]
+
+
+def busy_ns(intervals, lo: int, hi: int) -> int:
+    """Nanoseconds of [lo, hi) covered by at least one interval: overlapping
+    records count once, so this never passes hi - lo."""
+    return sum(max(0, min(e, hi) - max(s, lo)) for s, e in union(intervals))
+
+
+def gaps(intervals, lo: int, hi: int) -> List[Tuple[int, int]]:
+    """The idle [start, end) intervals of [lo, hi)."""
+    out, at = [], lo
+    for s, e in union(intervals):
+        if e <= lo or s >= hi:
+            continue
+        if s > at:
+            out.append((at, s))
+        at = max(at, e)
+    if at < hi:
+        out.append((at, hi))
+    return out
+
+
+def idle_by_span(gap_list, spans: List[SpanRecord]) -> Dict[str, float]:
+    """Idle seconds by the innermost program span (by its host interval)
+    that each gap began in; "between spans" where none."""
+    points: List[Tuple[int, Optional[str]]] = []  # (ns, innermost span's name from then)
+    stack: List[SpanRecord] = []
+
+    def pop_until(t):
+        while stack and stack[-1].host_ns[1] <= t:
+            end = stack.pop().host_ns[1]
+            points.append((end, stack[-1].name if stack else None))
+
+    for s in sorted(spans, key=lambda s: (s.host_ns[0], -s.host_ns[1])):
+        pop_until(s.host_ns[0])
+        stack.append(s)
+        points.append((s.host_ns[0], s.name))
+    pop_until(float("inf"))
+    times = [t for t, _ in points]
+    out: Dict[str, float] = defaultdict(float)
+    for a, b in gap_list:
+        at = bisect.bisect_right(times, a) - 1
+        out[(points[at][1] if at >= 0 else None) or "between spans"] += (b - a) / 1e9
+    return dict(out)
 
 
 def _leaves(x) -> list:
@@ -265,7 +600,7 @@ def force(x) -> float:
 class Timer:
     """Wall time per named phase. ``mark(name)`` synchronises the device
     (so the phase's queued kernels are inside it), then charges the time since
-    the previous mark to ``name``; ``phase(name)`` charges a block's time."""
+    the previous mark to ``name``."""
 
     def __init__(self, device: Optional[torch.device] = None):
         self.device = torch.device(device) if device is not None else None
@@ -281,22 +616,6 @@ class Timer:
         now = time.perf_counter()
         self.phases[name] = self.phases.get(name, 0.0) + now - self._t0
         self._t0 = now
-
-    @contextlib.contextmanager
-    def phase(self, name: str, sync_on=None):
-        """Charge the block's wall time to ``name``, after ``force(sync_on)``
-        and the timer's device have synchronised."""
-        t0 = time.perf_counter()
-        yield
-        if sync_on is not None:
-            force(sync_on)
-        self._sync()
-        self.phases[name] = self.phases.get(name, 0.0) + time.perf_counter() - t0
-
-    def report(self) -> str:
-        total = sum(self.phases.values())
-        lines = [f"{k}: {v:.3f}s ({100*v/max(total,1e-9):.0f}%)" for k, v in self.phases.items()]
-        return " | ".join(lines) + f" | total {total:.3f}s"
 
     def _sync(self) -> None:
         if self.device is not None and self.device.type == "cuda":
@@ -438,23 +757,26 @@ def kernel_calls(by_key, categories=PROFILE_CATEGORIES) -> Dict[str, int]:
 
 def profile_request(run, steps: int, device=None):
     """``run(steps)`` (one request, returning its Timer) under the profiler:
-    (wall s, phases, ms by category, [(ms, calls, kernel key)] sorted by time)."""
+    (wall s, phases, ms by category, [(ms, calls, kernel key)] sorted by time,
+    busy s: the union of the device records' intervals over the call)."""
     with trace(None, device) as prof:
-        t0 = time.perf_counter()
+        lo = time.time_ns()
         timer = run(steps)
-        wall = time.perf_counter() - t0
-    return (wall, timer.phases) + device_ms(prof)
+        hi = time.time_ns()
+    busy = busy_ns(records(prof), lo, hi) / 1e9
+    return ((hi - lo) / 1e9, timer.phases) + device_ms(prof) + (busy,)
 
 
 def profile_text(name: str, steps: int, res) -> str:
-    """``profile_request``'s result as lines: wall, kernel time, busy share,
-    phases, then ms by category."""
-    wall, phases, sums, _ = res
-    busy = sum(sums.values())
+    """``profile_request``'s result as lines: wall, kernel time, busy share
+    (the union of the device records over the wall), phases, then ms by
+    category."""
+    wall, phases, sums, _, busy = res
+    total = sum(sums.values())
     lines = [f"profile: {name}, {steps} steps: wall {wall:.3f} s, kernel time "
-             f"{busy / 1e3:.3f} s (busy {busy / 1e3 / wall:.1%}), phases "
+             f"{total / 1e3:.3f} s (busy {busy / wall:.1%}), phases "
              + " ".join(f"{k} {v:.3f}s" for k, v in phases.items())]
-    lines += [f"   {cat:44s} {ms:10.1f} ms  {ms / busy:6.1%}"
+    lines += [f"   {cat:44s} {ms:10.1f} ms  {ms / total:6.1%}"
               for cat, ms in sorted(sums.items(), key=lambda kv: -kv[1])]
     return "\n".join(lines)
 

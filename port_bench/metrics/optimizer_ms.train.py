@@ -1,0 +1,19 @@
+"""Device milliseconds of a train step's ``optimizer`` span
+(``Optimizer.update``: the global norm, the clip and the AdamW update of the
+fp32 masters, written back into the modules): the median over the traced
+steps, from the span's CUDA events on the profiler's clock
+(``utils/profiling.py``'s recorder; none without it). Layer: train step
+(``train/steps.py::make_train_step``)."""
+
+import statistics
+
+
+def read(rec):
+    if rec.get("kind") != "train":
+        return None
+    try:
+        from mikudance_tpu_torch.utils.profiling import recorded
+    except ImportError:
+        return None
+    spans = [s.device_ms for s in recorded() if s.name == "optimizer" and s.device_ns]
+    return statistics.median(spans) if spans else None

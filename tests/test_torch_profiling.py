@@ -171,8 +171,13 @@ def test_profile_pipeline_on_the_cpu(pipes, tmp_path):
     assert trace["traceEvents"]
     ps = res["per_step"]
     assert ps["steps"] == 3 and abs(sum(ps["categories"].values()) - ps["total_ms"]) < 1e-6
+    spans = res["spans"]
+    assert [s.name for s in spans if s.parent is None] == ["clip"]
+    assert [s.name for s in spans].count("denoise_step") == 2
+    assert sum(res["idle_by_span"].values()) <= res["wall_s"]
     text = pp.profile_report(res, top=5)
     assert text.startswith("steady-state: ") and "h2d_normalize" in text
+    assert "the program's spans" in text and "  denoise_step x2 " in text
     assert "per denoise step ((3-step - 2-step) / 1)" in text
 
 
@@ -357,17 +362,18 @@ def test_trace_writes_a_chrome_trace(tmp_path):
 
 
 def test_timer_phase_report_and_force_as_the_jax_ones():
-    """``phase`` charges a block to a name, adding up over blocks; the report
-    reads as the JAX Timer's; ``force`` returns the first leaf's sum."""
+    """``mark`` charges the time since the previous mark (or ``start``) to a
+    name, adding up over the marks of one name, in the order first marked;
+    ``force`` returns the first leaf's sum."""
     timer = pf.Timer()
+    timer.start()
     for _ in range(2):
-        with timer.phase("sleep", sync_on={"a": [torch.ones(3)]}):
-            time.sleep(0.01)
+        time.sleep(0.01)
+        timer.mark("sleep")
     timer.mark("mark")
     assert list(timer.phases) == ["sleep", "mark"] and timer.phases["sleep"] >= 0.02
-    jt = jprofiling.Timer()
-    jt.phases = dict(timer.phases)
-    assert timer.report() == jt.report()
+    assert 0 <= timer.phases["mark"] < timer.phases["sleep"]
+    assert not hasattr(timer, "phase") and not hasattr(timer, "report")
     assert pf.force(({"x": torch.full((2, 2), 0.5)}, torch.ones(1))) == 2.0
     assert pf.force([]) == 0.0
 
@@ -395,3 +401,222 @@ def test_no_jax_import(what):
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=REPO)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+# ------------------------------------------------------- the program's spans
+
+@pytest.fixture
+def recorder(monkeypatch):
+    """A fresh recorder in place of the process's one."""
+    fresh = pf.Recorder()
+    monkeypatch.setattr(pf, "RECORDER", fresh)
+    return fresh
+
+
+def cpu_profile():
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CPU])
+
+
+def test_span_sites_with_no_profiler_record_nothing(recorder, monkeypatch):
+    """With no profiler session a span site is the shared no-op context: it
+    reads no clock, makes no event, records nothing and keeps no memory."""
+    assert pf.span("clip") is pf.span("denoise_step")
+
+    def boom(*_a, **_k):
+        raise AssertionError("a span site read a clock or made an event")
+
+    import tracemalloc
+
+    def sites(n):
+        for _ in range(n):
+            with pf.span("train_step"):
+                with pf.span("forward"):
+                    pf.count(pf.HOST_SYNCS)
+
+    with monkeypatch.context() as patched:
+        patched.setattr(time, "time_ns", boom)
+        patched.setattr(time, "perf_counter", boom)
+        patched.setattr(torch.cuda, "Event", boom)
+        sites(10)
+        mine = [tracemalloc.Filter(True, pf.__file__)]
+        rises = []
+        tracemalloc.start()
+        try:
+            kept = tracemalloc.take_snapshot().filter_traces(mine)
+            for _ in range(3):  # the least of three: another thread may allocate meanwhile
+                before = tracemalloc.get_traced_memory()[0]
+                tracemalloc.reset_peak()
+                sites(10000)
+                rises.append(tracemalloc.get_traced_memory()[1] - before)
+            grown = tracemalloc.take_snapshot().filter_traces(mine).compare_to(kept, "lineno")
+        finally:
+            tracemalloc.stop()
+    assert [d for d in grown if d.size_diff > 0] == [] and min(rises) < 1024, (grown, rises)
+    assert pf.recorded() == [] and recorder.session is None and recorder.open == []
+
+
+def test_spans_nest_with_parents_requests_counters_and_self_time(recorder):
+    """Under a profiler on the CPU: parents, request ids, counters and self
+    time; no device times without a card; a second session drops the first
+    session's spans, whether it is read between the two or ``trace`` opens
+    the second."""
+    with cpu_profile():
+        with pf.span("r"):
+            with pf.span("a"):
+                time.sleep(0.002)
+                pf.count("n", 2)
+                pf.count("n")
+            with pf.span("b"):
+                with pf.span("c"):
+                    time.sleep(0.001)
+                pf.count("m")
+        with pf.span("r"):
+            pf.count("n")
+    spans = pf.recorded()
+    assert [s.name for s in spans] == ["r", "a", "b", "c", "r"]
+    assert [s.parent for s in spans] == [None, 0, 0, 2, None]
+    assert [s.request for s in spans] == [0, 0, 0, 0, 1]
+    assert [s.counters for s in spans] == [{}, {"n": 3}, {"m": 1}, {}, {"n": 1}]
+    assert all(s.device_ns is None and s.device_ms is None for s in spans)
+    r, a, b, c = spans[:4]
+    assert r.host_ns[0] <= a.host_ns[0] <= a.host_ns[1] <= b.host_ns[0] <= c.host_ns[0] \
+        <= c.host_ns[1] <= b.host_ns[1] <= r.host_ns[1]
+    own = pf.self_ns(spans)
+    length = {s.index: s.host_ns[1] - s.host_ns[0] for s in spans}
+    assert own[0] == length[0] - length[1] - length[2] >= 0
+    assert own[2] == length[2] - length[3] and own[3] == length[3] and own[4] == length[4]
+    assert a.host_ms >= 2.0 and pf.self_ns(spans, device=True) == {}
+    lines = pf.span_tree(spans)
+    assert lines[1].split()[:2] == ["r", "x2"] and lines[2].split()[0] == "a"
+    assert lines[4].startswith("    c ") and lines[1].split()[-1] == "0"
+    assert pf.recorded() == spans  # read again: the same session
+    with cpu_profile():
+        with pf.span("z"):
+            pass
+    assert [(s.name, s.request, s.parent) for s in pf.recorded()] == [("z", 0, None)]
+    with pf.trace(None, device="cpu"):
+        with pf.span("y"):
+            pass
+    with pf.trace(None, device="cpu"):
+        with pf.span("x"):
+            pass
+    assert [s.name for s in pf.recorded()] == ["x"]
+    pf.count("n")  # no session open: nothing to charge, nothing raised
+    assert recorder.open == []
+
+
+def test_busy_is_the_union_of_overlapping_records():
+    """Overlapping records count once: busy never passes the window, where
+    their summed durations do; the idle gaps are named by the innermost span
+    they began in."""
+    recs = [(0, 10, "k"), (5, 15, "k"), (20, 30, "k"), (25, 26, "k"), (40, 45, "k")]
+    assert sum(e - s for s, e, _ in recs) > 30
+    assert pf.union(recs) == [(0, 15), (20, 30), (40, 45)]
+    assert pf.busy_ns(recs[:4], 0, 30) == 25 <= 30
+    assert pf.busy_ns(recs, 2, 42) == 13 + 10 + 2
+    assert pf.gaps(recs, 0, 50) == [(15, 20), (30, 40), (45, 50)]
+
+    def rec(name, index, parent, lo, hi):
+        return pf.SpanRecord(name, index, parent, 0, (lo, hi), None, {})
+
+    spans = [rec("clip", 0, None, 0, 44), rec("denoise", 1, 0, 10, 35),
+             rec("denoise_step", 2, 1, 12, 18), rec("denoise_step", 3, 1, 18, 28)]
+    named = pf.idle_by_span(pf.gaps(recs, 0, 50), spans)
+    assert named == pytest.approx({"denoise_step": 5e-9, "denoise": 10e-9,
+                                   "between spans": 5e-9})
+
+
+def test_profile_text_reads_busy_as_the_union():
+    res = (2.0, {"denoise": 1.5}, {"GEMM (cuBLAS)": 1500.0, pf.ELEMENTWISE: 900.0}, [], 1.8)
+    text = pf.profile_text("request A", 20, res)
+    assert "kernel time 2.400 s (busy 90.0%)" in text
+
+
+def test_pipeline_spans_and_the_same_frames_traced_or_not(pipes):
+    """The tiny CPU pipeline under a profiler: one ``clip`` with its phases,
+    the projection and one ``denoise_step`` a step under ``denoise``; the
+    frames bit for bit the same with the profiler on and off, with a Timer
+    and without."""
+    port, _ = pipes
+    args = inputs(5)
+    plain = port(*args, to_host=True)
+    with cpu_profile():
+        traced = port(*args, to_host=True)
+    spans = pf.recorded()
+    with cpu_profile():
+        timed = port(*args, to_host=True, timer=pf.Timer())
+    assert [s.name for s in pf.recorded()] == [s.name for s in spans]
+    assert np.array_equal(plain, traced) and np.array_equal(plain, timed)
+    assert np.array_equal(plain, port(*args, to_host=True, timer=pf.Timer()))
+    (clip,) = [s for s in spans if s.parent is None]
+    children = [s for s in spans if s.parent == clip.index]
+    assert clip.name == "clip" and {s.request for s in spans} == {0}
+    assert [s.name for s in children] == PHASES + ["decode_d2h"]
+    denoise = children[3]
+    inner = [s.name for s in spans if s.parent == denoise.index]
+    assert inner == ["bank_kv"] + ["denoise_step"] * CONFIG.num_inference_steps
+    assert all(s.parent in (clip.index, denoise.index) for s in spans[1:])
+
+
+def test_streamed_tier_spans(pipes):
+    """Per-step banks: ``denoise_step`` spans under ``denoise_streamed``."""
+    port, _ = pipes
+    pipe = video.VideoPipeline(port.bundle, PipelineConfig(
+        width=W, height=H, num_inference_steps=2, guidance_scale=3.5,
+        context=ContextConfig(frames=3, overlap=1), bank_mode="per_step"), device="cpu")
+    with cpu_profile():
+        pipe(*inputs(2), decode=False)
+    spans = pf.recorded()
+    assert [s.name for s in spans] == ["clip", "h2d_normalize", "vae_encode", "denoise_streamed",
+                                       "denoise_step", "denoise_step"]
+    assert [s.parent for s in spans[4:]] == [3, 3]
+
+
+def tiny_train(seed=0):
+    """A stage-2 train step on tiny seeded UNets and its state."""
+    from mikudance_tpu_torch.core import configs as pcfg
+    from mikudance_tpu_torch.diffusion import ddim
+    from mikudance_tpu_torch.train import steps
+
+    u = pcfg.UNetConfig(block_out_channels=(32, 64), layers_per_block=1, attention_heads=4)
+    torch.manual_seed(seed)
+    guide = seeded(unet.GuidanceUNet(pcfg.GuidanceUNetConfig(unet=u, use_man=True)), seed)
+    den = seeded(unet.DenoisingUNet(pcfg.DenoisingUNetConfig(
+        unet=u, motion=pcfg.MotionModuleConfig(num_attention_heads=4))), seed + 1)
+    cfg = steps.TrainConfig(learning_rate=1e-3, trainable_substrings=("motion", "man_"))
+    state = steps.init_train_state(cfg, guide.train(), den.train())
+    schedule = ddim.DDIMSchedule.create(beta_schedule="scaled_linear")
+    return steps.make_train_step(cfg, schedule, state), state
+
+
+def train_batch(seed=0):
+    rng = np.random.default_rng(seed)
+    shapes = {"latents": (1, 2, 8, 8, 4), "cond20": (1, 2, 8, 8, 20), "motion": (1, 2, 8, 8, 2),
+              "clip_ctx": (1, 5, 768)}
+    batch = {k: torch.from_numpy(rng.normal(size=v).astype(np.float32))
+             for k, v in shapes.items()}
+    batch["uncond"] = torch.zeros(1)
+    return batch
+
+
+def test_train_step_spans_and_the_same_step_traced_or_not():
+    """The tiny train step under a profiler: ``forward``, ``backward``,
+    ``gradients`` and ``optimizer`` under ``train_step``, one request a step;
+    loss, gradient norm and parameters bit for bit the same on and off."""
+    (plain, plain_state), (traced, traced_state) = tiny_train(), tiny_train()
+    for i in range(2):
+        batch = train_batch(i)
+        want = plain(batch, torch.Generator().manual_seed(i))
+        with cpu_profile():
+            got = traced(batch, torch.Generator().manual_seed(i))
+        assert torch.equal(want["loss"], got["loss"]) and want["grad_norm"] == got["grad_norm"]
+        spans = pf.recorded()
+        assert [(s.name, s.parent) for s in spans] == [
+            ("train_step", None), ("forward", 0), ("backward", 0), ("gradients", 0),
+            ("optimizer", 0)]
+    want_p, got_p = plain_state.trainable, traced_state.trainable
+    assert list(want_p) == list(got_p)
+    assert all(torch.equal(want_p[k], got_p[k]) for k in want_p)
+    assert plain_state.step == traced_state.step == 2
