@@ -22,18 +22,19 @@ Phases, in order, one line each; any failure exits non-zero:
 
 1. card: the device and its power limit (nvidia-smi), TF32 switches;
 2. build: nvcc builds the kernel library from ``mikudance_tpu_torch/csrc``;
-3. kernels: K1-K14 against their plain PyTorch versions at the
+3. kernels: K1-K15 against their plain PyTorch versions at the
    paths' shapes, atol = rtol = 2e-2 and a relative-L2 limit, each with a
    control that the limit must reject (attention: softmax scale off by 9% on
    bf16 N(0, 1) inputs;
    K5: the wrong group size, K6: a row width miscounted by 20%, both on
    inputs with a per-channel offset and spread, K6's with a per-row offset
    too; K7: the bias or the residual left out; K8: the taps transposed; K14:
-   the bank K/V left out),
+   the bank K/V left out; K15: the halves swapped),
    median times of the
    kernel, its plain version and the one library call that computes the
    same function, and the least time the card could take (``bound_ms``).
-   K5 and K6 must give the same bits on a second run; each K5 shape prints
+   K5 and K6 must give the same bits on a second run, K15 the plain
+   version's bits (its four UNet levels in bf16, level 0 in fp32); each K5 shape prints
    its variant (R: clusters of how many blocks, the slab, shared memory a
    block and ``cudaOccupancyMaxActiveClusters``; S: splits), its device time
    against the smallest slab's where the plan widened it, and K5 and K6 their
@@ -167,7 +168,7 @@ Phases, in order, one line each; any failure exits non-zero:
     launches' shape arguments recorded; the row-major latents held to the
     default ones as request E's are (control: the bank K/V left out);
 14. request I, the toolbox's networks (stock PyTorch ops, fp32, random seeded
-    weights; no kernel of K1-K14 may launch): UniPose-SwinT on bench.py's
+    weights; no kernel of K1-K15 may launch): UniPose-SwinT on bench.py's
     XPose batch (10 frames at 800^2, 4 instance slots, 68 keypoints, 900
     queries), median seconds of 3 forwards after a warm-up, peak memory,
     shapes and finite outputs; the video driver's ``Detector.detect`` on a
@@ -317,10 +318,12 @@ PHASES_REL = 0.05
 # route from 1024 tokens, so 16 frames at 1024^2, 2 DDIM steps, the SD decoder
 H_SIZE, H_STEPS = 1024, 2
 # Launches of every kernel on request H in each configuration as the smoke
-# read them when the request was added (kernels not named: 0)
-H_LAUNCHES = {"request H": {"K1": 45, "K2": 45, "K3": 84, "K4": 7, "K5": 410, "K6": 270},
+# read them when the request was added (kernels not named: 0); K15, added
+# later: two denoiser calls of 37 feed-forwards and the guidance UNet's 16
+H_LAUNCHES = {"request H": {"K1": 45, "K2": 45, "K3": 84, "K4": 7, "K5": 410, "K6": 270,
+                            "K15": 90},
               "request H (row-major)": {"K2": 45, "K3": 84, "K4": 7, "K5": 410, "K6": 270,
-                                        "K7": 256, "K8": 342, "K10": 15, "K11": 30}}
+                                        "K7": 256, "K8": 342, "K10": 15, "K11": 30, "K15": 90}}
 # Request J: the SD-width gate's DDIM steps (the JAX gate's), request A's in
 # fp32 (J3)
 J_GATE_STEPS = 2
@@ -558,6 +561,7 @@ def plain_kernels():
     """Route every kernel to its plain version (reference run)."""
     from mikudance_tpu_torch.kernels import conv2d as cv
     from mikudance_tpu_torch.kernels import flash_attention as fa
+    from mikudance_tpu_torch.kernels import geglu as gg
     from mikudance_tpu_torch.kernels import group_norm as gn
     from mikudance_tpu_torch.kernels import layer_norm as ln
     from mikudance_tpu_torch.kernels import linear as lin
@@ -574,7 +578,8 @@ def plain_kernels():
                 (fa, "temporal_attention", ta.temporal_attention_plain),
                 (fa, "small_sequence_attention", ta.small_sequence_attention_plain),
                 (layers, "fused_group_norm", gn.group_norm_plain),
-                (layers, "fused_layer_norm", ln.layer_norm_plain)]
+                (layers, "fused_layer_norm", ln.layer_norm_plain),
+                (layers, "fused_geglu", gg.geglu_plain)]
     saved = [(mod, n, getattr(mod, n)) for mod, n, _ in patches]
     for mod, n, f in patches:
         setattr(mod, n, f)
@@ -1257,6 +1262,30 @@ def mega_chunk_table(ins, w, rounds: int = 2) -> str:
                      f"{float(np.median(times[c])):.3f} ms" for c in plans)
 
 
+# K15's (rows, I) at the denoiser's four levels (16 frames at 768^2, CFG
+# batch 32): its input is the feed-forward projection's (rows, 2I) output
+GEGLU_SHAPES = ((294912, 1280), (73728, 2560), (18432, 5120), (4608, 5120))
+
+
+def geglu_cases(dev, only=()):
+    """K15 at the four levels in bf16, then level 0 in fp32; plain: the two
+    ATen passes the port ran before (gelu over the gate half, the product);
+    the control swaps the halves. Bound by bytes alone (y read once, the
+    output written once); no library call computes it."""
+    from mikudance_tpu_torch.kernels import geglu as gg
+
+    g = torch.Generator(device=dev).manual_seed(12)
+    cases = [(shape, torch.bfloat16) for shape in GEGLU_SHAPES] + [(GEGLU_SHAPES[0], torch.float32)]
+    for (rows, half), dtype in cases if wanted(gg.K15, only) else ():
+        y = (torch.randn((rows, 2 * half), generator=g, device=dev) * 2).to(dtype)
+        fp32 = " fp32" if dtype is torch.float32 else ""
+        yield (gg.K15, f"{gg.K15.name}{fp32} x({rows}, {2 * half}) -> ({rows}, {half})",
+               lambda y=y: gg.fused_geglu(y), lambda y=y: gg.geglu_plain(y),
+               lambda y=y, half=half: gg.geglu_plain(y.roll(half, -1)), None, 0,
+               3 * rows * half * y.element_size(), PEAK_FP32)
+        del y
+
+
 def mega_cases(dev, only=()):
     """K14 at the probe's three levels; the control leaves the bank K/V out.
     No single library call computes the block: the read path is timed beside.
@@ -1505,7 +1534,7 @@ def phase_kernels(dev, only=()):
     for kern, what, run, plain, control, library, flops, nbytes, peak, *rest in itertools.chain(
             attention_cases(dev, only), norm_cases(dev, only), anchored_cases(dev, only),
             fp32_cases(dev, only), linear_cases(dev, only), conv_cases(dev, only),
-            mega_cases(dev, only)):
+            mega_cases(dev, only), geglu_cases(dev, only)):
         got = run()
         torch.cuda.synchronize()
         want = plain()
@@ -1518,6 +1547,8 @@ def phase_kernels(dev, only=()):
         check(rel < REL_L2, f"{what}: relative L2 {rel:.3e} >= {REL_L2}")
         check(ctl > REL_L2, f"{what}: the control reads {ctl:.3e}, under the limit "
                             f"{REL_L2}: the check cannot fail")
+        if kern.name.startswith("K15"):  # the plain version's arithmetic, step for step
+            check(torch.equal(got, plain()), f"{what}: not the plain version's bits")
         if kern.name.startswith(("K5", "K6")):  # no atomics: the same bits on a second run
             check(torch.equal(got, run()), f"{what}: two runs give different bits")
         del got
@@ -2042,7 +2073,7 @@ def tf32_convolutions():
 
 def request_i(dev, profile: bool = False) -> dict:
     """Request I: the toolbox's networks on the card, stock PyTorch ops (no
-    kernel of K1-K14 is on this path, as in the JAX package). UniPose on
+    kernel of K1-K15 is on this path, as in the JAX package). UniPose on
     bench.py's 10 x 800^2 batch and through the video driver's ``Detector``
     on a clip, then one 384^2 frame, DPT-hybrid, CLIP-text and the
     deformable-attention op each held to the port's own CPU run, each with a
@@ -2350,9 +2381,10 @@ def request_i(dev, profile: bool = False) -> dict:
 
 
 def kernel_list():
-    """K1-K14, in order."""
+    """K1-K15, in order."""
     from mikudance_tpu_torch.kernels import conv2d as cv
     from mikudance_tpu_torch.kernels import flash_attention as fa
+    from mikudance_tpu_torch.kernels import geglu as gg
     from mikudance_tpu_torch.kernels import group_norm as gn
     from mikudance_tpu_torch.kernels import layer_norm as ln
     from mikudance_tpu_torch.kernels import linear as lin
@@ -2360,7 +2392,7 @@ def kernel_list():
     from mikudance_tpu_torch.kernels import temporal_attention as ta
 
     return (fa.K1, fa.K2, ta.K3, fa.K4, gn.K5, ln.K6, lin.K7, cv.K8, fa.K9, fa.K10, fa.K11,
-            fa.K12, ta.K13, mb.K14)
+            fa.K12, ta.K13, mb.K14, gg.K15)
 
 
 def request_k_rank(control: bool, probe: bool, memory_fraction: float = 1.0) -> dict:
@@ -3279,6 +3311,7 @@ def main() -> int:
     from mikudance_tpu_torch.kernels import mega_block as mb
     from mikudance_tpu_torch.kernels import conv2d as cv
     from mikudance_tpu_torch.kernels import flash_attention as fa
+    from mikudance_tpu_torch.kernels import geglu as gg
     from mikudance_tpu_torch.kernels import group_norm as gn
     from mikudance_tpu_torch.kernels import layer_norm as ln
     from mikudance_tpu_torch.kernels import linear as lin
@@ -3345,7 +3378,8 @@ def main() -> int:
                                  ("anchor_wg_kernel", "flash_cross_kernel", "flash_wide_kernel",
                                   "linear_kernel", "conv3x3_kernel", "short_attention_kernel",
                                   "gn_resident_kernel", "gn_stream_stats_kernel",
-                                  "gn_stream_apply_kernel", "ln_kernel", "mega_kernel")))
+                                  "gn_stream_apply_kernel", "ln_kernel", "mega_kernel",
+                                  "geglu_kernel")))
     log("kernels: " + "; ".join(f"{k.name} = {k.symbol} in {k.source}, replaces {k.replaces}"
                                 for k in kernels))
 
@@ -3386,8 +3420,8 @@ def main() -> int:
                 state, records, phases, peaks = run_training("stage2", TRAIN_STEPS,
                                                              os.path.join(train_dir, name), dev)
             wall = time.perf_counter() - t0
-            on_f = [fa.K2, ta.K3, fa.K4, gn.K5, ln.K6] + ([fa.K12, fa.K10] if name == "transposed"
-                                                          else [fa.K1])
+            on_f = [fa.K2, ta.K3, fa.K4, gn.K5, ln.K6, gg.K15] + (
+                [fa.K12, fa.K10] if name == "transposed" else [fa.K1])
             launches = read_counts(f"request F ({name})", on_f,
                                    absent=[k for k in kernels if k not in on_f], also_absent=())
             same_launches(f"request F ({name})", launches)
@@ -3464,7 +3498,7 @@ def main() -> int:
         check(rel(loss_k, loss_p) < SMALL_STEP_LOSS_REL and grads_k.keys() == grads_p.keys()
               and rel_g < SMALL_STEP_GRAD_REL_L2 < rel_c,
               f"small train step: loss {loss_k} vs {loss_p}, gradients {rel_g} (control {rel_c})")
-        check(used == [k.name for k in (fa.K1, fa.K2, ta.K3, gn.K5, ln.K6)],
+        check(used == [k.name for k in (fa.K1, fa.K2, ta.K3, gn.K5, ln.K6, gg.K15)],
               f"small train step: kernels {used}")
         del state, grads_k, grads_p, grads_c, batch, draws
         torch.cuda.empty_cache()
@@ -3660,12 +3694,12 @@ def main() -> int:
         return counts_f
 
     def run_request_i() -> dict:
-        """Request I with the kernel counts at 0 before it: no kernel of K1-K14
+        """Request I with the kernel counts at 0 before it: no kernel of K1-K15
         may launch on the toolbox's path."""
         reset_counts()
         readings = request_i(dev, profile=args.profile)
         read_counts("request I", expect=(), absent=kernels, also_absent=())
-        log(f"request I: launches of K1-K14: {sum(k.launches for k in kernels)}")
+        log(f"request I: launches of K1-K15: {sum(k.launches for k in kernels)}")
         return readings
 
     if args.request_i:

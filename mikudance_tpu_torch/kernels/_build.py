@@ -67,6 +67,8 @@ SIGNATURES = {
     # pointer table (inputs, weights, vectors, output, scratch, barrier), batch, seq,
     # head_dim, context rows, real context rows, chunk, eps, stamps, stream
     "md_mega_block": (P, I, I, I, I, I, I, F, P, P),
+    # y, out, rows, half width I, fp32, stream
+    "md_geglu": (P, P, L, I, I, P),
     # error code -> message
     "md_error_string": (I,),
 }

@@ -28,6 +28,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import attention as run_attention
+from ..kernels.geglu import fused_geglu
 from ..kernels.group_norm import fused_group_norm
 from ..kernels.layer_norm import fused_layer_norm
 from ..kernels.linear import fused_linear
@@ -159,8 +160,7 @@ class GEGLU(nn.Module):
         self.proj = nn.Linear(dim, inner * 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        hidden, gate = self.proj(x).chunk(2, dim=-1)
-        return hidden * F.gelu(gate)  # exact erf GELU (layers.py:413)
+        return fused_geglu(self.proj(x))  # exact erf GELU (layers.py:413)
 
 
 class GEGLUFeedForward(nn.Module):
@@ -252,8 +252,7 @@ class TransformerBlock(nn.Module):
 
         n3 = fused_layer_norm(x2, self.norm3.weight, self.norm3.bias, self.norm3.eps)
         proj, ff_out = self.ff.net[0].proj, self.ff.net[2]
-        hidden, gate = fused_linear(n3, proj.weight, proj.bias).chunk(2, dim=-1)
-        hf = (hidden * F.gelu(gate)).contiguous()  # exact erf GELU
+        hf = fused_geglu(fused_linear(n3, proj.weight, proj.bias))
         x2 = fused_linear(hf, ff_out.weight, ff_out.bias, x2)
         return x2.view(B, S, C)
 

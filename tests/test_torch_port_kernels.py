@@ -1,4 +1,4 @@
-"""The port's kernels (attention K1-K4, K9, K13, GroupNorm K5, LayerNorm K6; the
+"""The port's kernels (attention K1-K4, K9, K13, GroupNorm K5, LayerNorm K6, GEGLU K15; the
 row-major configuration's K7, K8, K10, K11 have their plain-vs-Pallas tests in
 ``test_torch_port_row_major.py`` and their dispatch, refusals and card tests
 here): plain
@@ -24,6 +24,7 @@ import torch
 
 from mikudance_tpu_torch.kernels import conv2d as pcv
 from mikudance_tpu_torch.kernels import flash_attention as pfa
+from mikudance_tpu_torch.kernels import geglu as pgg
 from mikudance_tpu_torch.kernels import group_norm as pgn
 from mikudance_tpu_torch.kernels import layer_norm as pln
 from mikudance_tpu_torch.kernels import linear as plin
@@ -33,7 +34,7 @@ from mikudance_tpu_torch.models import layers as players
 
 ATOL = RTOL = 2e-2  # kernel against dense, as tests/test_flash_attention.py
 ALL_KERNELS = (pfa.K1, pfa.K2, pta.K3, pfa.K4, pgn.K5, pln.K6, plin.K7, pcv.K8, pfa.K9, pfa.K10,
-               pfa.K11, pta.K13)
+               pfa.K11, pta.K13, pgg.K15)
 
 
 def qkv(seed, *shapes):
@@ -45,6 +46,7 @@ def qkv(seed, *shapes):
 def jx():
     """The JAX package's Pallas entry points (run in interpret mode)."""
     pytest.importorskip("jax")
+    import flax.linen as nn
     import jax.numpy as jnp
 
     import mikudance_tpu.kernels.flash_attention as fa
@@ -52,11 +54,12 @@ def jx():
                                                           temporal_attention_fused)
     from mikudance_tpu.kernels.group_norm import fused_group_norm
     from mikudance_tpu.kernels.layer_norm import fused_layer_norm
-    from mikudance_tpu.models.layers import FusedLayerNorm
+    from mikudance_tpu.models.layers import FusedLayerNorm, GEGLUFeedForward
     return types.SimpleNamespace(jnp=jnp, fa=fa, btpc=temporal_attention_btpc,
                                  fused=temporal_attention_fused,
                                  group_norm=fused_group_norm, layer_norm=fused_layer_norm,
-                                 FusedLayerNorm=FusedLayerNorm)
+                                 FusedLayerNorm=FusedLayerNorm, GEGLUFeedForward=GEGLUFeedForward,
+                                 intercept_methods=nn.intercept_methods)
 
 
 ROUTES = ("temporal_attention", "flash_attention_fullc", "flash_attention_wide",
@@ -521,6 +524,9 @@ def test_cpu_tensors_never_launch():
     for fn in (pfa.flash_anchor_resident, pfa.flash_anchor_stream):
         torch.testing.assert_close(fn(q, q, q, 2), pfa.anchored_attention(q, q, q, 2),
                                    rtol=0, atol=0)
+    y = r(6, 32)
+    torch.testing.assert_close(pgg.fused_geglu(y), pgg.geglu_plain(y),        # K15 route
+                               rtol=0, atol=0)
     assert [kern.launches for kern in ALL_KERNELS] == [0] * len(ALL_KERNELS)
 
 
@@ -773,6 +779,115 @@ def test_layer_norm_wrapper_refuses_what_the_kernel_does_not_take(case, match):
         w = _meta(32)
     with pytest.raises(ValueError, match=match):
         pln._check_operands(x, w, b)
+
+
+def _geglu_expression(y: torch.Tensor) -> torch.Tensor:
+    """The GEGLU as the port's models wrote it before K15."""
+    hidden, gate = y.chunk(2, dim=-1)
+    return hidden * torch.nn.functional.gelu(gate)
+
+
+# aten ops that compute nothing: views, allocations, autograd's detach
+NO_LAUNCH_OPS = ("aten.split.", "aten.empty_like.", "aten.detach.")
+
+
+def _computing_ops(fn) -> list:
+    """The aten ops ``fn()`` dispatches that compute (launch a kernel on a card)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Log() as log:
+        fn()
+    return sorted(op for op in log.ops if not op.startswith(NO_LAUNCH_OPS))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("half", [8, 40, 1280])
+def test_k15_plain_matches_the_expression_jax_and_autograd(half, dtype, jx):
+    """K15's CPU route (its plain version) equals the expression the models
+    ran before, bit for bit; it matches the JAX package's GEGLU (its
+    ``GEGLUFeedForward`` with the projection's output replaced by y, the
+    activation read where the out projection takes it); the written-out
+    backward equals autograd through the expression, both halves bit for bit,
+    and computes with no more ops (four: two products, ``gelu_backward`` and
+    the GELU it recomputes, against autograd's concatenation)."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(half)
+    y = torch.from_numpy((rng.normal(size=(3, 5, 2 * half)) * 3).astype(np.float32)).to(dt)
+    got = pgg.fused_geglu(y)
+    assert got.dtype == dt and got.shape == (3, 5, half)
+    assert torch.equal(got, _geglu_expression(y))
+
+    seen = []
+
+    def intercept(next_fun, args, kwargs, ctx):
+        if ctx.method_name != "_mm":
+            return next_fun(*args, **kwargs)
+        if not seen:  # the projection: y in its place
+            seen.append(None)
+            return jx.jnp.asarray(y.float().numpy(), dtype=jx.jnp.dtype(dtype))
+        seen.append(np.asarray(args[0], np.float32))
+        return next_fun(*args, **kwargs)
+
+    module = jx.GEGLUFeedForward(half // 4, dtype=jx.jnp.dtype(dtype))
+    params = {"params": {"proj": {"kernel": np.zeros((half // 4, 2 * half), np.float32),
+                                  "bias": np.zeros(2 * half, np.float32)},
+                         "out": {"kernel": np.zeros((half, half // 4), np.float32),
+                                 "bias": np.zeros(half // 4, np.float32)}}}
+    with jx.intercept_methods(intercept):
+        module.apply(params, np.zeros((3, 5, half // 4), np.float32))
+    # XLA's erf against ATen's (2e-4 relative where the GELU is near 0); in
+    # bf16, the GELU's and the product's roundings flipped (up to 2^-7 each)
+    tol = (1e-3, 1e-5) if dtype == "float32" else (ATOL, RTOL)
+    np.testing.assert_allclose(got.float().numpy(), seen[1], rtol=tol[0], atol=tol[1])
+
+    g = torch.from_numpy(rng.normal(size=(3, 5, half)).astype(np.float32)).to(dt)
+    ours, theirs = y.clone().requires_grad_(), y.clone().requires_grad_()
+    out = pgg.fused_geglu(ours)
+    assert out.grad_fn is not None
+    ops_ours = _computing_ops(lambda: out.backward(g))
+    out = _geglu_expression(theirs)
+    ops_theirs = _computing_ops(lambda: out.backward(g))
+    assert torch.equal(ours.grad, theirs.grad) and ours.grad.is_contiguous()
+    assert len(ops_ours) <= len(ops_theirs) == 4, (ops_ours, ops_theirs)
+
+
+@pytest.mark.parametrize("case,match", [
+    ("device", "unsupported device"), ("dtype", "bf16 or fp32"), ("view", "contiguous"),
+    ("odd", "twice a multiple of the 8-value vector"), ("vector", "twice a multiple"),
+    ("offset", "16-byte"), ("vectors", "exceed"), ("bf16", None), ("fp32", None),
+])
+def test_geglu_wrapper_refuses_what_the_kernel_does_not_take(case, match):
+    """K15 moves 16-byte vectors of both halves: the width twice a multiple of
+    the vector (odd, and 24 in bf16, whose halves of 12 are not whole
+    vectors, are refused), y contiguous and 16-byte aligned, bf16 or fp32
+    (fp16 raises), fewer than 2^31 output vectors; (rows, I) otherwise, in
+    both dtypes (64 in fp32: halves of 8 whole vectors)."""
+    y = _meta(2, 8, 64)
+    if case == "device":
+        with pytest.raises(ValueError, match=match):
+            pgg.fused_geglu(y)
+        return
+    y = {"dtype": _meta(2, 8, 64, dtype=torch.float16),
+         "view": _meta(2, 8, 128)[..., :64],
+         "odd": _meta(2, 8, 63),
+         "vector": _meta(2, 8, 24),
+         "offset": _meta(4 + 2 * 8 * 64)[4:].view(2, 8, 64),
+         "vectors": _meta(2**28, 128),
+         "fp32": _meta(2, 8, 64, dtype=torch.float32)}.get(case, y)
+    if match is None:
+        assert pgg._check_operand(y) == (16, 32)
+        return
+    with pytest.raises(ValueError, match=match):
+        pgg._check_operand(y)
 
 
 # ------------------------------------------------------------ on the card
@@ -1375,3 +1490,77 @@ def test_mega_block_matches_plain_on_card(level, chunk, ctx_len, cuda):
     zero = torch.zeros_like(rk)
     assert rel(mb.mega_block_plain(x, zero, zero, ck, cv, w, ctx_len), want) > 1e-2
     assert torch.equal(out, run())  # no atomics in the data path
+
+
+# K15's (rows, 2I) at the denoiser's four levels (16 frames at 768^2, CFG
+# batch 32), a ragged row count and a row of 17 vectors
+GEGLU_CARD_SHAPES = {"level0": (294912, 2560), "level1": (73728, 5120),
+                     "level2": (18432, 10240), "level3": (4608, 10240),
+                     "ragged-rows": (1155, 2560), "narrow": (777, 272)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", list(GEGLU_CARD_SHAPES))
+def test_k15_matches_plain_bit_for_bit_on_card(shape, dtype, cuda):
+    """One launch equals the plain version bit for bit; the halves swapped
+    and the tanh GELU are other bits (the check can fail)."""
+    rows, width = GEGLU_CARD_SHAPES[shape]
+    if dtype is torch.float32 and width % 8:
+        width += 8 - width % 8  # halves of whole fp32 vectors
+    g = torch.Generator(device=cuda).manual_seed(5)
+    y = (torch.randn((rows, width), generator=g, device=cuda) * 3).to(dtype)
+    before = pgg.K15.launches
+    got = pgg.fused_geglu(y)
+    torch.cuda.synchronize()
+    assert pgg.K15.launches == before + 1 and got.shape == (rows, width // 2)
+    assert torch.equal(got, pgg.geglu_plain(y))
+    hidden, gate = y.chunk(2, dim=-1)
+    assert not torch.equal(got, gate * torch.nn.functional.gelu(hidden))
+    assert not torch.equal(got, hidden * torch.nn.functional.gelu(gate, approximate="tanh"))
+
+
+@pytest.mark.cuda
+def test_k15_refuses_on_card_and_backward_is_autograds(cuda):
+    """On CUDA tensors an odd width, fp16 and a non-contiguous y raise before
+    any launch (no fallback); with a gradient the forward launches once, the
+    backward launches no K15 and equals autograd through the plain version
+    bit for bit, in both dtypes."""
+    for y, match in ((torch.zeros(4, 63, dtype=torch.bfloat16, device=cuda), "twice a multiple"),
+                     (torch.zeros(4, 64, dtype=torch.float16, device=cuda), "bf16 or fp32"),
+                     (torch.zeros(4, 128, dtype=torch.bfloat16, device=cuda)[:, :64],
+                      "contiguous")):
+        before = pgg.K15.launches
+        with pytest.raises(ValueError, match=match):
+            pgg.fused_geglu(y)
+        assert pgg.K15.launches == before
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for dtype in (torch.bfloat16, torch.float32):
+        y = (torch.randn((2, 1155, 2560), generator=g, device=cuda) * 3).to(dtype)
+        cot = torch.randn((2, 1155, 1280), generator=g, device=cuda).to(dtype)
+        ours, theirs = y.clone().requires_grad_(), y.clone().requires_grad_()
+        before = pgg.K15.launches
+        pgg.fused_geglu(ours).backward(cot)
+        assert pgg.K15.launches == before + 1
+        pgg.geglu_plain(theirs).backward(cot)
+        torch.cuda.synchronize()
+        assert torch.equal(ours.grad, theirs.grad)
+
+
+@pytest.mark.cuda
+def test_k15_launches_once_a_feed_forward_of_the_denoiser(cuda):
+    """One call of the full-width denoiser (16 spatial transformer blocks, 21
+    motion modules) launches K15 37 times: each feed-forward once."""
+    from mikudance_tpu_torch.core import loaders
+
+    den = loaders.load_denoising(None, use_motion=True, dtype=torch.bfloat16, device=cuda).eval()
+    feed_forwards = sum(isinstance(m, players.GEGLUFeedForward) for m in den.modules())
+    g = torch.Generator(device=cuda).manual_seed(7)
+    sample = torch.randn((1, 2, 16, 16, 4), generator=g, device=cuda).to(torch.bfloat16)
+    context = torch.randn((1, 77, 768), generator=g, device=cuda).to(torch.bfloat16)
+    before = pgg.K15.launches
+    with torch.no_grad():
+        out = den(sample, torch.tensor([500], device=cuda), context)
+    torch.cuda.synchronize()
+    assert feed_forwards == 37 and pgg.K15.launches - before == 37
+    assert out.shape == sample.shape and bool(torch.isfinite(out.float()).all())
