@@ -752,6 +752,11 @@ def attention_cases(dev, only=()):
         (fa.K1, fa.flash_attention_fullc, fa.anchored_attention_t, [(32, 1024, 1280)] * 3, 8),
         (fa.K1, fa.flash_attention_fullc, fa.anchored_attention_t, [(8, 1024, 1280)] * 3, 8, 3.0),
         (fa.K1, fa.flash_attention_fullc, fa.anchored_attention_t, [(32, 1040, 1280)] * 3, 8),
+        # SDXL at 1024^2: heads of 64, 10 at level 1 and 20 at level 2; the clamp biting
+        (fa.K1, fa.flash_attention_fullc, fa.anchored_attention_t, [(32, 4096, 640)] * 3, 10),
+        (fa.K1, fa.flash_attention_fullc, fa.anchored_attention_t, [(32, 1024, 1280)] * 3, 20),
+        (fa.K1, fa.flash_attention_fullc, fa.anchored_attention_t, [(8, 1024, 1280)] * 3, 20,
+         3.0),
         (fa.K2, fa.cross_attention, fa.dot_product_attention,
          [(32, 9216, 320), (32, 257, 320), (32, 257, 320)], 8),
         (fa.K2, fa.cross_attention, fa.dot_product_attention,
@@ -769,6 +774,11 @@ def attention_cases(dev, only=()):
          [(2, 1024, 1280), (2, 512, 1280), (2, 512, 1280)], 8),
         (fa.K2, fa.cross_attention, fa.dot_product_attention,
          [(32, 1024, 1280), (32, 77, 1280), (32, 77, 1280)], 8),
+        # SDXL at 1024^2: heads of 64 against the 257 image tokens, levels 1 and 2
+        (fa.K2, fa.cross_attention, fa.dot_product_attention,
+         [(32, 4096, 640), (32, 257, 640), (32, 257, 640)], 10),
+        (fa.K2, fa.cross_attention, fa.dot_product_attention,
+         [(32, 1024, 1280), (32, 257, 1280), (32, 257, 1280)], 20),
         # K3 and K13 are held to the TPU bodies' function (q' and P rounded to
         # bf16), temporal_attention_rounded
         (ta.K3, ta.temporal_attention, ta.temporal_attention_rounded, [(2, 16, 9216, 320)] * 3, 8),

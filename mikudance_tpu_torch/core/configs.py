@@ -7,12 +7,24 @@ Mirrors the architecture hyperparameters of the reference models:
 - Guidance ("MIX") UNet: 20-channel conv_in (in_channels*5), MAN blocks after
   every down block (`reference src/models/unet_2d_mix.py:321-326,556-557`).
 - Motion module kwargs: `reference configs/inference/mikudance_config.yaml:14-22`.
+- SDXL UNet geometry (``SDXL_UNET``): ``stabilityai/stable-diffusion-xl-base-1.0``
+  ``unet/config.json`` (block_out_channels (320, 640, 1280), no spatial
+  attention at level 0, transformer_layers_per_block (1, 2, 10) with a
+  10-deep mid block, attention_head_dim (5, 10, 20) read as head counts,
+  cross_attention_dim 2048, linear projections, "text_time" added
+  conditioning); the AnimateDiff SDXL motion adapter's modules at all three
+  levels and none in the mid block.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+# SDXL's time ids: original height and width, crop top and left, target
+# height and width
+ADDITION_TIME_IDS = 6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +42,8 @@ class MotionModuleConfig:
     temporal_position_encoding: bool = True
     temporal_position_encoding_max_len: int = 32
     zero_initialize: bool = True
+    # the levels that hold motion modules, as downsampling factors (level i
+    # is 2^i): SD1.5's four, SDXL's (1, 2, 4)
     resolutions: Tuple[int, ...] = (1, 2, 4, 8)
     mid_block: bool = True
     decoder_only: bool = False
@@ -37,19 +51,36 @@ class MotionModuleConfig:
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
-    """Shared SD1.5-geometry UNet configuration."""
+    """Shared UNet configuration; the defaults are SD1.5's geometry."""
 
     in_channels: int = 4
     out_channels: int = 4
     block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
     layers_per_block: int = 2
-    # down block i has cross-attention iff i < num_blocks - 1 (SD1.5: 3x CrossAttn + 1 plain)
     cross_attention_dim: int = 768
     attention_heads: int = 8
     norm_num_groups: int = 32
     norm_eps: float = 1e-5
     flip_sin_to_cos: bool = True
     freq_shift: int = 0
+    # heads of each level's spatial transformers (SDXL's attention_head_dim,
+    # which counts heads); None: attention_heads at every level
+    level_heads: Optional[Tuple[int, ...]] = None
+    # the levels whose down and up blocks hold spatial transformers; None:
+    # every level but the last (SD1.5: 3x CrossAttn + 1 plain)
+    attention_levels: Optional[Tuple[int, ...]] = None
+    # transformer blocks a spatial transformer stacks, by level (None: one);
+    # the mid block's stacks as many as the last level's
+    transformer_layers: Optional[Tuple[int, ...]] = None
+    # Transformer2DModel's proj_in / proj_out as Linear (SDXL) or 1x1 Conv2d
+    use_linear_projection: bool = False
+    # SDXL's "text_time" added conditioning: the ADDITION_TIME_IDS time ids,
+    # each a sinusoid of addition_time_embed_dim, after a pooled vector,
+    # projected from projection_class_embeddings_input_dim to the time
+    # embedding; None: none
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: int = 256
+    projection_class_embeddings_input_dim: int = 2816
 
     @property
     def num_blocks(self) -> int:
@@ -58,6 +89,34 @@ class UNetConfig:
     @property
     def time_embed_dim(self) -> int:
         return self.block_out_channels[0] * 4
+
+    def heads(self, level: int) -> int:
+        return self.attention_heads if self.level_heads is None else self.level_heads[level]
+
+    def has_attention(self, level: int) -> bool:
+        if self.attention_levels is None:
+            return level < self.num_blocks - 1
+        return level in self.attention_levels
+
+    def depth(self, level: int) -> int:
+        """Transformer blocks a spatial transformer of ``level`` stacks."""
+        return 1 if self.transformer_layers is None else self.transformer_layers[level]
+
+    @property
+    def pooled_dim(self) -> int:
+        """Width of the added conditioning's pooled vector (SDXL: 1280)."""
+        return self.projection_class_embeddings_input_dim - \
+            ADDITION_TIME_IDS * self.addition_time_embed_dim
+
+
+def unet_config(u) -> UNetConfig:
+    """``u`` as the port's ``UNetConfig``: a UNet configuration of the JAX
+    package (SD1.5's fields, without SDXL's) takes the defaults of the fields
+    it lacks."""
+    if isinstance(u, UNetConfig):
+        return u
+    return UNetConfig(**{f.name: getattr(u, f.name) for f in dataclasses.fields(UNetConfig)
+                         if hasattr(u, f.name)})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,7 +220,12 @@ class PipelineConfig:
     # 700.00 W; the fits are in PERF.md); shorter sides need less.
     #
     # How many (window, position) banks "auto" caches, the group budget of
-    # "per_step" and the guidance-UNet chunk of "cached_q8". What it bounds
+    # "per_step" and the guidance-UNet chunk of "cached_q8", counted in
+    # positions of SD1.5's banks at the clip's size: the budget in bytes is
+    # this many times the bytes of an SD1.5 position's banks, and a UNet whose
+    # positions hold more bytes (SDXL's, 2.3x at one size) gets that many fewer, so
+    # that every SD1.5 decision stays as it was (``bank_position_budget``).
+    # What it bounds
     # is the guidance UNet's batch: 4.4 GiB + 0.164 GiB a position (6.99 GiB
     # at 16 positions, 23.99 GiB at 120), so 192 positions, six 30-frame
     # windows, take about 36 GiB, under half the card; the cached raw banks
@@ -187,3 +251,12 @@ GUIDANCE_MIX = GuidanceUNetConfig(use_man=True)
 GUIDANCE_MIX_CHAR = GuidanceUNetConfig(use_man=False)
 DENOISING_3D = DenoisingUNetConfig()
 DENOISING_2D = DenoisingUNetConfig(motion=MotionModuleConfig(enabled=False))
+
+SDXL_UNET = UNetConfig(block_out_channels=(320, 640, 1280), cross_attention_dim=2048,
+                       level_heads=(5, 10, 20), attention_levels=(1, 2),
+                       transformer_layers=(1, 2, 10), use_linear_projection=True,
+                       addition_embed_type="text_time")
+SDXL_MOTION = MotionModuleConfig(resolutions=(1, 2, 4), mid_block=False)
+SDXL_GUIDANCE = GuidanceUNetConfig(unet=SDXL_UNET)
+SDXL_DENOISING = DenoisingUNetConfig(unet=SDXL_UNET, motion=SDXL_MOTION)
+SDXL_VAE = VAEConfig(scaling_factor=0.13025)

@@ -16,6 +16,11 @@ the cut ``core.convert.convert_unet`` makes by reading only what its flags
 (``with_man``, ``with_conv_out``, ``with_motion``) ask for. A key the module
 needs and the file lacks raises.
 
+SDXL-width UNets (``configs.SDXL_UNET``) read SDXL's grammar by the same
+rule: their modules carry its names and shapes (``transformer_blocks.0..9``
+under each attention, ``add_embedding.linear_1/2``, 2-D ``proj_in`` /
+``proj_out``).
+
 Where a path is absent the module keeps its random initialisation (PyTorch's
 default, drawn under a seed of its own), so the whole pipeline can be driven
 without weights. In place of a path, a ``{key: tensor}`` mapping already in

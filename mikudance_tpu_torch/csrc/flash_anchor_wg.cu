@@ -7,7 +7,8 @@
 //   K1  md_flash_fullc            replaces mikudance_tpu/kernels/flash_attention.py
 //       _flash_kernel_fullc_nt (:485, entry flash_attention_fullc_nt :546): the
 //       route of the UNet's spatial self-attention under the default switches
-//       (8 heads of 40 at S = 9216, of 80 at 2304, of 160 at 1024 for 1024^2).
+//       (8 heads of 40 at S = 9216, of 80 at 2304, of 160 at 1024 for 1024^2;
+//       SDXL's 10 and 20 heads of 64 at 4096 and 1024).
 //       Its function is K12's (the anchor rounded to bf16; the JAX package
 //       calls the two TPU kernels bit-identical), so it is K12's code under
 //       its own symbol and counter.
@@ -117,6 +118,11 @@
 //   Heads of 32 (K1 only: the tiny VAE's mid-block at 768^2, 9216 tokens in
 //   one head of 32, which the JAX package sends to _flash_kernel_fullc_nt):
 //   hd 80's plan at two k16 steps, P V on m64n32k16.
+//   Heads of 64 (SDXL's UNet: 10 heads at 4096 tokens and 640 channels, 20 at
+//   1024 tokens and 1280 channels, 1024^2): hd 80's plan at four k16 steps,
+//   P V on m64n64k16; 64 is four whole k16 steps, so no pad column and no
+//   ones lane. At (32, 4096, 640) the 4 B S^2 C flops take 1.39 ms at the
+//   bf16 peak and the 5.4 G exponentials 0.56 ms: the tensor cores bound it.
 // Alignment is TMA's: 16-byte base and row stride (C a multiple of 8).
 
 #include <cuda.h>
@@ -221,13 +227,35 @@ __device__ __forceinline__ void wgmma_m64n56k16(float (&d)[28], const uint32_t (
         "n"(kTransB));
 }
 
-// d += A B on the width of P V: n160 at hd 160, n80 at hd 80, n56 at hd 40
-// (48 V columns, 8 of ones), n32 at hd 32
+// d (64 x 64, fp32) += A (64 x 16, bf16, registers) B (16 x 64, bf16, N-major
+// shared-memory descriptor)
+__device__ __forceinline__ void wgmma_m64n64k16_t(float (&d)[32], const uint32_t (&a)[4],
+                                                  uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+// d += A B on the width of P V: n160 at hd 160, n80 at hd 80, n64 at hd 64,
+// n56 at hd 40 (48 V columns, 8 of ones), n32 at hd 32
 template <int NO>
 __device__ __forceinline__ void wgmma_out(float (&d)[NO / 2], const uint32_t (&a)[4],
                                           uint64_t desc_b) {
   if constexpr (NO == 160) wgmma_m64n160k16<1>(d, a, desc_b, 1);
   else if constexpr (NO == 80) wgmma_m64n80k16<1>(d, a, desc_b, 1);
+  else if constexpr (NO == 64) wgmma_m64n64k16_t(d, a, desc_b);
   else if constexpr (NO == 32) wgmma_m64n32k16_t(d, a, desc_b);
   else wgmma_m64n56k16<1>(d, a, desc_b, 1);
 }
@@ -524,6 +552,7 @@ int dispatch_hd(const void* q, const void* k, const void* v, void* o, int batch,
       if constexpr (kTag == 1) return launch<32, kTag, kF32>(q, k, v, o, batch, seq, heads, s);
       return cudaErrorInvalidValue;
     case 40: return launch<40, kTag, kF32>(q, k, v, o, batch, seq, heads, s);
+    case 64: return launch<64, kTag, kF32>(q, k, v, o, batch, seq, heads, s);
     case 80: return launch<80, kTag, kF32>(q, k, v, o, batch, seq, heads, s);
     case 160: return launch<160, kTag, kF32>(q, k, v, o, batch, seq, heads, s);
     default: return cudaErrorInvalidValue;
@@ -545,7 +574,7 @@ extern "C" {
 
 // q, k, v, o: (batch, seq, heads * hd), contiguous, 16-byte aligned (TMA's
 // rule for the base and the row stride); k and v bf16, q and o bf16 or, with
-// fp32 != 0, fp32; hd 40, 80 or 160 (K1 also 32), any head count, any seq >=
+// fp32 != 0, fp32; hd 40, 64, 80 or 160 (K1 also 32), any head count, any seq >=
 // 1. The anchor rounded to bf16 (anchored_attention_t): K1's counter and
 // symbol.
 int md_flash_fullc(const void* q, const void* k, const void* v, void* o, int batch, int seq,

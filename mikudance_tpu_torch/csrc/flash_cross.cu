@@ -5,7 +5,8 @@
 //      _cross_kernel_fullc (:598, entry flash_attention_cross :631): S queries
 //      (9216 and 2304 tokens at 768^2, 5184 and 1296 at 576^2; 16384, 4096
 //      and 1024 at 1024^2) against the 257 CLIP tokens, heads of 40, 80 and
-//      160 packed in C, the exact softmax; any 1 to 512 keys.
+//      160 packed in C (SD1.5), and of 64 (SDXL: 4096 and 1024 tokens at
+//      1024^2, 10 and 20 heads), the exact softmax; any 1 to 512 keys.
 //
 // What bounds it on the card: S x 257 scores a head against S hd bytes of Q
 // and O. At (32, 9216, 320) the bytes (0.38 GB of Q and O) take 0.116 ms at
@@ -366,7 +367,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bat
 extern "C" {
 
 // q (batch, q_len, heads * hd), k and v (batch, kv_len, heads * hd), o like
-// q: bf16, contiguous, 16-byte aligned; hd 40, 80 or 160, any head count, any
+// q: bf16, contiguous, 16-byte aligned; hd 40, 64, 80 or 160, any head count, any
 // q_len >= 1, 1 <= kv_len <= 512. fp32 != 0: q holds q' (scaled by log2(e) /
 // sqrt(hd) and rounded to bf16 by the caller) and o is fp32.
 int md_flash_cross(const void* q, const void* k, const void* v, void* o, int batch, int q_len,
@@ -376,6 +377,7 @@ int md_flash_cross(const void* q, const void* k, const void* v, void* o, int bat
   const bool f = fp32 != 0;
   switch (hd) {
     case 40: return launch<40>(q, k, v, o, batch, q_len, kv_len, heads, f, s);
+    case 64: return launch<64>(q, k, v, o, batch, q_len, kv_len, heads, f, s);
     case 80: return launch<80>(q, k, v, o, batch, q_len, kv_len, heads, f, s);
     case 160: return launch<160>(q, k, v, o, batch, q_len, kv_len, heads, f, s);
     default: return cudaErrorInvalidValue;

@@ -115,12 +115,13 @@ PLAIN_SCORE_BYTES = 1 << 30
 MAX_CROSS_KEYS = 512
 # Head widths the kernels take (the CUDA sources instantiate these): packed
 # K1, K2 and K10-K12 at SD1.5's three UNet levels (320, 640 and 1280 channels
-# in 8 heads; level 2 takes a flash route from 1024 tokens, 1024^2 up), wide
+# in 8 heads; level 2 takes a flash route from 1024 tokens, 1024^2 up) and
+# at SDXL's (heads of 64: 10 of them at 640 channels, 20 at 1280), wide
 # K4 and K9 in the VAE mid-block. K1 also takes heads of 32: the tiny VAE of
 # the SD-width fidelity gate (``scripts/psnr_sd_width.py``) has one head of 32
 # in its mid-block, 9216 tokens at 768^2, which the JAX package sends to
 # ``flash_attention_fullc_nt``.
-PACKED_HEAD_DIMS = (40, 80, 160)
+PACKED_HEAD_DIMS = (40, 64, 80, 160)
 FULLC_HEAD_DIMS = (32,) + PACKED_HEAD_DIMS
 WIDE_HEAD_DIMS = (512,)
 # What q, k and v may each be (the output takes q's dtype).

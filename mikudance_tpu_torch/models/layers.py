@@ -20,7 +20,7 @@ All token tensors are (B, S, C); all image tensors are NHWC.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -264,29 +264,57 @@ def linear_1x1(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
 
 
 class SpatialTransformer(nn.Module):
-    """GroupNorm -> 1x1 proj_in -> TransformerBlock -> 1x1 proj_out (+res).
+    """GroupNorm -> proj_in -> ``depth`` TransformerBlocks -> proj_out (+res).
 
-    ``Transformer2DModel`` with the SD1.5 config (1x1-conv projections, one
-    block, ``transformer_blocks.0``)."""
+    ``Transformer2DModel``: SD1.5's config (1x1-conv projections, one block,
+    ``transformer_blocks.0``) or SDXL's (``linear`` projections, up to ten
+    blocks, ``transformer_blocks.0..9``). Every block writes and reads a bank
+    of its own."""
 
     def __init__(self, dim: int, heads: int, cross_dim: int = 768, norm_groups: int = 32,
-                 remat: bool = False):
+                 remat: bool = False, depth: int = 1, linear: bool = False):
         super().__init__()
+        self.linear = linear
         self.norm = GroupNorm(norm_groups, dim, 1e-6)
-        self.proj_in = nn.Conv2d(dim, dim, 1)
+        self.proj_in = nn.Linear(dim, dim) if linear else nn.Conv2d(dim, dim, 1)
         self.transformer_blocks = nn.ModuleList(
-            [TransformerBlock(dim, heads, cross_dim, remat)])
-        self.proj_out = nn.Conv2d(dim, dim, 1)
+            [TransformerBlock(dim, heads, cross_dim, remat) for _ in range(depth)])
+        self.proj_out = nn.Linear(dim, dim) if linear else nn.Conv2d(dim, dim, 1)
 
     @property
     def block(self) -> TransformerBlock:
         return self.transformer_blocks[0]
 
+    def _project(self, x: torch.Tensor, proj: nn.Module) -> torch.Tensor:
+        return proj(x) if self.linear else linear_1x1(x, proj)
+
+    def stack(self, x: torch.Tensor, context: Optional[torch.Tensor], write: bool = False,
+              ref_kv: Optional[List[Optional[KV]]] = None,
+              ctx_kv: Optional[List[Optional[KV]]] = None,
+              ref: Optional[List[Optional[torch.Tensor]]] = None):
+        """x: (B, H, W, C). ``ref_kv``, ``ctx_kv`` and ``ref`` hold one entry a
+        block (or are None). Returns (h, [bank of each block] or None)."""
+        B, H, W, C = x.shape
+        h = self._project(self.norm(x), self.proj_in).reshape(B, H * W, C)
+        banks = [] if write else None
+        for b, blk in enumerate(self.transformer_blocks):
+            h, bank = blk(h, context, write=write,
+                          ref_kv=None if ref_kv is None else ref_kv[b],
+                          ctx_kv=None if ctx_kv is None else ctx_kv[b],
+                          ref=None if ref is None else ref[b])
+            if write:
+                banks.append(bank)
+        h = self._project(h, self.proj_out).reshape(B, H, W, C)
+        return h + x, banks
+
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor],
                 write: bool = False, ref_kv: Optional[KV] = None,
                 ctx_kv: Optional[KV] = None, ref: Optional[torch.Tensor] = None):
-        B, H, W, C = x.shape
-        h = linear_1x1(self.norm(x), self.proj_in).reshape(B, H * W, C)
-        h, bank = self.block(h, context, write=write, ref_kv=ref_kv, ctx_kv=ctx_kv, ref=ref)
-        h = linear_1x1(h, self.proj_out).reshape(B, H, W, C)
-        return h + x, bank
+        """One-block form: the block's own ``ref_kv`` / ``ctx_kv`` / ``ref``;
+        returns (h, its bank or None). Deeper stacks go through ``stack``."""
+        if len(self.transformer_blocks) != 1:
+            raise ValueError("a stack of several blocks takes per-block banks: use stack()")
+        h, banks = self.stack(x, context, write, None if ref_kv is None else [ref_kv],
+                              None if ctx_kv is None else [ctx_kv],
+                              None if ref is None else [ref])
+        return h, (banks[0] if write else None)

@@ -64,16 +64,16 @@ from ..core.configs import PipelineConfig
 from ..core.mesh import FRAME_AXIS, WIN_AXIS, Axis, Mesh, choose_2d_mesh, pad_to_multiple
 from ..core.params import resolve_device
 from ..diffusion.ddim import DDIMSchedule, inference_step_pairs
-from ..models.unet import (DenoisingUNet, GuidanceUNet, bank_keys,
+from ..models.unet import (DenoisingUNet, GuidanceUNet, bank_keys, bank_position_budget,
                            precompute_context_kv, precompute_reference_kv)
 from ..models.clip_vision import CLIPVisionTower, clip_image_tokens
 from ..models.vae import Decoder, Encoder, latent_mean
 from ..models.vae_temporal import TemporalDecoder
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from . import context as ctx_sched
 from .interpolation import interpolate_latents
 
-SD_LATENT_SCALE = 0.18215
+SD_LATENT_SCALE = 0.18215  # the SD VAE's; a pipeline reads its VAE's own (SDXL: 0.13025)
 
 
 @dataclasses.dataclass
@@ -143,12 +143,12 @@ def encode_frames(vae_enc: Encoder, frames: torch.Tensor, chunk: int = 8,
                       for i in range(0, frames.shape[0], chunk)], dim=0)
     if mesh is not None:
         lats = mesh.all_gather(lats)[:N]
-    return lats * SD_LATENT_SCALE
+    return lats * vae_enc.cfg.scaling_factor
 
 
 def _decode_chunked(vae_dec, latents: torch.Tensor) -> torch.Tensor:
-    c = vae_dec.decode_chunk
-    return torch.cat([vae_dec(latents[i:i + c] / SD_LATENT_SCALE)
+    c, scale = vae_dec.decode_chunk, vae_dec.cfg.scaling_factor
+    return torch.cat([vae_dec(latents[i:i + c] / scale)
                       for i in range(0, latents.shape[0], c)], dim=0)
 
 
@@ -183,12 +183,11 @@ def _decode_frame_sharded(vae_dec, latents: torch.Tensor, mesh: Mesh) -> torch.T
     chunk) decodes on every rank alike."""
     N, c = latents.shape[0], vae_dec.decode_chunk
     per, i, frames = c // mesh.size, mesh.index(), Axis(mesh)
-    full = N - N % c
-    parts = [mesh.all_gather(vae_dec(latents[s + i * per:s + (i + 1) * per] / SD_LATENT_SCALE,
-                                     frames))
+    scale, full = vae_dec.cfg.scaling_factor, N - N % c
+    parts = [mesh.all_gather(vae_dec(latents[s + i * per:s + (i + 1) * per] / scale, frames))
              for s in range(0, full, c)]
     if N % c:
-        parts.append(vae_dec(latents[full:] / SD_LATENT_SCALE))
+        parts.append(vae_dec(latents[full:] / scale))
     return torch.cat(parts, dim=0)
 
 
@@ -338,9 +337,11 @@ class VideoPipeline:
     # ------------------------------------------------------------------ banks
     def _compute_banks(self, window_cond: torch.Tensor, window_motion: torch.Tensor,
                        g_ctx: torch.Tensor, mesh: Optional[Mesh] = None,
-                       need: Optional[list] = None) -> Dict[str, torch.Tensor]:
+                       need: Optional[list] = None,
+                       g_add: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
         """Guidance UNet over the given (window, position) condition frames;
-        t=0. The guidance UNet is per frame: with a mesh each rank runs its
+        t=0; ``g_add``: each position's added conditioning (SDXL), or None.
+        The guidance UNet is per frame: with a mesh each rank runs its
         share of the positions, and the banks go where ``need`` (one
         ascending array of positions per grid index) sends them. Nothing is
         gathered: a rank ends with the banks of its own positions only."""
@@ -348,7 +349,8 @@ class VideoPipeline:
             per = pad_to_multiple(window_cond.shape[0], mesh.size) // mesh.size
             lo, mine = mesh.index() * per, need[mesh.index()]
             banks = self._compute_banks(*(_local_rows(x, mesh)
-                                          for x in (window_cond, window_motion, g_ctx)))
+                                          for x in (window_cond, window_motion, g_ctx)),
+                                        g_add=None if g_add is None else _local_rows(g_add, mesh))
             send = [p[(p >= lo) & (p < lo + per)] - lo for p in need]
             recv = [int(((mine >= j * per) & (mine < (j + 1) * per)).sum())
                     for j in range(mesh.size)]
@@ -356,10 +358,10 @@ class VideoPipeline:
             return {k: mesh.exchange(v[idx], [len(p) for p in send], recv)
                     for k, v in banks.items()}
         t0 = torch.zeros((window_cond.shape[0],), dtype=torch.int32, device=self.device)
-        return self.bundle.guide(window_cond, window_motion, t0, g_ctx)
+        return self.bundle.guide(window_cond, window_motion, t0, g_ctx, add_emb=g_add)
 
     def _compute_banks_q8(self, window_cond, window_motion, g_ctx, chunk: int,
-                          mesh: Optional[Mesh] = None):
+                          mesh: Optional[Mesh] = None, g_add: Optional[torch.Tensor] = None):
         """The banks of every given position as (int8 values, fp32 scales):
         the guidance UNet runs over ``chunk`` positions at a time and each
         chunk is quantized as it is produced, so the extra memory is one
@@ -370,14 +372,17 @@ class VideoPipeline:
         if mesh is not None:
             parts = self._compute_banks_q8(*(_local_rows(x, mesh)
                                              for x in (window_cond, window_motion, g_ctx)),
-                                           chunk)
+                                           chunk,
+                                           g_add=None if g_add is None else _local_rows(g_add,
+                                                                                        mesh))
             return tuple({k: mesh.all_gather(v)[:n] for k, v in part.items()}
                          for part in parts)
         chunk = max(1, min(chunk, n))
         qv, qs = {}, {}
         for i in range(0, n, chunk):
             piece = quantize_banks(self._compute_banks(
-                window_cond[i:i + chunk], window_motion[i:i + chunk], g_ctx[i:i + chunk]))
+                window_cond[i:i + chunk], window_motion[i:i + chunk], g_ctx[i:i + chunk],
+                g_add=None if g_add is None else g_add[i:i + chunk]))
             for buf, part in zip((qv, qs), piece):
                 for k, p in part.items():
                     if k not in buf:
@@ -399,8 +404,10 @@ class VideoPipeline:
     def _denoise(self, noise: torch.Tensor, banks: Dict[str, torch.Tensor],
                  ctx_cond: torch.Tensor, windows: np.ndarray, counts: torch.Tensor,
                  ts: np.ndarray, prev_ts: np.ndarray, guidance_scale: float,
-                 mesh: Optional[Mesh] = None) -> torch.Tensor:
-        """noise: (T, h, w, 4); banks: each (nw*wf, S, C), cond half.
+                 mesh: Optional[Mesh] = None, added=None) -> torch.Tensor:
+        """noise: (T, h, w, 4); banks: each (nw*wf, S, C), cond half;
+        ``added``: the denoiser's added conditioning of the (uncond, cond)
+        halves, each (1, time embedding), or None.
         Returns the final fp32 latents (T, h, w, 4).
 
         With a ('win', 'frame') mesh the UNet is SPMD: a rank runs its block
@@ -429,6 +436,13 @@ class VideoPipeline:
                               ctx_cond.expand((nw,) + ctx_cond.shape[1:])]).to(dt)
             ctx_kv2 = precompute_context_kv(den, ctx2[rows[0]:rows[1]],
                                             bank_keys(den.cfg.unet), dt)
+            # the raw banks and their K/V, held through the loop
+            count("bank_bytes", sum(t.numel() * t.element_size()
+                                    for t in [*banks.values(), *(x for kv in banks2.values()
+                                                                 for x in kv)]))
+        add2 = None
+        if added is not None:  # (uncond, cond) rows of the CFG batch, this rank's
+            add2 = torch.cat([added[0].expand(nw, -1), added[1].expand(nw, -1)])[rows[0]:rows[1]]
         frame_axis = None if mesh is None else Axis(mesh, FRAME_AXIS)
 
         win_idx = torch.as_tensor(windows, dtype=torch.long, device=self.device)
@@ -440,7 +454,7 @@ class VideoPipeline:
                 batch = torch.cat([win, win])[rows[0]:rows[1], frames[0]:frames[1]].to(dt)
                 t_b = torch.full((rows[1] - rows[0],), t, dtype=torch.int32, device=self.device)
                 pred = den(batch, t_b, banks_kv=banks2, ctx_kv=ctx_kv2,
-                           frame_axis=frame_axis).float()
+                           frame_axis=frame_axis, add_emb=add2).float()
                 if mesh is not None:  # the blocks of every rank -> (2 nw, wf, h, w, 4)
                     grid = mesh.all_gather(pred[None]).reshape((dw, df) + pred.shape)
                     pred = grid.transpose(1, 2).reshape((2 * nw, wf) + pred.shape[2:])
@@ -458,7 +472,8 @@ class VideoPipeline:
                           windows: np.ndarray, counts: torch.Tensor, ts: np.ndarray,
                           prev_ts: np.ndarray, guidance_scale: float, group: int,
                           banks_cached=None, bank_idx=None, win_w: Optional[np.ndarray] = None,
-                          mesh: Optional[Mesh] = None) -> torch.Tensor:
+                          mesh: Optional[Mesh] = None, added=None,
+                          g_add: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Long-clip denoise: the UNet runs over groups of ``group`` windows,
         never over all windows at once. Three bank modes share the loop:
 
@@ -482,7 +497,9 @@ class VideoPipeline:
         rank summing its own groups' predictions; the sums are added over the
         ranks before the DDIM update, which every rank computes alike.
         ``win_w`` (nw,): 0 for the pad windows that make the groups split
-        evenly, whose predictions stay out of the sums."""
+        evenly, whose predictions stay out of the sums. ``added``: the
+        denoiser's (uncond, cond) added conditioning, ``g_add`` (nw*wf, ...)
+        the guidance UNet's per position, or None."""
         den = self.bundle.den
         nw, wf = windows.shape
         cdt, gdt = _dtype(den), _dtype(self.bundle.guide)
@@ -490,6 +507,7 @@ class VideoPipeline:
         quantized = isinstance(banks_cached, tuple)
         ctx_b = ctx_cond.expand((group,) + ctx_cond.shape[1:]).to(cdt)
         ctx_0 = torch.zeros_like(ctx_b)
+        add_u, add_c = (None, None) if added is None else added
         win_idx = torch.as_tensor(windows, dtype=torch.long, device=self.device)
         if quantized:
             bank_idx = torch.as_tensor(bank_idx, dtype=torch.long, device=self.device)
@@ -497,7 +515,7 @@ class VideoPipeline:
         def group_banks(rows: slice, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
             if recompute:
                 return self._compute_banks(cond20[flat].to(gdt), motion[flat].to(gdt),
-                                           g_ctx[rows])
+                                           g_ctx[rows], g_add=None if g_add is None else g_add[rows])
             if quantized:
                 idx = bank_idx[rows]
                 qv, qs = banks_cached
@@ -521,9 +539,9 @@ class VideoPipeline:
                     w_g = win_idx[g0:g0 + group]  # (group, wf)
                     flat = w_g.reshape(-1)
                     win = latents[w_g].to(cdt)  # (group, wf, h, w, 4)
-                    pred_u = den(win, t_b, ctx_0).float()
+                    pred_u = den(win, t_b, ctx_0, add_emb=add_u).float()
                     banks = group_banks(slice(g0 * wf, (g0 + group) * wf), flat)
-                    pred_c = den(win, t_b, ctx_b, banks=banks).float()
+                    pred_c = den(win, t_b, ctx_b, banks=banks, add_emb=add_c).float()
                     del banks
                     if win_w is not None:  # pad windows (weight 0) stay out of the sums
                         w = win_w[g0:g0 + group][:, None, None, None, None]
@@ -571,11 +589,17 @@ class VideoPipeline:
         decode: bool = True,
         to_host: bool = False,
         timer=None,  # utils.profiling.Timer: per-phase wall times (syncs between phases)
+        time_ids=None,  # (6,) SDXL's added time ids, where the UNets take them
+        pooled=None,  # (1, 1280) SDXL's pooled vector, where the UNets take it
     ):
         """Returns the fp32 latents (decode=False), uint8 frames (T', H, W, 3)
         on the device, or, with to_host=True, the uint8 frames as numpy;
         T' = (T - 1) * 2^(interpolation_factor - 1) + 1. On a mesh every rank
-        returns the whole result."""
+        returns the whole result. ``time_ids`` and ``pooled``: the added
+        conditioning of UNets that have one (SDXL's "text_time"); the
+        uncond half of CFG takes a zero pooled vector, as it takes a zero
+        CLIP context, and so does every guidance position that takes the
+        uncond context. SD1.5's UNets take none."""
         cfgc = self.config
         T, H_img, W_img = pose_frames.shape[:3]
         windows = ctx_sched.window_matrix(
@@ -587,7 +611,7 @@ class VideoPipeline:
                 out = self._sample(ref_image, ref_skel, pose_frames, face_frames, hand_frames,
                                    scene_motion, clip_context, noise, windows, mesh,
                                    num_inference_steps, guidance_scale, decode,
-                                   to_host and not subset, timer)
+                                   to_host and not subset, timer, time_ids, pooled)
         else:  # a rank the chosen mesh leaves out waits for the result
             f = cfgc.interpolation_factor
             n = T if f <= 1 else (T - 1) * 2 ** (f - 1) + 1
@@ -602,7 +626,8 @@ class VideoPipeline:
 
     def _sample(self, ref_image, ref_skel, pose_frames, face_frames, hand_frames, scene_motion,
                 clip_context, noise, windows: np.ndarray, mesh: Optional[Mesh],
-                num_inference_steps, guidance_scale, decode: bool, to_host: bool, timer):
+                num_inference_steps, guidance_scale, decode: bool, to_host: bool, timer,
+                time_ids=None, pooled=None):
         """``__call__``'s work on a rank of ``mesh`` (or on the one device)."""
         mark = timer.mark if timer is not None else (lambda name: None)
         if timer is not None:
@@ -615,6 +640,8 @@ class VideoPipeline:
         nw, wf = windows.shape
         if cfgc.bank_mode not in ("auto", "cached", "per_step", "cached_q8"):
             raise ValueError(f"unknown bank_mode {cfgc.bank_mode!r}")
+        if (time_ids is None) != (pooled is None):
+            raise ValueError("the added conditioning takes both time_ids and pooled")
 
         # 1. VAE encodes. An absent face/hand stream (None), or a present
         # all-black uint8 one, is the reference CLI's black-frame fallback:
@@ -675,9 +702,12 @@ class VideoPipeline:
         noise = torch.as_tensor(noise, device=dev)
         q8 = cfgc.bank_mode == "cached_q8"
         n_mesh = mesh.size if mesh is not None else 1
+        # the bank budget in this UNet's positions (SD1.5's: cached_bank_positions)
+        bank_pos = bank_position_budget(cfgc.cached_bank_positions, self.bundle.den.cfg.unet,
+                                        *noise.shape[1:3])
         grouped = q8 or (nw > 1 and nw * wf > cfgc.max_denoise_frame_batch * n_mesh)
         alike = grouped and wf > cfgc.max_denoise_frame_batch
-        budget = cfgc.cached_bank_positions * (1 if alike else n_mesh)
+        budget = bank_pos * (1 if alike else n_mesh)
         per_step = cfgc.bank_mode == "per_step" or (cfgc.bank_mode == "auto" and nw * wf > budget)
         # the grouped tiers on a mesh: window groups split over its ranks;
         # where the group count does not split, zero-weight pad windows (the
@@ -685,7 +715,7 @@ class VideoPipeline:
         # budget (bank memory for per-step banks, else the UNet batch)
         stream_mesh, win_eff, win_w = None, windows, None
         if (per_step or grouped) and mesh is not None:
-            budget_pos = cfgc.cached_bank_positions if per_step else cfgc.max_denoise_frame_batch
+            budget_pos = bank_pos if per_step else cfgc.max_denoise_frame_batch
             if choose_bank_group(nw, wf, budget_pos, mesh.size):
                 stream_mesh = mesh
             elif wf <= budget_pos:
@@ -701,16 +731,33 @@ class VideoPipeline:
         n_sh = stream_mesh.size if stream_mesh is not None else 1
         g_ctx = guidance_context_for_windows(
             win_eff, ctx_cond, torch.zeros_like(ctx_cond), cfgc.guidance_clip_mode).to(gdt)
+        # the added conditioning (SDXL): the denoiser's (uncond, cond) halves
+        # and the guidance UNet's per position, each projected once a clip
+        added, g_add, add_of = None, None, None
+        if pooled is not None:
+            tid = torch.as_tensor(np.asarray(time_ids), device=dev).float().reshape(1, -1)
+            pool = torch.as_tensor(pooled, device=dev).float().reshape(1, -1)
+            den = self.bundle.den
+            added = (den.added_embedding(tid, torch.zeros_like(pool)),
+                     den.added_embedding(tid, pool))
+
+            def add_of(uncond: np.ndarray) -> torch.Tensor:  # per position, guidance UNet's
+                u = torch.as_tensor(uncond, device=dev)[:, None]
+                return self.bundle.guide.added_embedding(
+                    tid.expand(u.shape[0], -1), torch.where(u, torch.zeros_like(pool), pool))
+
+            g_add = add_of(context_variants(win_eff, cfgc.guidance_clip_mode))
         ts, prev_ts = inference_step_pairs(self.schedule, steps,
                                            spacing=cfgc.scheduler.timestep_spacing)
 
         # 3. the loop over DDIM steps
         if per_step:
             with span("denoise_streamed"):
-                group = choose_bank_group(nw_eff, wf, cfgc.cached_bank_positions, n_sh)
+                group = choose_bank_group(nw_eff, wf, bank_pos, n_sh)
                 latents = self._denoise_streamed(noise, cond20, motion, ctx_cond, g_ctx,
                                                  win_eff, counts, ts, prev_ts, float(scale),
-                                                 group, win_w=win_w, mesh=stream_mesh)
+                                                 group, win_w=win_w, mesh=stream_mesh,
+                                                 added=added, g_add=g_add)
                 mark("denoise_streamed")
         else:
             with span("guidance_banks"):
@@ -723,19 +770,22 @@ class VideoPipeline:
                     g_ctx_u = torch.where(u_mask, torch.zeros_like(ctx_cond), ctx_cond).to(gdt)
                     banks = self._compute_banks_q8(cond20[u_frames].to(gdt),
                                                    motion[u_frames].to(gdt), g_ctx_u,
-                                                   chunk=cfgc.cached_bank_positions, mesh=mesh)
+                                                   chunk=bank_pos, mesh=mesh,
+                                                   g_add=None if add_of is None
+                                                   else add_of(u_uncond))
                 elif grouped and stream_mesh is not None:  # the banks of this rank's windows
                     per = nw_eff // stream_mesh.size * wf
                     mine = slice(stream_mesh.index() * per, (stream_mesh.index() + 1) * per)
                     f = torch.as_tensor(win_eff.reshape(-1)[mine], dtype=torch.long, device=dev)
                     banks = self._compute_banks(cond20[f].to(gdt), motion[f].to(gdt),
-                                                g_ctx[mine])
+                                                g_ctx[mine],
+                                                g_add=None if g_add is None else g_add[mine])
                 else:  # every window's banks; on a mesh, those of this rank's UNet block
                     spmd = None if grouped else mesh
                     need = None if spmd is None else [_block_positions(mesh, nw, wf, j)
                                                       for j in range(mesh.size)]
                     banks = self._compute_banks(cond20[flat].to(gdt), motion[flat].to(gdt),
-                                                g_ctx, mesh=spmd, need=need)
+                                                g_ctx, mesh=spmd, need=need, g_add=g_add)
                 mark("guidance_banks")
             with span("denoise"):
                 if grouped:
@@ -747,10 +797,10 @@ class VideoPipeline:
                                                      win_eff, counts, ts, prev_ts, float(scale),
                                                      group, banks_cached=banks,
                                                      bank_idx=bank_idx, win_w=win_w,
-                                                     mesh=stream_mesh)
+                                                     mesh=stream_mesh, added=added, g_add=g_add)
                 else:
                     latents = self._denoise(noise, banks, ctx_cond, windows, counts, ts,
-                                            prev_ts, float(scale), mesh=mesh)
+                                            prev_ts, float(scale), mesh=mesh, added=added)
                 del banks  # gigabytes of cached banks, freed before the decode
                 mark("denoise")
         # 4. optional latent frame-rate upsampling (`pipeline_mikudance.py:688`)

@@ -48,10 +48,12 @@ PROFILE_CATEGORIES = [
     ("K1 hd 40 (S=9216 self)", ("anchor_wg_kernel<40, 1,",)),
     ("K1 hd 80 (S=2304 self)", ("anchor_wg_kernel<80, 1,",)),
     ("K1 hd 160 (S=1024 self)", ("anchor_wg_kernel<160, 1,",)),
+    ("K1 hd 64 (SDXL, S=4096 and 1024 self)", ("anchor_wg_kernel<64, 1,",)),
     ("K1 hd 32 (the tiny VAE)", ("anchor_wg_kernel<32, 1,",)),
     ("K2 hd 40 (S=9216 cross)", ("flash_cross_kernel<40>",)),
     ("K2 hd 80 (S=2304 cross)", ("flash_cross_kernel<80>",)),
     ("K2 hd 160 (S=1024 cross)", ("flash_cross_kernel<160>",)),
+    ("K2 hd 64 (SDXL cross)", ("flash_cross_kernel<64>",)),
     ("K4 hd 512 (VAE)", ("flash_wide_kernel<4>",)),
     ("K9 hd 512 (VAE under 512^2)", ("flash_wide_kernel<9>",)),
     # K3 and K13 are one kernel; the tag (3 or 13) leads its template arguments
@@ -65,13 +67,14 @@ PROFILE_CATEGORIES = [
     ("K8 conv3x3", ("conv3x3_kernel",)),
     ("K12 anchored attention, bf16 anchor", ("anchor_wg_kernel<40, 12,",
                                              "anchor_wg_kernel<80, 12,",
-                                             "anchor_wg_kernel<160, 12,")),
+                                             "anchor_wg_kernel<160, 12,",
+                                             "anchor_wg_kernel<64, 12,")),
     ("K14 mega-block", ("mega_kernel",)),
     ("K15 GEGLU", ("geglu_kernel",)),
     ("K10 anchored attention", ("anchor_wg_kernel<40, 10,", "anchor_wg_kernel<80, 10,",
-                                "anchor_wg_kernel<160, 10,")),
+                                "anchor_wg_kernel<160, 10,", "anchor_wg_kernel<64, 10,")),
     ("K11 anchored attention", ("anchor_wg_kernel<40, 11,", "anchor_wg_kernel<80, 11,",
-                                "anchor_wg_kernel<160, 11,")),
+                                "anchor_wg_kernel<160, 11,", "anchor_wg_kernel<64, 11,")),
     # cuDNN's FFT algorithm (its transforms and gemvx products) before the
     # other convolutions, whose names it shares
     ("FFT convolution (cuDNN)", ("fft", "gemvx", "region_transform")),

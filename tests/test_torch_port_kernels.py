@@ -79,7 +79,9 @@ def check(got: torch.Tensor, want) -> None:
     pytest.param(40, 4, 3.0, id="40-4-clamp"), pytest.param(80, 2, 3.0, id="80-2-clamp"),
     pytest.param(40, 3, 3.0, id="40-3-clamp"),
     pytest.param(160, 2, 1.0, id="160-2"),                # SD1.5's level 2 (1024^2 and up)
-    pytest.param(160, 2, 3.0, id="160-2-clamp")])
+    pytest.param(160, 2, 3.0, id="160-2-clamp"),
+    pytest.param(64, 2, 1.0, id="64-2"),                  # SDXL's levels 1 and 2
+    pytest.param(64, 2, 3.0, id="64-2-clamp")])
 def test_k1_plain_matches_pallas_fullc_nt(hd, heads, q_scale, jx):
     """K1's route on the CPU is ``anchored_attention_t``, what the TPU kernel
     computes: with q three times as large the +-100 clamp bites, and there the
@@ -106,12 +108,12 @@ def test_k1_plain_matches_pallas_fullc_nt(hd, heads, q_scale, jx):
 
 
 @pytest.mark.parametrize("hd,Skv", [(40, 257), (80, 257), (40, 77), (160, 257), (160, 512),
-                                    (160, 77)])
+                                    (160, 77), (64, 257)])
 def test_k2_plain_matches_pallas_cross(hd, Skv, jx):
     """257 CLIP tokens (a ragged key tile for the TPU kernel and a 16-key tail
     for the port's), 77 (a text context) and 512 (the most the cross route
     takes: two chunks of keys on the card at heads of 160), heads of 40, 80
-    and 160."""
+    and 160, and SDXL's of 64."""
     B, S, heads = 2, 256, 4
     q, k, v = qkv(23 + hd + Skv, (B, S, heads * hd), (B, Skv, heads * hd), (B, Skv, heads * hd))
     want = jx.fa.flash_attention_cross(
@@ -557,6 +559,9 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
         pfa._check_operands("k", x, x, x, 2, pfa.PACKED_HEAD_DIMS)
     for hd in (40, 80, 160):  # SD1.5's three levels, 8 heads each
         assert pfa._check_operands("k", *(m(2, 1024, 8 * hd),) * 3, 8, pfa.PACKED_HEAD_DIMS) == hd
+    for heads in (10, 20):  # SDXL's levels 1 and 2: heads of 64
+        assert pfa._check_operands("k", *(m(2, 1024, 64 * heads),) * 3, heads,
+                                   pfa.PACKED_HEAD_DIMS) == 64
     with pytest.raises(ValueError, match="T <= 32"):
         x = torch.empty(1, 33, 4, 16, dtype=torch.bfloat16, device="meta")
         pta._check_operands(x, x, x, 2)
@@ -960,7 +965,9 @@ def test_norm_kernel_matches_plain_on_card(case, cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["K1-hd40", "K1-hd80", "K1-hd40-3-heads", "K1-clamp-hd40",
-                                  "K1-clamp-hd80", "K1-hd160", "K1-clamp-hd160", "K2", "K2-hd80",
+                                  "K1-clamp-hd80", "K1-hd160", "K1-clamp-hd160", "K1-hd64",
+                                  "K1-clamp-hd64", "K1-hd64-20-heads", "K2", "K2-hd80",
+                                  "K2-hd64", "K2-hd64-20-heads",
                                   "K2-ragged", "K2-77-keys", "K2-512-keys", "K2-hd160",
                                   "K2-hd160-77-keys", "K2-hd160-512-keys", "K3", "K3-one-frame",
                                   "K3-30-frames", "K3-20-frames", "K3-32-frames-hd40",
@@ -976,18 +983,21 @@ def test_kernel_matches_plain_on_card(case, cuda):
 
     kern = case.split("-")[0]
     if kern == "K1":  # K1 is held to the TPU kernel's function, the clamp included
-        hd = 40 if "hd40" in case else 160 if "hd160" in case else 80
-        heads = 3 if case.endswith("3-heads") else 8
+        hd = 40 if "hd40" in case else 160 if "hd160" in case else 64 if "hd64" in case else 80
+        heads = 3 if case.endswith("3-heads") else 20 if case.endswith("20-heads") else \
+            10 if hd == 64 else 8  # SDXL: 10 heads of 64 at 640 channels, 20 at 1280
         args, fn, plain = [r(2, 1100, heads * hd, scale=3.0 if "clamp" in case else 1.0),
                            r(2, 1100, heads * hd), r(2, 1100, heads * hd), heads], \
             pfa.flash_attention_fullc, pfa.anchored_attention_t
         bites = pfa.anchor_excursion(args[0], args[1], heads) > pfa.EXP_CLAMP
         assert bites == ("clamp" in case)
     elif kern == "K2":  # the CLIP context, a text context, the most keys K2 holds
-        C = 640 if case == "K2-hd80" else 1280 if "hd160" in case else 320
+        C = 640 if case in ("K2-hd80", "K2-hd64") else 1280 if "hd160" in case or \
+            "20-heads" in case else 320
         S = 1091 if case == "K2-ragged" else 1100
         S_kv = 77 if case.endswith("77-keys") else 512 if case.endswith("512-keys") else 257
-        args, fn, plain = [r(2, S, C), r(2, S_kv, C), r(2, S_kv, C), 8], \
+        heads = C // 64 if "hd64" in case else 8
+        args, fn, plain = [r(2, S, C), r(2, S_kv, C), r(2, S_kv, C), heads], \
             pfa.cross_attention, pfa.dot_product_attention
     elif kern == "K3":  # one frame: a motion-module denoiser at T = 1; K3 computes the
         # TPU body's function (q' and P rounded to bf16), temporal_attention_rounded
@@ -1247,7 +1257,8 @@ def test_anchored_kernels_share_one_source_under_three_entry_points(kern):
     "K10-hd40-3-heads", "K10-hd40-3-heads-ragged", "K10-1296-hd80", "K11-hd40",
     "K11-hd80", "K11-ragged", "K11-clamp", "K12-hd40", "K12-hd80", "K12-ragged", "K12-clamp",
     "K11-9216-vs-K10", "K12-vs-K1", "K12-hd40-3-heads", "K10-hd160", "K10-hd160-ragged",
-    "K11-hd160", "K12-hd160", "K12-clamp-hd160", "K12-vs-K1-hd160"])
+    "K11-hd160", "K12-hd160", "K12-clamp-hd160", "K12-vs-K1-hd160", "K10-hd64", "K11-hd64",
+    "K12-hd64", "K12-vs-K1-hd64"])
 def test_row_major_kernel_matches_plain_on_card(case, cuda):
     g = torch.Generator(device=cuda).manual_seed(1)
     twin = None  # another kernel of the same function, held to this one on the same inputs
@@ -1293,13 +1304,15 @@ def test_row_major_kernel_matches_plain_on_card(case, cuda):
         counter, got = pcv.K8, lambda: pcv.conv3x3_fused(x, w, b)
         want = pcv.conv3x3_plain(x, w, b)
     else:
-        hd = 80 if case.endswith("hd80") else 160 if "hd160" in case else 40
+        hd = 80 if case.endswith("hd80") else 160 if "hd160" in case else \
+            64 if "hd64" in case else 40
         S = 1091 if case.endswith("ragged") else 1152
         B = 20 if "1296" in case else 2  # the transposed trainer's level 1
         S = 1296 if "1296" in case else S
         if "9216" in case:  # the row-major level 0, where K11 runs
             B, S = 32, 9216
-        heads = 3 if "3-heads" in case else 8  # an odd count: the last head of 40 is alone
+        # an odd count: the last head of 40 is alone; SDXL: 10 heads of 64 at level 1
+        heads = 3 if "3-heads" in case else 10 if hd == 64 else 8
         C = heads * hd
         q, k, v = r(B, S, C, scale=3.0 if "clamp" in case else 1.0), r(B, S, C), r(B, S, C)
         fn, counter = {"K10": (pfa.flash_anchor_resident, pfa.K10),
@@ -1311,7 +1324,8 @@ def test_row_major_kernel_matches_plain_on_card(case, cuda):
         assert (pfa.anchor_excursion(q, k, heads) > pfa.EXP_CLAMP) == ("clamp" in case)
         twin = {"K11-9216-vs-K10": pfa.flash_anchor_resident,
                 "K12-vs-K1": pfa.flash_attention_fullc,
-                "K12-vs-K1-hd160": pfa.flash_attention_fullc}.get(case)
+                "K12-vs-K1-hd160": pfa.flash_attention_fullc,
+                "K12-vs-K1-hd64": pfa.flash_attention_fullc}.get(case)
     before = counter.launches
     out = got()
     torch.cuda.synchronize()

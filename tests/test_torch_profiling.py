@@ -536,7 +536,10 @@ def test_profile_text_reads_busy_as_the_union():
 
 def test_pipeline_spans_and_the_same_frames_traced_or_not(pipes):
     """The tiny CPU pipeline under a profiler: one ``clip`` with its phases,
-    the projection and one ``denoise_step`` a step under ``denoise``; the
+    the projection and one ``denoise_step`` a step under ``denoise``, and a
+    ``spatial_stack_l<level>`` span around each spatial transformer call,
+    under ``guidance_banks`` or a ``denoise_step`` (16 a UNet call at this
+    SD1.5 wiring: 5 at each of levels 0-2, the mid block's at level 3); the
     frames bit for bit the same with the profiler on and off, with a Timer
     and without."""
     port, _ = pipes
@@ -557,7 +560,15 @@ def test_pipeline_spans_and_the_same_frames_traced_or_not(pipes):
     denoise = children[3]
     inner = [s.name for s in spans if s.parent == denoise.index]
     assert inner == ["bank_kv"] + ["denoise_step"] * CONFIG.num_inference_steps
-    assert all(s.parent in (clip.index, denoise.index) for s in spans[1:])
+    stacks = [s for s in spans if s.name.startswith("spatial_stack_l")]
+    assert all(s.parent in (clip.index, denoise.index) for s in spans[1:] if s not in stacks)
+    by_index = {s.index: s for s in spans}
+    for parent in ("guidance_banks", "denoise_step"):
+        under = [s.name for s in stacks if by_index[s.parent].name == parent]
+        calls = 1 if parent == "guidance_banks" else CONFIG.num_inference_steps
+        assert sorted(set(under)) == [f"spatial_stack_l{lv}" for lv in range(4)]
+        assert [under.count(f"spatial_stack_l{lv}") for lv in range(4)] == [5 * calls] * 3 + [calls]
+    assert len(stacks) == 16 * (1 + CONFIG.num_inference_steps)
 
 
 def test_streamed_tier_spans(pipes):
@@ -569,9 +580,14 @@ def test_streamed_tier_spans(pipes):
     with cpu_profile():
         pipe(*inputs(2), decode=False)
     spans = pf.recorded()
-    assert [s.name for s in spans] == ["clip", "h2d_normalize", "vae_encode", "denoise_streamed",
-                                       "denoise_step", "denoise_step"]
-    assert [s.parent for s in spans[4:]] == [3, 3]
+    stacks = [s for s in spans if s.name.startswith("spatial_stack_l")]
+    top = [s for s in spans if s not in stacks]
+    assert [s.name for s in top] == ["clip", "h2d_normalize", "vae_encode", "denoise_streamed",
+                                     "denoise_step", "denoise_step"]
+    assert [s.parent for s in top[4:]] == [3, 3]
+    # the banks' guidance UNet and the denoiser's two passes, inside each step
+    steps = {s.index for s in top[4:]}
+    assert stacks and all(s.parent in steps for s in stacks)
 
 
 def tiny_train(seed=0):
@@ -613,9 +629,12 @@ def test_train_step_spans_and_the_same_step_traced_or_not():
             got = traced(batch, torch.Generator().manual_seed(i))
         assert torch.equal(want["loss"], got["loss"]) and want["grad_norm"] == got["grad_norm"]
         spans = pf.recorded()
-        assert [(s.name, s.parent) for s in spans] == [
+        stacks = [s for s in spans if s.name.startswith("spatial_stack_l")]
+        assert [(s.name, s.parent) for s in spans if s not in stacks] == [
             ("train_step", None), ("forward", 0), ("backward", 0), ("gradients", 0),
             ("optimizer", 0)]
+        # both UNets' spatial transformers, each call a span under the forward
+        assert stacks and all(s.parent == 1 for s in stacks)
     want_p, got_p = plain_state.trainable, traced_state.trainable
     assert list(want_p) == list(got_p)
     assert all(torch.equal(want_p[k], got_p[k]) for k in want_p)
