@@ -22,14 +22,15 @@ Phases, in order, one line each; any failure exits non-zero:
 
 1. card: the device and its power limit (nvidia-smi), TF32 switches;
 2. build: nvcc builds the kernel library from ``mikudance_tpu_torch/csrc``;
-3. kernels: K1-K15 against their plain PyTorch versions at the
+3. kernels: K1-K16 against their plain PyTorch versions at the
    paths' shapes, atol = rtol = 2e-2 and a relative-L2 limit, each with a
    control that the limit must reject (attention: softmax scale off by 9% on
    bf16 N(0, 1) inputs;
    K5: the wrong group size, K6: a row width miscounted by 20%, both on
    inputs with a per-channel offset and spread, K6's with a per-row offset
    too; K7: the bias or the residual left out; K8: the taps transposed; K14:
-   the bank K/V left out; K15: the halves swapped),
+   the bank K/V left out; K15: the halves swapped; K16: delta left out of
+   ds, at request F's three attention shapes, all three gradients),
    median times of the
    kernel, its plain version and the one library call that computes the
    same function, and the least time the card could take (``bound_ms``).
@@ -168,7 +169,7 @@ Phases, in order, one line each; any failure exits non-zero:
     launches' shape arguments recorded; the row-major latents held to the
     default ones as request E's are (control: the bank K/V left out);
 14. request I, the toolbox's networks (stock PyTorch ops, fp32, random seeded
-    weights; no kernel of K1-K15 may launch): UniPose-SwinT on bench.py's
+    weights; no kernel of K1-K16 may launch): UniPose-SwinT on bench.py's
     XPose batch (10 frames at 800^2, 4 instance slots, 68 keypoints, 900
     queries), median seconds of 3 forwards after a warm-up, peak memory,
     shapes and finite outputs; the video driver's ``Detector.detect`` on a
@@ -228,7 +229,8 @@ those read when it was added (``H_LAUNCHES``).
 It prints the kernel record (one JSON object; ``ms``, ``plain_ms``,
 ``library_ms`` and ``bound_ms`` at each kernel's first shape; ``launches``
 from request B, for K9 and K13 from request D, for K7, K8, K10 and K11 from
-request E, for K12 from request F, for K14 from request G; request L's rank
+request E, for K12 from request F (transposed), for K16 from request F
+(default), for K14 from request G; request L's rank
 0 beside them), the nvidia-smi line, and
 last the result line. Uses one card, the first visible one; imports nothing
 of JAX.
@@ -1296,6 +1298,59 @@ def geglu_cases(dev, only=()):
         del y
 
 
+# K16's (batch, q_len, kv_len, channels, heads) in request F's step (20 frames at
+# 576^2): level 0's self-attention, level 1's, level 0's cross-attention
+BACKWARD_SHAPES = ((20, 5184, 5184, 320, 8), (20, 1296, 1296, 640, 8), (20, 5184, 257, 320, 8))
+
+
+def backward_fault(q, k, v, g, heads: int, *, delta: bool = True, round_p: bool = True):
+    """K16's controls: the plain backward's arithmetic, one batch element at a
+    time, with a planted fault: delta left out of ds = p (dp - delta), or p
+    not rounded to bf16 before P^T g. dq, dk, dv in the inputs' dtype, as the
+    kernel leaves them."""
+    B, S, C = q.shape
+    hd = C // heads
+    grads = [torch.empty(t.shape, dtype=torch.float32, device=t.device) for t in (q, k, v)]
+    for b in range(B):
+        qh, kh, vh, gh = (t[b].reshape(t.shape[1], heads, hd).transpose(0, 1).float()
+                          for t in (q, k, v, g))
+        p = torch.softmax(qh @ kh.transpose(-1, -2) / math.sqrt(hd), dim=-1)
+        dp = gh @ vh.transpose(-1, -2)
+        ds = p * (dp - (dp * p).sum(-1, keepdim=True)) if delta else p * dp
+        ds = ds.to(q.dtype).float()
+        pr = p.to(q.dtype).float() if round_p else p
+        for out, x in zip(grads, (ds @ kh / math.sqrt(hd), ds.transpose(-1, -2) @ qh / math.sqrt(hd),
+                                  pr.transpose(-1, -2) @ gh)):
+            out[b] = x.transpose(0, 1).reshape(out.shape[1:])
+    return [t.to(q.dtype) for t in grads]
+
+
+def backward_cases(dev, only=()):
+    """K16 at request F's three attention shapes, all three gradients, held to
+    the plain version (``flash_backward_plain``: chunked, TF32 on for its
+    bf16-valued fp32 products); run and plain return dq, dk, dv flattened.
+    The control leaves delta out. Bound: seven S_q x S_kv x C products (the
+    statistics pass's two, Q K^T, G V^T, P^T G, dS^T Q, dS K) at the bf16
+    peak, or q, k, v, g read and the gradients written once; no library call
+    computes the backward alone."""
+    from mikudance_tpu_torch.kernels import _autograd as ag
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    for B, S, Skv, C, heads in BACKWARD_SHAPES if wanted(ag.K16, only) else ():
+        q, gr = ((torch.randn((B, S, C), generator=g, device=dev) * f).to(torch.bfloat16)
+                 for f in (2.0, 1.0))
+        k, v = (torch.randn((B, Skv, C), generator=g, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        ins = (q, k, v, gr, heads)
+        yield (ag.K16, f"{ag.K16.name} x({B}, {S}, {C}) against {Skv} keys, {heads} heads",
+               lambda ins=ins: torch.cat([t.flatten() for t in ag.flash_backward(*ins)]),
+               lambda ins=ins: torch.cat([t.flatten() for t in ag.flash_backward_plain(*ins)]),
+               lambda ins=ins: torch.cat([t.flatten() for t in backward_fault(*ins, delta=False)]),
+               None, 14 * B * S * Skv * C,
+               (3 * B * S + 4 * B * Skv) * C * 2, PEAK_BF16)
+        del q, k, v, gr, ins
+
+
 def mega_cases(dev, only=()):
     """K14 at the probe's three levels; the control leaves the bank K/V out.
     No single library call computes the block: the read path is timed beside.
@@ -1544,7 +1599,7 @@ def phase_kernels(dev, only=()):
     for kern, what, run, plain, control, library, flops, nbytes, peak, *rest in itertools.chain(
             attention_cases(dev, only), norm_cases(dev, only), anchored_cases(dev, only),
             fp32_cases(dev, only), linear_cases(dev, only), conv_cases(dev, only),
-            mega_cases(dev, only), geglu_cases(dev, only)):
+            mega_cases(dev, only), geglu_cases(dev, only), backward_cases(dev, only)):
         got = run()
         torch.cuda.synchronize()
         want = plain()
@@ -2083,7 +2138,7 @@ def tf32_convolutions():
 
 def request_i(dev, profile: bool = False) -> dict:
     """Request I: the toolbox's networks on the card, stock PyTorch ops (no
-    kernel of K1-K15 is on this path, as in the JAX package). UniPose on
+    kernel of K1-K16 is on this path, as in the JAX package). UniPose on
     bench.py's 10 x 800^2 batch and through the video driver's ``Detector``
     on a clip, then one 384^2 frame, DPT-hybrid, CLIP-text and the
     deformable-attention op each held to the port's own CPU run, each with a
@@ -2391,7 +2446,8 @@ def request_i(dev, profile: bool = False) -> dict:
 
 
 def kernel_list():
-    """K1-K15, in order."""
+    """K1-K16, in order."""
+    from mikudance_tpu_torch.kernels import _autograd as ag
     from mikudance_tpu_torch.kernels import conv2d as cv
     from mikudance_tpu_torch.kernels import flash_attention as fa
     from mikudance_tpu_torch.kernels import geglu as gg
@@ -2402,7 +2458,7 @@ def kernel_list():
     from mikudance_tpu_torch.kernels import temporal_attention as ta
 
     return (fa.K1, fa.K2, ta.K3, fa.K4, gn.K5, ln.K6, lin.K7, cv.K8, fa.K9, fa.K10, fa.K11,
-            fa.K12, ta.K13, mb.K14, gg.K15)
+            fa.K12, ta.K13, mb.K14, gg.K15, ag.K16)
 
 
 def request_k_rank(control: bool, probe: bool, memory_fraction: float = 1.0) -> dict:
@@ -3135,6 +3191,7 @@ def request_l(dev, ref: dict = None, l1: tuple = None) -> dict:
 
     from mikudance_tpu_torch import graft_entry
     from mikudance_tpu_torch.core import mesh as mesh_lib
+    from mikudance_tpu_torch.kernels import _autograd as ag
     from mikudance_tpu_torch.kernels import flash_attention as fa
     from mikudance_tpu_torch.kernels import group_norm as gn
     from mikudance_tpu_torch.kernels import layer_norm as ln
@@ -3253,7 +3310,7 @@ def request_l(dev, ref: dict = None, l1: tuple = None) -> dict:
         del got
     shutil.rmtree(root, ignore_errors=True)
     del ref
-    on_l = [fa.K1, fa.K2, ta.K3, fa.K4, gn.K5, ln.K6, fa.K10, fa.K12]
+    on_l = [fa.K1, fa.K2, ta.K3, fa.K4, gn.K5, ln.K6, fa.K10, fa.K12, ag.K16]
     hold(all(k.name in ran for k in on_l),
          f"request L: kernels launched on the ranks: {sorted(ran)}")
 
@@ -3317,6 +3374,7 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the card")
     check(torch.cuda.device_count() == 1, f"one card, got {torch.cuda.device_count()}")
     from mikudance_tpu_torch.core.configs import ContextConfig, PipelineConfig
+    from mikudance_tpu_torch.kernels import _autograd as ag
     from mikudance_tpu_torch.kernels import _build, row_major, transposed
     from mikudance_tpu_torch.kernels import mega_block as mb
     from mikudance_tpu_torch.kernels import conv2d as cv
@@ -3332,9 +3390,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     kernels = kernel_list()
     # the row-major configuration's kernels launch only inside row_major();
-    # K12 only inside transposed(); K14 is the probe's and on no model's path
+    # K12 only inside transposed(); K14 is the probe's and on no model's path;
+    # K16 is the attention backward, which only the trainers run
     row_major_only = (lin.K7, cv.K8, fa.K10, fa.K11)
-    off_the_sampler = (fa.K12, mb.K14)
+    off_the_sampler = (fa.K12, mb.K14, ag.K16)
     default_kernels = [k for k in kernels if k not in row_major_only + off_the_sampler]
     # K9 and K13 take only maps under 512^2: requests A, B and C run at 768^2
     at_768 = [k for k in default_kernels if k not in (fa.K9, ta.K13)]
@@ -3430,7 +3489,7 @@ def main() -> int:
                 state, records, phases, peaks = run_training("stage2", TRAIN_STEPS,
                                                              os.path.join(train_dir, name), dev)
             wall = time.perf_counter() - t0
-            on_f = [fa.K2, ta.K3, fa.K4, gn.K5, ln.K6, gg.K15] + (
+            on_f = [fa.K2, ta.K3, fa.K4, gn.K5, ln.K6, gg.K15, ag.K16] + (
                 [fa.K12, fa.K10] if name == "transposed" else [fa.K1])
             launches = read_counts(f"request F ({name})", on_f,
                                    absent=[k for k in kernels if k not in on_f], also_absent=())
@@ -3508,7 +3567,7 @@ def main() -> int:
         check(rel(loss_k, loss_p) < SMALL_STEP_LOSS_REL and grads_k.keys() == grads_p.keys()
               and rel_g < SMALL_STEP_GRAD_REL_L2 < rel_c,
               f"small train step: loss {loss_k} vs {loss_p}, gradients {rel_g} (control {rel_c})")
-        check(used == [k.name for k in (fa.K1, fa.K2, ta.K3, gn.K5, ln.K6, gg.K15)],
+        check(used == [k.name for k in (fa.K1, fa.K2, ta.K3, gn.K5, ln.K6, gg.K15, ag.K16)],
               f"small train step: kernels {used}")
         del state, grads_k, grads_p, grads_c, batch, draws
         torch.cuda.empty_cache()
@@ -3519,8 +3578,8 @@ def main() -> int:
         state1, records1, phases1, peaks1 = run_training(
             "stage1", 2, os.path.join(train_dir, "stage1"), dev, data={"train_bs": 1})
         wall = time.perf_counter() - t0
-        launches_s1 = read_counts("stage-1 steps", [fa.K1, fa.K2, fa.K4, gn.K5, ln.K6],
-                                  absent=[ta.K3, fa.K9, ta.K13])
+        launches_s1 = read_counts("stage-1 steps", [fa.K1, fa.K2, fa.K4, gn.K5, ln.K6, ag.K16],
+                                  absent=[ta.K3, fa.K9, ta.K13], also_absent=(fa.K12, mb.K14))
         same_launches("stage-1 steps", launches_s1)
         check(all(math.isfinite(r["train_loss"]) and math.isfinite(r["grad_norm"])
                   for r in records1)
@@ -3704,12 +3763,12 @@ def main() -> int:
         return counts_f
 
     def run_request_i() -> dict:
-        """Request I with the kernel counts at 0 before it: no kernel of K1-K15
+        """Request I with the kernel counts at 0 before it: no kernel of K1-K16
         may launch on the toolbox's path."""
         reset_counts()
         readings = request_i(dev, profile=args.profile)
         read_counts("request I", expect=(), absent=kernels, also_absent=())
-        log(f"request I: launches of K1-K15: {sum(k.launches for k in kernels)}")
+        log(f"request I: launches of K1-K16: {sum(k.launches for k in kernels)}")
         return readings
 
     if args.request_i:
@@ -4039,7 +4098,8 @@ def main() -> int:
     for rec in record.values():
         # launches: from the main path that runs the kernel, request B at
         # 768^2, request D for the two kernels of smaller maps, request E for
-        # the row-major configuration's
+        # the row-major configuration's, request F for K12 (transposed) and
+        # K16 (default), request G for K14
         on_d = rec["name"] in (fa.K9.name, ta.K13.name)
         rec["launches_request_e"] = launches_e[rec["name"]]
         rec["launches_request_b"] = launches_b[rec["name"]]
@@ -4058,6 +4118,8 @@ def main() -> int:
             rec["launches"] = launches_f[rec["name"]]
         if rec["name"] == mb.K14.name:
             rec["launches"] = launches_g[rec["name"]]
+        if rec["name"] == ag.K16.name:
+            rec["launches"] = launches_f_default[rec["name"]]
         rec["launches_request_a"] = launches_a[rec["name"]]
         rec["launches_request_h"] = launches_h[rec["name"]]
         rec["launches_request_h_row_major"] = launches_h_rm[rec["name"]]

@@ -69,6 +69,11 @@ SIGNATURES = {
     "md_mega_block": (P, I, I, I, I, I, I, F, P, P),
     # y, out, rows, half width I, fp32, stream
     "md_geglu": (P, P, L, I, I, P),
+    # q, k, v, g, dq, dk, dv (each null where not wanted), statistics scratch, its floats,
+    # batch, q_len, kv_len, heads, head_dim, stream
+    "md_flash_backward": (P, P, P, P, P, P, P, P, L, I, I, I, I, I, P),
+    # batch, q_len, heads, head_dim, out: md_flash_backward's scratch floats
+    "md_flash_backward_scratch": (I, I, I, I, ctypes.POINTER(L)),
     # error code -> message
     "md_error_string": (I,),
 }

@@ -69,12 +69,12 @@ def card_name(device: torch.device) -> str:
 
 
 def port_kernels():
-    """The port's kernels, K1-K15, whose launches the gate records."""
-    from ..kernels import conv2d, flash_attention as fa, geglu, group_norm, layer_norm, linear
-    from ..kernels import mega_block, temporal_attention as ta
+    """The port's kernels, K1-K16, whose launches the gate records."""
+    from ..kernels import _autograd, conv2d, flash_attention as fa, geglu, group_norm, layer_norm
+    from ..kernels import linear, mega_block, temporal_attention as ta
 
     return (fa.K1, fa.K2, ta.K3, fa.K4, group_norm.K5, layer_norm.K6, linear.K7, conv2d.K8,
-            fa.K9, fa.K10, fa.K11, fa.K12, ta.K13, mega_block.K14, geglu.K15)
+            fa.K9, fa.K10, fa.K11, fa.K12, ta.K13, mega_block.K14, geglu.K15, _autograd.K16)
 
 
 def run_gate(dtypes=("fp32",), steps: int = 2, device=None, log=None, unet_cfg=None,

@@ -71,6 +71,7 @@ PROFILE_CATEGORIES = [
                                              "anchor_wg_kernel<64, 12,")),
     ("K14 mega-block", ("mega_kernel",)),
     ("K15 GEGLU", ("geglu_kernel",)),
+    ("K16 attention backward", ("attn_bwd_rows_kernel", "attn_bwd_cols_kernel")),
     ("K10 anchored attention", ("anchor_wg_kernel<40, 10,", "anchor_wg_kernel<80, 10,",
                                 "anchor_wg_kernel<160, 10,", "anchor_wg_kernel<64, 10,")),
     ("K11 anchored attention", ("anchor_wg_kernel<40, 11,", "anchor_wg_kernel<80, 11,",

@@ -1,4 +1,5 @@
-"""The port's kernels (attention K1-K4, K9, K13, GroupNorm K5, LayerNorm K6, GEGLU K15; the
+"""The port's kernels (attention K1-K4, K9, K13, GroupNorm K5, LayerNorm K6, GEGLU K15, the
+attention backward K16; the
 row-major configuration's K7, K8, K10, K11 have their plain-vs-Pallas tests in
 ``test_torch_port_row_major.py`` and their dispatch, refusals and card tests
 here): plain
@@ -22,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from mikudance_tpu_torch.kernels import _autograd as pag
 from mikudance_tpu_torch.kernels import conv2d as pcv
 from mikudance_tpu_torch.kernels import flash_attention as pfa
 from mikudance_tpu_torch.kernels import geglu as pgg
@@ -31,10 +33,11 @@ from mikudance_tpu_torch.kernels import linear as plin
 from mikudance_tpu_torch.kernels import row_major
 from mikudance_tpu_torch.kernels import temporal_attention as pta
 from mikudance_tpu_torch.models import layers as players
+from mikudance_tpu_torch.utils import profiling
 
 ATOL = RTOL = 2e-2  # kernel against dense, as tests/test_flash_attention.py
 ALL_KERNELS = (pfa.K1, pfa.K2, pta.K3, pfa.K4, pgn.K5, pln.K6, plin.K7, pcv.K8, pfa.K9, pfa.K10,
-               pfa.K11, pta.K13, pgg.K15)
+               pfa.K11, pta.K13, pgg.K15, pag.K16)
 
 
 def qkv(seed, *shapes):
@@ -530,6 +533,64 @@ def test_cpu_tensors_never_launch():
     torch.testing.assert_close(pgg.fused_geglu(y), pgg.geglu_plain(y),        # K15 route
                                rtol=0, atol=0)
     assert [kern.launches for kern in ALL_KERNELS] == [0] * len(ALL_KERNELS)
+
+
+# The attention backward's route by what the call's operands show: (q, k, v
+# dtype, g dtype, head width, heads, S_q, S_kv, device) -> whether K16 takes it
+BACKWARD_ROUTES = {
+    "level0-self": (torch.bfloat16, torch.bfloat16, 40, 8, 5184, 5184, "cuda", True),
+    "level1-self": (torch.bfloat16, torch.bfloat16, 80, 8, 1296, 1296, "cuda", True),
+    "level0-cross": (torch.bfloat16, torch.bfloat16, 40, 8, 5184, 257, "cuda", True),
+    "sdxl-hd64-cross": (torch.bfloat16, torch.bfloat16, 64, 10, 4096, 77, "cuda", True),
+    "ragged-77": (torch.bfloat16, torch.bfloat16, 40, 8, 77, 77, "cuda", True),
+    "one-query": (torch.bfloat16, torch.bfloat16, 80, 8, 1, 3, "cuda", True),
+    "fp32-request": (torch.float32, torch.float32, 40, 8, 5184, 5184, "cuda", False),
+    "fp32-cotangent": (torch.bfloat16, torch.float32, 40, 8, 5184, 5184, "cuda", False),
+    "level2-hd160": (torch.bfloat16, torch.bfloat16, 160, 8, 1024, 1024, "cuda", False),
+    "vae-hd512": (torch.bfloat16, torch.bfloat16, 512, 1, 9216, 9216, "cuda", False),
+    "tiny-vae-hd32": (torch.bfloat16, torch.bfloat16, 32, 1, 9216, 9216, "cuda", False),
+    "cpu": (torch.bfloat16, torch.bfloat16, 40, 8, 5184, 5184, "cpu", False),
+}
+
+
+@pytest.mark.parametrize("case", list(BACKWARD_ROUTES))
+def test_attention_backward_route(case):
+    """K16 takes bf16 CUDA operands at heads of 40, 64 and 80, at any S_q and
+    S_kv; fp32 requests, other head widths and CPU tensors keep the plain
+    version. The rule reads only metadata, so stand-ins carry it here."""
+    dtype, g_dtype, hd, heads, S, Skv, device, kernel = BACKWARD_ROUTES[case]
+
+    def operand(s, dt):
+        return types.SimpleNamespace(shape=(2, s, hd * heads), dtype=dt,
+                                     device=torch.device(device))
+
+    q, k, v = operand(S, dtype), operand(Skv, dtype), operand(Skv, dtype)
+    assert pag.takes_kernel(q, k, v, operand(S, g_dtype), heads) is kernel
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cpu_attention_backward_is_the_plain_version(dtype):
+    """On CPU tensors ``flash_backward`` is ``flash_backward_plain`` bit for
+    bit for every set of wanted gradients, launches nothing and charges no
+    backward counter to the open span (the counters count calls on the card)."""
+    rng = np.random.default_rng(16)
+    q, g = (torch.from_numpy(rng.normal(size=(2, 77, 80)).astype(np.float32)).to(dtype)
+            for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(2, 50, 80)).astype(np.float32)).to(dtype)
+            for _ in range(2))
+    before = pag.K16.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with profiling.span("train_step"):
+            for needs in [(a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1)][1:]:
+                needs = tuple(map(bool, needs))
+                got = pag.flash_backward(q, k, v, g, 2, needs)
+                want = pag.flash_backward_plain(q, k, v, g, 2, needs)
+                for a, b, n in zip(got, want, needs):
+                    assert (a is None) == (b is None) == (not n)
+                    assert a is None or (a.dtype == dtype and torch.equal(a, b))
+    spans = profiling.recorded()
+    assert pag.K16.launches == before and [s.name for s in spans] == ["train_step"]
+    assert not {"attn_bwd_kernel", "attn_bwd_plain"} & set(spans[0].counters)
 
 
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take():
@@ -1578,3 +1639,98 @@ def test_k15_launches_once_a_feed_forward_of_the_denoiser(cuda):
     torch.cuda.synchronize()
     assert feed_forwards == 37 and pgg.K15.launches - before == 37
     assert out.shape == sample.shape and bool(torch.isfinite(out.float()).all())
+
+
+# K16's (batch, q_len, kv_len, channels, heads): request F's step (20 frames at
+# 576^2) at levels 0 and 1, self- and cross-attention; ragged lengths; SDXL's
+# heads of 64
+K16_CARD_SHAPES = {"level0-self": (20, 5184, 5184, 320, 8),
+                   "level1-self": (20, 1296, 1296, 640, 8),
+                   "level0-cross": (20, 5184, 257, 320, 8),
+                   "level1-cross": (20, 1296, 257, 640, 8),
+                   "ragged-self-77": (3, 77, 77, 320, 8),
+                   "ragged-hd80-kv77": (2, 1155, 77, 640, 8),
+                   "hd64-kv77": (2, 1024, 77, 640, 10)}
+# relative L2 of each of dq, dk, dv against the plain version. On an H100 the
+# kernel reads 4.2e-6 to 2.2e-4 at these shapes (the plain version's roundings,
+# sums in another order); delta left out reads 0.26-0.80 (dq, dk), p unrounded
+# before P^T g 2.55e-3 to 2.73e-3 (dv)
+K16_REL_L2 = 5e-4
+
+
+def _k16_inputs(shape, dev, seed):
+    B, S, Skv, C, heads = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn((B, S, C), generator=gen, device=dev) * 2).to(torch.bfloat16)
+    k, v = (torch.randn((B, Skv, C), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    g = torch.randn((B, S, C), generator=gen, device=dev).to(torch.bfloat16)
+    return q, k, v, g, heads
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(K16_CARD_SHAPES))
+def test_k16_matches_plain_on_card(shape, cuda):
+    """One K16 call gives dq, dk and dv each within K16_REL_L2 of the plain
+    version's; the two planted faults (delta left out: dq, dk; p unrounded
+    before P^T g: dv) land beyond it, so the check can fail."""
+    q, k, v, g, heads = _k16_inputs(K16_CARD_SHAPES[shape], cuda, 16)
+    before = pag.K16.launches
+    got = pag.flash_backward(q, k, v, g, heads)
+    torch.cuda.synchronize()
+    assert pag.K16.launches == before + 1
+    want = pag.flash_backward_plain(q, k, v, g, heads)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype == torch.bfloat16 and a.shape == b.shape
+    errs = [_rel(a, b) for a, b in zip(got, want)]
+    from chip_smoke import backward_fault  # the smoke's controls, defined once
+
+    no_delta = backward_fault(q, k, v, g, heads, delta=False)
+    unrounded = backward_fault(q, k, v, g, heads, round_p=False)
+    controls = [_rel(no_delta[0], want[0]), _rel(no_delta[1], want[1]),
+                _rel(unrounded[2], want[2])]
+    assert max(errs) < K16_REL_L2 < min(controls), (errs, controls)
+
+
+@pytest.mark.cuda
+def test_k16_honours_needs_on_card(cuda):
+    """Every set of wanted gradients gives those alone, each with the bits of
+    the call that wants all three; through the K1 wrapper a frozen k gets no
+    gradient and the backward is one K16 call."""
+    q, k, v, g, heads = _k16_inputs((3, 1000, 1000, 320, 8), cuda, 17)
+    full = pag.flash_backward(q, k, v, g, heads)
+    for needs in [(a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1)][1:]:
+        needs = tuple(map(bool, needs))
+        got = pag.flash_backward(q, k, v, g, heads, needs)
+        for a, b, n in zip(got, full, needs):
+            assert (a is None) == (not n)
+            assert a is None or torch.equal(a, b)
+    ql, kl, vl = q.clone().requires_grad_(), k.clone(), v.clone().requires_grad_()
+    before = pag.K16.launches
+    pfa.flash_attention_fullc(ql, kl, vl, heads).backward(g)
+    torch.cuda.synchronize()
+    assert pag.K16.launches == before + 1 and kl.grad is None
+    assert torch.equal(ql.grad, full[0]) and torch.equal(vl.grad, full[2])
+
+
+@pytest.mark.cuda
+def test_k16_route_and_counters_on_card(cuda):
+    """On the card a bf16 backward at heads of 40 takes K16 and counts
+    ``attn_bwd_kernel``; an fp32 one and one at heads of 160 take the plain
+    version, launch nothing and count ``attn_bwd_plain``."""
+    q, k, v, g, heads = _k16_inputs((2, 300, 300, 320, 8), cuda, 18)
+    wide = _k16_inputs((2, 300, 300, 1280, 8), cuda, 19)
+    before = pag.K16.launches
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with profiling.span("train_step"):
+            pag.flash_backward(q, k, v, g, heads)
+            pag.flash_backward(*(t.float() for t in (q, k, v, g)), heads)
+            pag.flash_backward(*wide)
+    torch.cuda.synchronize()
+    (step,) = profiling.recorded()
+    assert pag.K16.launches == before + 1
+    assert step.counters.get("attn_bwd_kernel") == 1 and step.counters.get("attn_bwd_plain") == 2
